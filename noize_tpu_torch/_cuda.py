@@ -1,0 +1,139 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled on first use with nvcc into one shared library
+with a plain C interface and bound with ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
+         -shared -Xcompiler -fPIC
+
+``-fmad=false`` keeps every multiply and add separately rounded, as the
+reference's f32 arithmetic is; several kernels branch on exact f32 values
+(the pool clamp, the thermal rectify).
+
+The library lands in ``build/noize_tpu_torch/lib_<hash of sources>.so``
+beside the package, so an edited source rebuilds and an unchanged one
+loads the cached build.  Every C entry point launches on the stream it is
+given and returns ``cudaGetLastError()``; :func:`call` raises on a non-zero
+code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = CSRC.parent.parent / "build" / "noize_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+#: argtypes of every C entry point (csrc/*.cu); all return int.
+SIGNATURES = {
+    # x, out, tmp, rows, cols, taps (host f32[k]), k, iterations, stream
+    "noize_separable_chain": (_P, _P, _P, _I, _I, _P, _I, _I, _P),
+    # height, out, water, fw, fe, fs, fn, res, iterations, norm_min, rng,
+    # stream
+    "noize_flow_map": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
+    # in, out, res, iterations, max_diff, increment, stream
+    "noize_thermal_erosion": (_P, _P, _I, _I, _F, _F, _P),
+    # height, pool_in, pool_out, drains, flag, scratch, res, iterations,
+    # drain_particles, stream
+    "noize_pool_automata": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+}
+
+_LIB = None
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def library_path() -> pathlib.Path:
+    digest = hashlib.sha256()
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile ``csrc/*.cu`` unless the library for these sources exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, building it on first use."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def call(name: str, *args) -> None:
+    """Call C entry ``name``; raise if it reports a CUDA error."""
+    rc = getattr(library(), name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+
+
+def stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_map(t: torch.Tensor, name: str, square: bool = True,
+              even: bool = False) -> None:
+    """Refuse what the kernels do not take: non-CUDA, non-f32, non-2-D,
+    non-contiguous, non-square where ``square``, odd-sized where ``even``."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    if t.dim() != 2 or (square and t.shape[0] != t.shape[1]):
+        raise ValueError(f"{name}: expected a {'square ' if square else ''}"
+                         f"2-D map, got {tuple(t.shape)}")
+    if even and t.shape[0] % 2:
+        raise ValueError(f"{name}: expected an even size, got {t.shape[0]}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

@@ -1,0 +1,58 @@
+"""State that crosses between the JAX reference and the port.
+
+The system has no weights; what crosses is the erosion state — the five
+``WorldState`` maps plus the queued drain water — and particle buffers.
+Arrays travel as numpy: float32 stays float32, int32 stays int32, bool
+stays bool.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .erosion.particles import Particles
+from .erosion.sim import SimState
+from .erosion.world import WorldState
+
+WORLD_MAPS = ("height", "pool", "flow", "track", "plants")
+
+_DTYPES = {
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.bool_): torch.bool,
+}
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype not in _DTYPES:
+        raise TypeError(f"unsupported dtype {a.dtype}; expected float32, int32 or bool")
+    # a writable copy: arrays from JAX are read-only views
+    return torch.from_numpy(np.array(a)).to(device=device)
+
+
+def sim_state_from_numpy(world: dict, drain_water, device="cpu",
+                         generator=None) -> SimState:
+    """SimState from the five world maps (``world[name]`` for name in
+    WORLD_MAPS) and the drain-water map."""
+    maps = {k: _to_tensor(world[k], device) for k in WORLD_MAPS}
+    return SimState(world=WorldState(**maps),
+                    drain_water=_to_tensor(drain_water, device),
+                    generator=generator)
+
+
+def sim_state_to_numpy(state: SimState):
+    """(world dict, drain_water) as numpy arrays."""
+    world = {k: getattr(state.world, k).cpu().numpy() for k in WORLD_MAPS}
+    return world, state.drain_water.cpu().numpy()
+
+
+def particles_from_numpy(parts: dict, device="cpu") -> Particles:
+    """Particles from a dict (or any mapping / NamedTuple ``_asdict()``)
+    of the eight particle fields."""
+    return Particles(**{k: _to_tensor(parts[k], device) for k in Particles._fields})
+
+
+def particles_to_numpy(p: Particles) -> dict:
+    return {k: getattr(p, k).cpu().numpy() for k in Particles._fields}

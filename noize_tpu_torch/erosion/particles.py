@@ -1,0 +1,295 @@
+"""Beyer droplet particles — simultaneous descent; port of
+``noize_tpu.erosion.particles``.
+
+All N particles advance together, one step per iteration, with an alive
+mask; each step's event deltas are scatter-added into three accumulator
+maps (track, pool, sediment) in the reference's order (step-major, then
+particle slot), so every per-cell float32 sum matches.  The reference's
+semantics are kept: flow-inflated neighbour heights quantised to 2
+decimals, 8-heading constrained steering with the natural drain as
+fallback, the death conditions and their payouts, drag, slope-resolved
+acceleration, the terminal-velocity soft clamp, the capacity exchange and
+evaporation.
+
+Division by a constant is written as multiplication by its float32
+reciprocal: that is what XLA's algebraic simplifier makes of the
+reference's divisions in every compiled JAX program, and it keeps the
+CPU and the card on the same bits.
+
+Only the ``"waf"`` table layout is ported; the reference's patch
+prefetch (``patch_k``), the ``"wf"`` layout and the alive-compaction
+cascade are TPU tuning and give the same sums as the plain loop here.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..ops.f32 import recip, sqrt
+from .world import NEIGHBOR_OFFSETS, WorldState
+
+_F32 = torch.float32
+
+# Compass ring in ChooseHeading order: N, NE, E, SE, S, SW, W, NW as
+# (d_row, d_col); N = +row ("up"), E = +col.
+RING_DR = (1, 1, 0, -1, -1, -1, 0, 1)
+RING_DC = (0, 1, 1, 1, 0, -1, -1, -1)
+
+NONE_HEADING = -1
+
+_NB_DR = tuple(o[0] for o in NEIGHBOR_OFFSETS)
+_NB_DC = tuple(o[1] for o in NEIGHBOR_OFFSETS)
+
+
+class Particles(NamedTuple):
+    """SoA particle state (BeyerParticle fields)."""
+
+    row: torch.Tensor       # f32[N]
+    col: torch.Tensor       # f32[N]
+    heading: torch.Tensor   # i32[N] ring index, -1 = NONE
+    vel: torch.Tensor       # f32[N]
+    water: torch.Tensor     # f32[N]
+    sediment: torch.Tensor  # f32[N]
+    age: torch.Tensor       # i32[N]
+    alive: torch.Tensor     # bool[N]
+
+
+def spawn(generator, n: int, res: int, water=1.0, alive=True, device=None):
+    """FillBeyerQueueJob parity: uniform random integer positions, vel .01,
+    water 1, no heading.  ``generator`` is a ``torch.Generator`` (its
+    device places the particles unless ``device`` is given); its numbers
+    differ from ``jax.random``'s, so tests pass the JAX spawn in through
+    ``sim.erosion_cycle(..., fresh=)``."""
+    if device is None:
+        device = generator.device if generator is not None else "cpu"
+    row = torch.randint(0, res, (n,), generator=generator, device=device)
+    col = torch.randint(0, res, (n,), generator=generator, device=device)
+    return Particles(
+        row=row.to(_F32),
+        col=col.to(_F32),
+        heading=torch.full((n,), NONE_HEADING, dtype=torch.int32, device=device),
+        vel=torch.full((n,), 0.01, dtype=_F32, device=device),
+        water=torch.full((n,), water, dtype=_F32, device=device),
+        sediment=torch.zeros((n,), dtype=_F32, device=device),
+        age=torch.zeros((n,), dtype=torch.int32, device=device),
+        alive=torch.full((n,), alive, dtype=torch.bool, device=device),
+    )
+
+
+def _quantize(v):
+    """int(100·v)/100 — CollectNeighbors* truncation."""
+    return torch.trunc(100.0 * v) * recip(100.0)
+
+
+def _select8(table_rows, idx):
+    """out[i] = table_rows[i, idx[i]] as an 8-way select chain."""
+    out = table_rows[:, 0]
+    for k in range(1, 8):
+        out = torch.where(idx == k, table_rows[:, k], out)
+    return out
+
+
+def _velocity_term(v_diff, eff_friction, gravity, patch_res, sign):
+    """UphillVelocityLoss (sign +1) / DownhillVelocityGain (sign −1) —
+    NaN when v_diff == 0, as the reference's 0/0; callers rely on
+    NaN-compares-false."""
+    theta = torch.atan(v_diff * recip(patch_res))
+    s = gravity * torch.sin(theta)
+    accel = s + eff_friction if sign > 0 else s - eff_friction
+    return sqrt(2.0 * torch.abs(accel) * (v_diff / torch.sin(theta)))
+
+
+def step_maps(state: WorldState, params, height_scale):
+    """The descent's read-only lookup table: [wih, all_heights, flow]
+    flattened and concatenated (the reference's ``"waf"`` layout)."""
+    wih_map = height_scale * (state.height + state.pool)
+    all_h = wih_map + params.FLOW_HEIGHT_CONTRIBUTION * state.flow
+    return torch.cat([wih_map.reshape(-1), all_h.reshape(-1),
+                      state.flow.reshape(-1)])
+
+
+def _gather_step_values(combo, row_i, col_i, res):
+    """All of a step's map lookups: 8 quantised all-heights neighbours,
+    the WIH and the flow at the particle."""
+    n = row_i.shape[0]
+    sz = res * res
+    dr = torch.tensor(_NB_DR, dtype=row_i.dtype, device=row_i.device)
+    dc = torch.tensor(_NB_DC, dtype=col_i.dtype, device=col_i.device)
+    r = torch.clamp(row_i[:, None] + dr[None, :], 0, res - 1)
+    c = torch.clamp(col_i[:, None] + dc[None, :], 0, res - 1)
+    center = row_i * res + col_i
+    idx = torch.cat([(r * res + c).reshape(-1) + sz, center, center + 2 * sz])
+    vals = combo[idx.long()]
+    nb = _quantize(vals[:8 * n].reshape(n, 8))
+    return nb, vals[8 * n:9 * n], vals[9 * n:10 * n]
+
+
+def descend_step(p: Particles, state: WorldState, params, height_scale,
+                 patch_res, res: int, maps=None):
+    """One DescendSimultaneous step for every particle.  Returns
+    (new_particles, events) with per-particle deltas and the cell
+    (row_i, col_i) they land on."""
+    if getattr(params, "VEGETATION_FRICTION", 0.0) > 0.0:
+        raise NotImplementedError(
+            "VEGETATION_FRICTION > 0 is not ported to noize_tpu_torch yet")
+    inv_hs = recip(height_scale)
+    row_i = torch.clamp(torch.round(p.row).to(torch.int32), 0, res - 1)
+    col_i = torch.clamp(torch.round(p.col).to(torch.int32), 0, res - 1)
+    was_alive = p.alive
+
+    # death: dehydration
+    dehydrated = was_alive & (p.water < 0.01)
+    d_sed = torch.where(dehydrated, p.sediment * inv_hs, 0.0)
+    # death: old age
+    too_old = was_alive & ~dehydrated & (p.age >= params.MAXAGE)
+    d_pool = torch.where(too_old, p.water * inv_hs, 0.0)
+    d_sed = d_sed + torch.where(too_old, p.sediment * inv_hs, 0.0)
+
+    active = was_alive & ~dehydrated & ~too_old
+
+    combo = maps if maps is not None else step_maps(state, params, height_scale)
+    nb, current_h, flow_here = _gather_step_values(combo, row_i, col_i, res)
+
+    # natural drain: argmin (first-wins) over nb, direction via WTORDER
+    drain_nb_idx = torch.argmin(nb, dim=-1).to(torch.int32)
+    drain_height = torch.amin(nb, dim=-1)
+    drain_ring = (drain_nb_idx % 4) * 2 + torch.div(drain_nb_idx, 4, rounding_mode="floor")
+
+    heading = torch.where(p.heading < 0, drain_ring, p.heading)
+
+    flow_pos = torch.clamp_min(flow_here, 0.0)
+    eff_drag = params.DRAG * (1.0 - flow_pos)
+    eff_friction = params.FRICTION * (1.0 - flow_pos)
+
+    # constrained steering; RING_TO_NB: nb = ring//2 + 4·(ring&1)
+    left = (heading + 7) % 8
+    right = (heading + 1) % 8
+
+    def ring_to_nb(ring):
+        return torch.div(ring, 2, rounding_mode="floor") + 4 * (ring % 2)
+
+    h_left = _select8(nb, ring_to_nb(left))
+    h_center = _select8(nb, ring_to_nb(heading))
+    h_right = _select8(nb, ring_to_nb(right))
+    go_left = (h_left < h_center) & (h_left < h_right)
+    go_right = (h_right < h_left) & (h_right < h_center)
+    flow_ring = torch.where(go_left, left, torch.where(go_right, right, heading))
+    heading_height = torch.where(go_left, h_left,
+                                 torch.where(go_right, h_right, h_center))
+
+    h_diff = heading_height - current_h
+    vel = p.vel - p.vel * eff_drag  # drag applies before the branch
+
+    loss = _velocity_term(h_diff, eff_friction, params.GRAVITY, patch_res, +1)
+    downhill_ok = h_diff < 0.0
+    uphill_ok = ~downhill_ok & (loss <= vel)      # NaN loss → False
+    take_heading = downhill_ok | uphill_ok
+    velocity_loss = torch.where(uphill_ok, loss, 0.0)
+
+    # fallback: natural drain; die if even the drain is uphill
+    drain_h_diff = drain_height - current_h
+    no_drain = active & ~take_heading & (drain_h_diff > 0.0)
+    d_pool = d_pool + torch.where(no_drain, p.water * inv_hs, 0.0)
+    d_sed = d_sed + torch.where(no_drain, p.sediment * inv_hs, 0.0)
+
+    moving = active & ~no_drain
+    new_ring = torch.where(take_heading, flow_ring, drain_ring)
+    h_diff = torch.where(take_heading, h_diff, drain_h_diff)
+
+    ring_dr = torch.tensor(RING_DR, dtype=_F32, device=p.row.device)
+    ring_dc = torch.tensor(RING_DC, dtype=_F32, device=p.row.device)
+    new_row = p.row + ring_dr[new_ring.long()]
+    new_col = p.col + ring_dc[new_ring.long()]
+
+    # out-of-bounds death loses everything
+    nri = torch.round(new_row).to(torch.int32)
+    nci = torch.round(new_col).to(torch.int32)
+    oob = moving & ((nri < 0) | (nci < 0) | (nri >= res) | (nci >= res))
+    moving = moving & ~oob
+
+    # velocity update
+    v_diff = torch.abs(h_diff)
+    theta = torch.atan(v_diff * recip(patch_res))
+    theta_d = theta * 180.0 * recip(3.14159)
+    gain = _velocity_term(v_diff, eff_friction, params.GRAVITY, patch_res, -1)
+    delta_v = torch.where(
+        v_diff > 0.0, torch.where(h_diff > 0.0, -velocity_loss, gain), 0.0)
+    vel = torch.clamp_min(vel + delta_v, 0.0)
+    over = vel - params.TERMINAL_VELOCITY
+    vel = vel - torch.clamp_min(
+        torch.minimum(over, torch.clamp_min(eff_drag * 0.25 * over * over, 0.0)),
+        0.0)
+
+    # slow-and-flat cull — literal 3° / 1.0 thresholds
+    slow = moving & (theta_d < 3.0) & (vel < 1.0)
+    d_pool = d_pool + torch.where(slow, p.water * inv_hs, 0.0)
+    d_sed = d_sed + torch.where(slow, p.sediment * inv_hs, 0.0)
+    moving = moving & ~slow
+
+    # capacity exchange
+    capacity = vel * p.water * params.CAPACITY
+    deposition = torch.where(
+        p.sediment < capacity,
+        -params.EROSION * (capacity - p.sediment),
+        params.DEPOSITION * (p.sediment - capacity),
+    )
+    d_sed = d_sed + torch.where(moving, deposition * inv_hs, 0.0)
+    new_sediment = torch.where(moving, p.sediment - deposition, p.sediment)
+
+    # water track + evaporation
+    d_track = torch.where(moving, p.water, 0.0)
+    new_water = torch.where(moving, p.water * (1.0 - params.EVAP), p.water)
+
+    out = Particles(
+        row=torch.where(moving, new_row, p.row),
+        col=torch.where(moving, new_col, p.col),
+        heading=torch.where(moving, new_ring, p.heading),
+        vel=torch.where(moving, vel, p.vel),
+        water=new_water,
+        sediment=new_sediment,
+        age=torch.where(moving, p.age + 1, p.age),
+        alive=moving,
+    )
+    events = dict(row=row_i, col=col_i, d_track=d_track, d_pool=d_pool, d_sed=d_sed)
+    return out, events
+
+
+def descend_all(p: Particles, state: WorldState, params, height_scale,
+                patch_res, res: int, max_steps: int = None, chunk: int = 8,
+                syncs: list = None):
+    """Run the full descent; returns (particles, track_acc, pool_acc,
+    sed_acc).
+
+    ``MAXAGE + 1`` steps cover every trajectory, run in chunks of
+    ``chunk`` steps with the reference's all-dead early exit before each
+    chunk (one host sync each, counted in ``syncs`` when given).  Events
+    scatter-add once per chunk, step-major then particle slot — the
+    reference's order, so duplicate-cell f32 sums match.  ``index_put_``
+    with ``accumulate=True`` adds duplicates in that order on the CPU and,
+    through its sort-based kernel, on CUDA too."""
+    steps = (params.MAXAGE + 1) if max_steps is None else max_steps
+    n_chunks = -(-steps // chunk)
+    shape = state.height.shape
+    maps = step_maps(state, params, height_scale)
+    acc = [torch.zeros(shape[0] * shape[1], dtype=_F32, device=state.height.device)
+           for _ in range(3)]
+    for _ in range(n_chunks):
+        if syncs is not None:
+            syncs.append("descent.alive")
+        if not bool(p.alive.any()):
+            break
+        idx, dt, dp_, ds = [], [], [], []
+        for _ in range(chunk):
+            p, ev = descend_step(p, state, params, height_scale, patch_res,
+                                 res, maps=maps)
+            idx.append((ev["row"] * res + ev["col"]).long())
+            dt.append(ev["d_track"])
+            dp_.append(ev["d_pool"])
+            ds.append(ev["d_sed"])
+        flat = torch.cat(idx)
+        for a, vals in zip(acc, (dt, dp_, ds)):
+            a.index_put_((flat,), torch.cat(vals), accumulate=True)
+    track_acc, pool_acc, sed_acc = (a.reshape(shape) for a in acc)
+    return p, track_acc, pool_acc, sed_acc

@@ -1,0 +1,137 @@
+"""One erosion cycle — port of ``noize_tpu.erosion.sim.erosion_cycle``.
+
+  thermal erosion (kernel K3 on the card)
+  → spawn particles (queued drain particles first, then fresh ones)
+  → simultaneous descent (scatter-add events)
+  → per-cell event reduce: pool/track placement multipliers
+  → sediment write-back (disperse / pile deposit + [0,1] breaker)
+  → track→flow decay + pool surface evaporation
+  → pool automata (kernel K4 on the card), emitting drain water
+
+Drain water accumulates in a map; the next cycle's spawn converts the
+top-K wettest drain cells into particles (K = particle slots, ties to the
+lower flat index as ``lax.top_k`` gives them) and returns the rest to the
+pool map.
+
+Host syncs: unlike the reference, whose gates are device-side
+``lax.cond``/``while_loop``, the eager port reads a few flags on the host
+each cycle (drains present, descent chunks alive, piles present).  Pass a
+list as ``syncs`` to have each one recorded.
+
+``ErosionSim``, live retuning of the tunable scalars and persistence are
+not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Optional
+
+import torch
+
+from noize_tpu.core.tiles import TileSetMeta
+from noize_tpu.erosion.params import ErosionMode, ErosionSettings
+
+from ..ops.cuda.thermal import thermal_erosion_fused
+from .particles import Particles, descend_all, spawn
+from .pool_cuda import pool_automata_cuda
+from .sediment import write_sediment_map
+from .world import WorldState, update_flow_from_track
+
+
+@dataclass
+class SimState:
+    """Sim state carried across cycles."""
+
+    world: WorldState
+    drain_water: torch.Tensor        # f32[R,R] — queued drain emissions
+    generator: Optional[torch.Generator]
+
+
+def init_state(height, generator: Optional[torch.Generator] = None) -> SimState:
+    return SimState(
+        world=WorldState.create(height),
+        drain_water=torch.zeros_like(height),
+        generator=generator,
+    )
+
+
+def _spawn_with_drains(generator, n: int, res: int, drain_water,
+                       fresh: Optional[Particles] = None, syncs: list = None):
+    """Fill the particle buffer: drain particles first (top-K wettest
+    drain cells), ``fresh`` (or newly spawned) particles in the remaining
+    slots.  Returns (particles, leftover drain water)."""
+    if fresh is None:
+        fresh = spawn(generator, n, res, device=drain_water.device)
+    flat = drain_water.reshape(-1)
+    if syncs is not None:
+        syncs.append("spawn.drains")
+    if not bool((flat > 0.0).any()):
+        return fresh, drain_water
+    # exact top-k with ties to the lower index: a stable ascending sort of
+    # -flat keeps equal values in index order
+    neg, idxs = torch.sort(-flat, stable=True)
+    vals = -neg[:n]
+    idxs = idxs[:n]
+    has_drain = vals > 0.0
+    rows = torch.div(idxs, res, rounding_mode="floor").to(torch.float32)
+    cols = (idxs % res).to(torch.float32)
+    parts = fresh._replace(
+        row=torch.where(has_drain, rows, fresh.row),
+        col=torch.where(has_drain, cols, fresh.col),
+        water=torch.where(has_drain, vals, fresh.water),
+    )
+    taken = torch.zeros_like(flat).index_put_(
+        (idxs,), torch.where(has_drain, vals, 0.0), accumulate=True)
+    leftover = torch.clamp_min(flat - taken, 0.0)
+    return parts, leftover.reshape(drain_water.shape)
+
+
+def erosion_cycle(state: SimState, settings: ErosionSettings, meta: TileSetMeta,
+                  fresh: Optional[Particles] = None, syncs: list = None) -> SimState:
+    """One full cycle of TriggerQueuedBeyerMT's inner loop.
+
+    ``fresh``: particles that replace the cycle's random spawn (drain
+    particles still take the first slots) — the hook tests use to feed
+    the reference's ``jax.random`` spawn."""
+    params = settings.as_parameters()
+    res = meta.generator_res
+    height_scale = float(meta.height)
+    patch_res = meta.patch_res
+    world = state.world
+    behavior = settings.BEHAVIOR
+
+    if settings.ENABLE_THERMAL and behavior != ErosionMode.ONLY_FLOW_WATER:
+        hw_ratio = float(meta.tile_size) / float(meta.height)
+        world = replace(world, height=thermal_erosion_fused(
+            world.height, settings.TALUS, settings.THERMAL_STEP, hw_ratio,
+            iterations=settings.THERMAL_CYCLES))
+
+    drain_water = state.drain_water
+    if behavior != ErosionMode.ONLY_FLOW_WATER:
+        parts, drain_water = _spawn_with_drains(
+            state.generator, settings.PARTICLES_PER_CYCLE, res, drain_water,
+            fresh=fresh, syncs=syncs)
+        # unconverted drain water re-enters the pool map
+        world = replace(world, pool=world.pool + drain_water)
+        drain_water = torch.zeros_like(drain_water)
+
+        _, track_acc, pool_acc, sed_acc = descend_all(
+            parts, world, params, height_scale, patch_res, res, syncs=syncs)
+
+        world = replace(
+            world,
+            pool=world.pool + pool_acc * params.POOL_PLACEMENT_MULTIPLIER,
+            track=world.track + track_acc * params.TRACK_PLACEMENT_MULTIPLIER,
+        )
+        world = replace(world, height=write_sediment_map(
+            world.height, sed_acc, params, height_scale, syncs=syncs))
+
+    world = update_flow_from_track(world, params, height_scale)
+
+    pool, drains = pool_automata_cuda(
+        world.height, world.pool, settings.WATER_STEPS,
+        behavior != ErosionMode.ONLY_FLOW_WATER)
+    world = replace(world, pool=pool)
+    return SimState(world=world, drain_water=drain_water + drains,
+                    generator=state.generator)

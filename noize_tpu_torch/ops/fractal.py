@@ -1,0 +1,117 @@
+"""Fractal (fBm) heightmap generation — port of ``noize_tpu.ops.fractal``.
+
+Same formulas and the same float32 accumulation order as the reference
+(fractal.py:106-155):
+
+  * world coords:  xi = (x + xpos) / noiseSize, zi = (z + zpos) / noiseSize
+  * per octave i:  t += a * noise(f * xi, f * zi)
+                   detune += detuneRate;  f *= (stepdown - detune);  a *= G
+  * normalisation: t / sum_{i<octaves} G^i  with G = exp2(-hurst)
+
+Only the Simplex basis is ported; the scalar recurrences run on the host
+in float32, so the device sees the same constants on the CPU and the card.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import noise as _n
+
+_F32 = torch.float32
+
+#: Order matches the reference's ``FractalNoise`` enum (NoiseStage.cs:15-24).
+NOISE_TYPES = (
+    "Sin",
+    "Perlin",
+    "PeriodicPerlin",
+    "Simplex",
+    "RotatedSimplex",
+    "Cellular",
+    "DomainRotatedPerlin",
+    "DomainRotatedSimplex",
+)
+
+
+def _rectify_half(v):
+    """(1 + v) / 2 — maps [-1,1] noise to [0,1] (Fractal.cs:151-153)."""
+    return (1.0 + v) * 0.5
+
+
+def noise_value(kind: str, x, z):
+    """One rectified noise basis at world coords (x, z); only "Simplex" is
+    ported so far."""
+    if kind == "Simplex":
+        return _rectify_half(_n.snoise2(x, z))
+    if kind in NOISE_TYPES:
+        raise NotImplementedError(
+            f"noise basis {kind!r} is not ported to noize_tpu_torch yet "
+            "(only 'Simplex' is)")
+    raise ValueError(f"unknown noise type {kind!r}; expected one of {NOISE_TYPES}")
+
+
+def fractal_norm_value(hurst: float, octaves: int) -> float:
+    """CalcFractalNormValue (Fractal.cs:31-40): sum of G^i, i < octaves."""
+    g = 2.0 ** (-hurst)
+    t, a = 0.0, 1.0
+    for _ in range(octaves):
+        t += a
+        a *= g
+    return t
+
+
+def _exp2_f32(v: float) -> np.float32:
+    return np.float32(torch.exp2(torch.tensor(v, dtype=_F32)).item())
+
+
+def fractal(
+    resolution: int,
+    xpos,
+    zpos,
+    *,
+    noise_type: str = "Perlin",
+    hurst=0.0,
+    octaves: int = 1,
+    stepdown=2.0,
+    detune_rate=0.0,
+    noise_size=1000.0,
+    starting_amplitude=1.0,
+    device="cpu",
+):
+    """One fBm tile of shape ``(resolution, resolution)``, row-major
+    ``[z, x]``, on ``device``; ``xpos``/``zpos`` offset the tile in the
+    global noise domain."""
+    f32 = np.float32
+    xpos = float(f32(xpos))
+    zpos = float(f32(zpos))
+    inv_size = float(f32(1.0) / f32(noise_size))
+    ramp = torch.arange(resolution, dtype=_F32, device=device)
+    col = ramp[None, :].expand(resolution, resolution)
+    row = ramp[:, None].expand(resolution, resolution)
+    xi = (col + xpos) * inv_size
+    zi = (row + zpos) * inv_size
+
+    g = _exp2_f32(-float(f32(hurst)))
+    stepdown = f32(stepdown)
+    detune_rate = f32(detune_rate)
+
+    t = torch.zeros((resolution, resolution), dtype=_F32, device=device)
+    f = f32(1.0)
+    a = f32(starting_amplitude)
+    detune = f32(0.0)
+    for _ in range(octaves):
+        t = t + float(a) * noise_value(noise_type, float(f) * xi, float(f) * zi)
+        detune = f32(detune + detune_rate)
+        f = f32(f * f32(stepdown - detune))
+        a = f32(a * g)
+
+    # norm value with the same accumulation (amplitude 1 start)
+    norm = f32(1.0)
+    acc = f32(0.0)
+    for _ in range(octaves):
+        acc = f32(acc + norm)
+        norm = f32(norm * g)
+    # a device tensor divisor: CUDA turns division by a host scalar into a
+    # reciprocal multiply, which would differ from the CPU by an ulp
+    return t / torch.tensor(float(acc), dtype=_F32, device=device)

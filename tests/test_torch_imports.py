@@ -1,0 +1,66 @@
+"""The port stands alone: importing any ``noize_tpu_torch`` module never
+loads JAX, and ``chip_smoke.py`` refuses to run without a GPU."""
+
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _modules():
+    pkg = REPO / "noize_tpu_torch"
+    return sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for p in pkg.rglob("*.py"))
+
+
+def test_every_module_is_listed():
+    mods = _modules()
+    assert "noize_tpu_torch.app.flagship" in mods and "noize_tpu_torch._cuda" in mods
+    assert len(mods) >= 20
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
+        " or k == 'jaxlib' or k.startswith('jaxlib.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def _run_smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=dict(os.environ, PYTHONPATH=""),
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_chip_smoke_fails_without_gpu():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; chip_smoke.py runs for real there")
+    proc = _run_smoke(REPO)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """Without the rest of the repository the script must fail, on any
+    machine."""
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run_smoke(tmp_path)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout

@@ -1,0 +1,130 @@
+"""noize_tpu_torch CUDA kernels K1-K4 against their plain PyTorch versions
+on the card.
+
+Every test here needs an NVIDIA GPU (and nvcc to build the kernels); on a
+machine without one each test skips with a reason.  Run them on the card
+with:
+
+    python -m pytest tests/test_torch_kernels_cuda.py -q
+
+Tolerance: bit-equality.  The kernels are built with -fmad=false and sum in
+the reference's order, and the plain versions run one rounded op at a time.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from noize_tpu_torch.erosion import pool as PO
+from noize_tpu_torch.erosion.pool_cuda import pool_automata_cuda
+from noize_tpu_torch.ops import flow as FL
+from noize_tpu_torch.ops import thermal as TH
+from noize_tpu_torch.ops.cuda.flow import flow_map_fused
+from noize_tpu_torch.ops.cuda.stencil import (gauss_chain, separable_chain,
+                                              separable_chain_plain)
+from noize_tpu_torch.ops.cuda.thermal import thermal_erosion_fused
+from noize_tpu_torch.ops.kernels import gaussian_taps
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _field(rng, res, lo=0.0, hi=1.0):
+    return rng.uniform(lo, hi, (res, res)).astype(np.float32)
+
+
+def _equal(got, want):
+    got = got.cpu().numpy()
+    want = want.cpu().numpy()
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("res,iters", [(64, 3), (1000, 2), (2048, 17)])
+def test_k1_separable_chain_matches_plain(cuda, res, iters):
+    x = torch.from_numpy(_field(np.random.default_rng(1), res)).to(cuda)
+    before = separable_chain.launches
+    got = gauss_chain(x, 5, 1.0, iters)
+    want = separable_chain_plain(x, gaussian_taps(1.0, 5), iters)
+    torch.cuda.synchronize()
+    _equal(got, want)
+    assert separable_chain.launches == before + 1
+
+
+@pytest.mark.parametrize("res,iters", [(64, 3), (2048, 8)])
+def test_k2_flow_map_matches_plain(cuda, res, iters):
+    h = torch.from_numpy(_field(np.random.default_rng(2), res)).to(cuda)
+    got = flow_map_fused(h, iters)
+    want = FL.flow_map(h, iters)
+    torch.cuda.synchronize()
+    _equal(got, want)
+
+
+@pytest.mark.parametrize("res,talus,iters", [(64, 45.0, 2), (63, 55.0, 1),
+                                             (2048, 55.0, 1)])
+def test_k3_thermal_matches_plain(cuda, res, talus, iters):
+    h = torch.from_numpy(_field(np.random.default_rng(3), res)).to(cuda)
+    got = thermal_erosion_fused(h, talus, 0.6, 1.0, iters)
+    want = TH.thermal_erosion(h, talus, 0.6, 1.0, iters)
+    torch.cuda.synchronize()
+    _equal(got, want)
+    assert not torch.equal(got, h)
+
+
+def _wet_calls():
+    wet = pool_automata_cuda.wet_calls
+    return 0 if wet is None else int(wet.item())
+
+
+def _wet_case(res, seed):
+    rng = np.random.default_rng(seed)
+    h = _field(rng, res, 0.0, 0.5)
+    p = rng.uniform(-0.05, 0.05, (res, res)).clip(0).astype(np.float32)
+    return h, p
+
+
+@pytest.mark.parametrize("res,drain", [(16, True), (128, True), (128, False),
+                                       (2048, True)])
+def test_k4_pool_wet_matches_plain(cuda, res, drain):
+    h, p = _wet_case(res, 4)
+    h = torch.from_numpy(h).to(cuda)
+    p = torch.from_numpy(p).to(cuda)
+    before = _wet_calls()
+    gp, gd = pool_automata_cuda(h, p, 3, drain)
+    wp, wd = PO.pool_automata(h, p, 3, drain)
+    torch.cuda.synchronize()
+    _equal(gp, wp)
+    _equal(gd, wd)
+    assert not torch.equal(gp, p)
+    if drain:
+        assert bool((gd > 0).any())
+    assert _wet_calls() == before + 1
+
+
+def test_k4_pool_dry_gate_is_fixed_point(cuda):
+    rng = np.random.default_rng(5)
+    h = torch.from_numpy(_field(rng, 256, 0.0, 0.5)).to(cuda)
+    p = torch.from_numpy(
+        rng.uniform(0, PO.MIN_WATER * 0.99, (256, 256)).astype(np.float32)).to(cuda)
+    before = _wet_calls()
+    gp, gd = pool_automata_cuda(h, p, 10, True)
+    torch.cuda.synchronize()
+    _equal(gp, p)
+    assert not bool(gd.any())
+    assert _wet_calls() == before
+
+
+def test_wrappers_refuse_bad_input(cuda):
+    x = torch.zeros((64, 64), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        flow_map_fused(x, 2)
+    with pytest.raises(ValueError, match="even"):
+        z = torch.zeros((63, 63), device=cuda)
+        pool_automata_cuda(z, z, 2, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        thermal_erosion_fused(torch.zeros((64, 64), device=cuda).t()[:, :], 45.0,
+                              0.5, 1.0)
