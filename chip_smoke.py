@@ -7,18 +7,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. device: requires CUDA; prints the card's name and
    ``nvidia-smi --query-gpu=name,power.limit``;
-2. build: compiles the CUDA kernels K1-K4 from ``noize_tpu_torch/csrc``;
-3. each kernel against its plain PyTorch version on the card at the
-   flagship's shapes (2048²), with CUDA-event times of both; the expected
-   result is bit-equality (tolerance 0);
-4. the flagship tile step at 2048² (13 octaves, blur ×17, flow ×8, three
-   erosion cycles of 1000 particles, mesh) through
-   ``make_tile_step(device="cuda")``: every kernel's launch count is reset
-   before the run and must be non-zero after it; outputs must be finite;
-5. the port on the card against the port on the CPU at the
-   ``__graft_entry__.entry()`` configuration, same particles.
+2. build: compiles the CUDA kernels K1-K5 from ``noize_tpu_torch/csrc``;
+3. kernels: each kernel against its plain PyTorch version on the card at
+   the flagship's shapes (2048², and 2049² for K5), with CUDA-event times
+   of both, the card's least time for the same work (``bound_ms``) and,
+   for K1, the cuDNN convolutions that compute the same chain; the
+   expected result is bit-equality (tolerance 0);
+4. entries: the JAX-signature entries of the ten TPU kernels, each driven
+   once at 2048² with every launch count reset before and read after,
+   then held against its plain version (tolerance 0);
+5. quickstart (the main path): README.md's Quickstart at 2048² through
+   the port — buffer store, stage pipeline (K1, K2), ``ErosionSim.step()``
+   with ``ErosionSettings()`` defaults (K3, K4), checkpoint and restore,
+   mesh from the context buffer;
+6. flagship: the 2048² tile step through ``make_tile_step(device="cuda")``;
+7. odd grid: ``ErosionSim`` on a 1025² tile, one step (K3, K5), then K5
+   against its plain version on the inputs of the step's last wet pool
+   call, and K3 on the height the step leaves (tolerance 0);
+8. the port on the card against the port on the CPU at the
+   ``__graft_entry__.entry()`` configuration, same particles, and the
+   mesh export round trip (OBJ, NPZ) at that size;
+9. profile: one more Quickstart ``ErosionSim.step()`` under
+   ``torch.profiler`` (device busy time, idle share), after every timed
+   phase.
 
-Prints the per-kernel JSON line, then as its last line
+Each path phase resets every launch count just before it runs and fails
+if a kernel of its path was not launched.  Prints the per-kernel JSON
+line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -28,16 +43,36 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# K1-K3 must reproduce their plain versions bit for bit: both round every
-# float32 op on its own, in the reference's order.
+# The kernels must reproduce their plain versions bit for bit: both round
+# every float32 op on its own, in the reference's order.
 KERNEL_TOL = 0.0
 # Port on the card vs port on the CPU: the particle math calls atan/sin,
 # whose CUDA and CPU implementations differ by an ulp; BASELINE.md's bar.
 CROSS_DEVICE_RTOL = 1e-4
+
+# NVIDIA H100 SXM data sheet: HBM
+# rate and float32 rate outside the tensor cores, at the 700 W limit.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+
+# Float32 operations per cell (arithmetic, compares, min/max), counted
+# from the plain versions' source:
+#   K1: k multiplies and k adds per cell per pass, two passes per iteration;
+#   K2: flow step 25 + water step 10 per iteration, velocity and
+#       normalise 14 once;
+#   K3: six rectify pairs of 8 ops per 2x2 block per phase, 4 phases;
+#   K4/K5: per phase 98 per active cell (a quarter of the cells: keys,
+#       eligibility, rank, 4 sub-steps, demux, drains) plus 5 adds per
+#       cell in the apply; 4 phases per water step.  A call whose gate is
+#       closed does none of it.
+K2_OPS_PER_ITER, K2_OPS_ONCE = 35, 14
+K3_OPS_PER_ITER = 48
+POOL_OPS_PER_ITER = 4 * (98 / 4 + 5)
 
 
 def _check(cond, msg):
@@ -45,10 +80,11 @@ def _check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def _time_ms(fn, reps):
+def _time_ms(fn, reps, warm=True):
     import torch
 
-    fn()  # warm-up
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -64,6 +100,44 @@ def _max_abs(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
+def _bound(nbytes, ops):
+    """(least ms the card needs, what bounds it)."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _counters():
+    """Every kernel wrapper and entry with a launch count, by row key."""
+    from noize_tpu_torch.erosion import pool_cuda as PC
+    from noize_tpu_torch.ops.cuda import flow as FC
+    from noize_tpu_torch.ops.cuda import stencil as SC
+    from noize_tpu_torch.ops.cuda import thermal as TC
+
+    return {
+        "K1": SC.separable_chain, "K2": FC.flow_map_fused,
+        "K3": TC.thermal_erosion_fused, "K4": PC.pool_automata_cuda,
+        "K5": PC.pool_automata_full_cuda,
+        "#1": SC.fused_separable_chain, "#2": SC.fused_separable_chain_rows,
+        "#3": FC.flow_map_pallas, "#6": PC.pool_automata_pallas,
+        "#7": PC.pool_automata_pallas_pair, "#8": PC.pool_automata_pallas_quad,
+        "#9": PC.pool_automata_pallas_pair_fused, "#10": PC.pool_automata_pallas_mega,
+    }
+
+
+def _reset_counts():
+    from noize_tpu_torch.erosion import pool_cuda as PC
+
+    for w in _counters().values():
+        w.launches = 0
+    PC.pool_automata_cuda.wet_calls = None
+    PC.pool_automata_full_cuda.wet_calls = None
+
+
+def _read_counts():
+    return {k: w.launches for k, w in _counters().items()}
+
+
 def device_phase():
     import torch
 
@@ -74,8 +148,8 @@ def device_phase():
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"device: {name} (torch {torch.__version__}, cuda {torch.version.cuda}, "
           f"count {torch.cuda.device_count()})")
-    print(f"nvidia-smi: {smi}")
-    # no TF32 anywhere: the plain versions are the float32 references
+    print(smi)
+    # no TF32 anywhere: the plain versions and the cuDNN yardstick are float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return name
@@ -87,120 +161,358 @@ def build_phase():
     t0 = time.perf_counter()
     path = _cuda.build()
     _cuda.library()
-    print(f"build: {path.relative_to(HERE)} in {time.perf_counter() - t0:.1f} s")
+    print(f"build: {path.relative_to(HERE)} in {time.perf_counter() - t0:.1f} s "
+          f"({len(list(_cuda.CSRC.glob('*.cu')))} sources in parallel)")
 
 
-def kernel_phase():
-    """Each kernel against its plain version at the flagship's shapes."""
+def _conv_chain(taps, iterations):
+    """K1's yardstick: the same chain as cuDNN convolutions, one call per
+    pass (2·iterations calls), replicate padding."""
+    import torch
+
+    k = len(taps)
+    t = torch.as_tensor(taps, dtype=torch.float32, device="cuda")
+    cx = torch.nn.Conv2d(1, 1, (1, k), padding=(0, k // 2), padding_mode="replicate",
+                         bias=False).cuda()
+    cz = torch.nn.Conv2d(1, 1, (k, 1), padding=(k // 2, 0), padding_mode="replicate",
+                         bias=False).cuda()
+    with torch.no_grad():
+        cx.weight.copy_(t.view(1, 1, 1, k))
+        cz.weight.copy_(t.flip(0).view(1, 1, k, 1))  # conv_z's flipped taps
+
+    def run(x):
+        with torch.no_grad():
+            y = x[None, None]
+            for _ in range(iterations):
+                y = cz(cx(y))
+            return y[0, 0]
+    return run
+
+
+class Rows:
+    """The kernels JSON line: one row per TPU kernel, and K5 at 2049² and
+    K5 and K3 at 1025² (odd sizes), filled as the phases run."""
+
+    def __init__(self):
+        self.rows = {}
+        self.launches = {}
+        self._plain_ms = {}
+
+    def compare(self, key, name, source, replaces, got, kernel, plain, plain_key,
+                reps, nbytes, ops, library=None):
+        """Hold ``got`` (the kernel's output) against the plain version's,
+        then time the kernel, the plain version (once per ``plain_key``)
+        and ``library``."""
+        import torch
+
+        want = plain()
+        torch.cuda.synchronize()
+        err = max(_max_abs(g, w) for g, w in zip(got, want))
+        _check(err <= KERNEL_TOL, f"{name} disagrees with its plain version: {err}")
+        ms = _time_ms(kernel, reps)
+        if plain_key not in self._plain_ms:
+            self._plain_ms[plain_key] = _time_ms(plain, max(1, reps // 5), warm=False)
+        plain_ms = self._plain_ms[plain_key]
+        library_ms = None if library is None else _time_ms(library, reps)
+        bound_ms, bound_by = _bound(nbytes, ops)
+        print(f"{name}: max_abs_err {err!r} (tol {KERNEL_TOL}), kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+              + ("" if library_ms is None else f", library {library_ms:.4f} ms"))
+        self.rows[key] = {"name": name, "route": "cuda", "source": source,
+                          "replaces": replaces, "launches": None,
+                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": library_ms}
+        del want
+
+    def set_launches(self, counts):
+        """Launches of each row's kernel on the path that runs it."""
+        self.launches.update(counts)
+
+    def line(self):
+        order = ["#1", "#2", "#3", "#4", "#5", "#6", "#7", "#8", "#9", "#10", "K5", "K5@1025",
+                 "K3@1025"]
+        _check(set(self.rows) == set(order), f"rows {sorted(self.rows)}")
+        for k in order:
+            _check(self.launches.get(k, 0) > 0, f"{k} was launched on no path")
+            self.rows[k]["launches"] = self.launches[k]
+        return json.dumps({"kernels": [self.rows[k] for k in order]})
+
+
+def _inputs(res):
+    """Blurred 13-octave noise at ``res``² and a wet pool on it (seeded at
+    U(0, 0.02) on half the cells, dry cells between so drains fire)."""
+    import torch
+
+    from noize_tpu_torch.ops.cuda.stencil import separable_chain_plain
+    from noize_tpu_torch.ops.fractal import fractal
+    from noize_tpu_torch.ops.kernels import gaussian_taps
+
+    noise = fractal(res, 0.0, 0.0, noise_type="Simplex", hurst=0.4, octaves=13,
+                    noise_size=1700.0, device="cuda")
+    blurred = separable_chain_plain(noise, gaussian_taps(1.0, 5), 17)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    seed = torch.rand((res, res), generator=g, device="cuda")
+    pool = torch.where(seed < 0.5, seed * 0.02, torch.zeros_like(seed))
+    return noise, blurred, pool
+
+
+SRC = {
+    "K1": "noize_tpu_torch/csrc/stencil.cu", "K2": "noize_tpu_torch/csrc/flow.cu",
+    "K3": "noize_tpu_torch/csrc/thermal.cu", "K4": "noize_tpu_torch/csrc/pool.cu",
+    "K5": "noize_tpu_torch/csrc/pool.cu",
+}
+TPU = "noize_tpu/ops/pallas/"
+POOL_TPU = "noize_tpu/erosion/pool_pallas.py"
+
+
+def kernel_phase(rows):
+    """The five kernels against their plain versions; entries of the ten
+    TPU kernels driven once (the entries path) and held the same way."""
     import torch
 
     from noize_tpu_torch.app.flagship import default_meta, default_settings
     from noize_tpu_torch.erosion import pool as PO
-    from noize_tpu_torch.erosion.pool_cuda import pool_automata_cuda
+    from noize_tpu_torch.erosion import pool_cuda as PC
     from noize_tpu_torch.ops import flow as FL
     from noize_tpu_torch.ops import thermal as TH
-    from noize_tpu_torch.ops.cuda.flow import flow_map_fused
-    from noize_tpu_torch.ops.cuda.stencil import separable_chain, separable_chain_plain
+    from noize_tpu_torch.ops.cuda import flow as FC
+    from noize_tpu_torch.ops.cuda import stencil as SC
     from noize_tpu_torch.ops.cuda.thermal import thermal_erosion_fused
-    from noize_tpu_torch.ops.fractal import fractal
     from noize_tpu_torch.ops.kernels import gaussian_taps
 
-    dev = torch.device("cuda")
     meta, settings = default_meta(), default_settings()
     res = meta.generator_res
+    cells = res * res
+    steps = settings.WATER_STEPS
     hw_ratio = float(meta.tile_size) / float(meta.height)
-    noise = fractal(res, 0.0, 0.0, noise_type="Simplex", hurst=0.4, octaves=13,
-                    noise_size=1700.0, device=dev)
+    noise, blurred, pool = _inputs(res)
     taps = gaussian_taps(1.0, 5)
-    blurred = separable_chain_plain(noise, taps, 17)
-    rows = []
+    k1_bytes, k1_ops = 8 * cells, 2 * 2 * len(taps) * 17 * cells
+    k2_bytes, k2_ops = 8 * cells, (K2_OPS_PER_ITER * 8 + K2_OPS_ONCE) * cells
+    pool_bytes, pool_ops = 16 * cells, POOL_OPS_PER_ITER * steps * cells
+    _check(bool((pool >= PO.MIN_WATER).any()), "wet grid below the gate")
+    conv = _conv_chain(taps, 17)
+    library = lambda: (conv(noise),)  # noqa: E731
+    lib_err = _max_abs(conv(noise), SC.separable_chain_plain(noise, taps, 17))
+    print(f"K1 yardstick (cuDNN conv ×34) vs plain: max_abs_err {lib_err!r} (sum order differs)")
 
-    def compare(name, source, replaces, kernel, plain, reps):
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
-        err = max(_max_abs(g, w) for g, w in zip(got, want))
-        ms = _time_ms(kernel, reps)
-        plain_ms = _time_ms(plain, max(1, reps // 3))
-        print(f"{name}: max_abs_err {err!r} (tol {KERNEL_TOL}), kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
-        _check(err <= KERNEL_TOL, f"{name} disagrees with its plain version: {err}")
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms})
-        return got
+    # the entries path: every entry once, counts reset before, read after
+    _reset_counts()
+    got = {
+        "#1": (SC.fused_separable_chain(noise, taps, 17),),
+        "#3": (FC.flow_map_pallas(blurred, 8),),
+        "#6": PC.pool_automata_pallas(blurred, pool, steps, True),
+        "#7": PC.pool_automata_pallas_pair(blurred, pool, steps, True),
+        "#8": PC.pool_automata_pallas_quad(blurred, pool, steps, True),
+        "#9": PC.pool_automata_pallas_pair_fused(blurred, pool, steps, True),
+    }
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    print(f"entries path launches {counts}")
+    for key in got:
+        _check(counts[key] == 1, f"entry {key} launched {counts[key]} times")
+    rows.set_launches({k: counts[k] for k in got})
 
-    compare("K1 separable_chain", "noize_tpu_torch/csrc/stencil.cu",
-            "noize_tpu/ops/pallas/stencil.py:153",
-            lambda: (separable_chain(noise, taps, 17),),
-            lambda: (separable_chain_plain(noise, taps, 17),), 20)
-    compare("K2 flow_map_fused", "noize_tpu_torch/csrc/flow.cu",
-            "noize_tpu/ops/pallas/flow_pl.py:99",
-            lambda: (flow_map_fused(blurred, 8),),
-            lambda: (FL.flow_map(blurred, 8),), 20)
-    compare("K3 thermal_erosion_fused", "noize_tpu_torch/csrc/thermal.cu",
-            "noize_tpu/ops/pallas/thermal_pl.py:36",
-            lambda: (thermal_erosion_fused(blurred, settings.TALUS, settings.THERMAL_STEP,
-                                           hw_ratio, settings.THERMAL_CYCLES),),
-            lambda: (TH.thermal_erosion(blurred, settings.TALUS, settings.THERMAL_STEP,
-                                        hw_ratio, settings.THERMAL_CYCLES),), 20)
+    plain_k1 = lambda: (SC.separable_chain_plain(noise, taps, 17),)  # noqa: E731
+    plain_k2 = lambda: (FL.flow_map(blurred, 8),)  # noqa: E731
+    plain_pair = lambda: PO.pool_automata(blurred, pool, steps, True)  # noqa: E731
+    plain_full = lambda: PO._pool_automata_fullgrid(blurred, pool, steps, True)  # noqa: E731
 
-    # K4 on a wet grid: pool seeded above MIN_WATER on the blurred-noise
-    # height, with dry cells between so drains fire
-    g = torch.Generator(device=dev).manual_seed(0)
-    seed = torch.rand((res, res), generator=g, device=dev)
-    pool = torch.where(seed < 0.5, seed * 0.02, torch.zeros_like(seed))
-    (wet_pool, wet_drains) = compare(
-        "K4 pool_automata_cuda", "noize_tpu_torch/csrc/pool.cu",
-        "noize_tpu/erosion/pool_pallas.py:568",
-        lambda: pool_automata_cuda(blurred, pool, settings.WATER_STEPS, True),
-        lambda: PO.pool_automata(blurred, pool, settings.WATER_STEPS, True), 10)
+    rows.compare("#1", "#1 fused_separable_chain (K1)", SRC["K1"], TPU + "stencil.py:66",
+                 got["#1"], lambda: (SC.fused_separable_chain(noise, taps, 17),),
+                 plain_k1, "k1", 20, k1_bytes, k1_ops, library)
+    rows.compare("#2", "#2 fused_separable_chain_rows / gauss_chain (K1)", SRC["K1"],
+                 TPU + "stencil.py:153", (SC.separable_chain(noise, taps, 17),),
+                 lambda: (SC.separable_chain(noise, taps, 17),), plain_k1, "k1", 20,
+                 k1_bytes, k1_ops, library)
+    rows.compare("#3", "#3 flow_map_pallas (K2)", SRC["K2"], TPU + "flow_pl.py:31",
+                 got["#3"], lambda: (FC.flow_map_pallas(blurred, 8),), plain_k2, "k2", 20,
+                 k2_bytes, k2_ops)
+    rows.compare("#4", "#4 flow_map_fused (K2)", SRC["K2"], TPU + "flow_pl.py:99",
+                 (FC.flow_map_fused(blurred, 8),), lambda: (FC.flow_map_fused(blurred, 8),),
+                 plain_k2, "k2", 20, k2_bytes, k2_ops)
+    rows.compare("#5", "#5 thermal_erosion_fused (K3)", SRC["K3"], TPU + "thermal_pl.py:36",
+                 (thermal_erosion_fused(blurred, settings.TALUS, settings.THERMAL_STEP,
+                                        hw_ratio, settings.THERMAL_CYCLES),),
+                 lambda: (thermal_erosion_fused(blurred, settings.TALUS, settings.THERMAL_STEP,
+                                                hw_ratio, settings.THERMAL_CYCLES),),
+                 lambda: (TH.thermal_erosion(blurred, settings.TALUS, settings.THERMAL_STEP,
+                                             hw_ratio, settings.THERMAL_CYCLES),),
+                 "k3", 20, 8 * cells, K3_OPS_PER_ITER * settings.THERMAL_CYCLES * cells)
+    rows.compare("#6", "#6 pool_automata_pallas (K5, 2048² wet)", SRC["K5"],
+                 POOL_TPU + ":30", got["#6"],
+                 lambda: PC.pool_automata_pallas(blurred, pool, steps, True), plain_full,
+                 "full2048", 10, pool_bytes, pool_ops)
+    for key, name, line, fn in (
+            ("#7", "pool_automata_pallas_pair", 94, PC.pool_automata_pallas_pair),
+            ("#8", "pool_automata_pallas_quad", 229, PC.pool_automata_pallas_quad),
+            ("#9", "pool_automata_pallas_pair_fused", 324,
+             PC.pool_automata_pallas_pair_fused)):
+        rows.compare(key, f"{key} {name} (K4, wet)", SRC["K4"], f"{POOL_TPU}:{line}", got[key],
+                     lambda fn=fn: fn(blurred, pool, steps, True), plain_pair, "pair", 10,
+                     pool_bytes, pool_ops)
+    mega = PC.pool_automata_pallas_mega(blurred, pool, steps, True)
+    rows.compare("#10", "#10 pool_automata_pallas_mega / pool_automata_cuda (K4, wet)",
+                 SRC["K4"], POOL_TPU + ":568", mega,
+                 lambda: PC.pool_automata_cuda(blurred, pool, steps, True), plain_pair, "pair",
+                 10, pool_bytes, pool_ops)
+    wet_pool, wet_drains = mega
     n_drain = int((wet_drains > 0).sum())
     n_moved = int((wet_pool != pool).sum())
     print(f"K4 wet grid: {n_moved} cells changed, {n_drain} drain cells, "
           f"{int((pool >= PO.MIN_WATER).sum())} cells at the gate")
     _check(n_drain > 0 and n_moved > 0, "K4 wet grid ran no phase")
-    # dry: the gate must return the pool unchanged and no drains
+
+    # dry: the gates must return the pool unchanged and no drains
     dry = pool * (PO.MIN_WATER * 0.99 / float(pool.max()))
-    wet_before = int(pool_automata_cuda.wet_calls.item())
-    dp, dd = pool_automata_cuda(blurred, dry, settings.WATER_STEPS, True)
+    for w in (PC.pool_automata_cuda, PC.pool_automata_full_cuda):
+        before = _wet(w)
+        dp, dd = w(blurred, dry, steps, True)
+        torch.cuda.synchronize()
+        _check(torch.equal(dp, dry) and not bool(dd.any()),
+               f"{w.__name__} dry gate is not a fixed point")
+        _check(_wet(w) == before, f"{w.__name__} dry gate flag raised")
+    print("K4, K5 dry grid: pool unchanged, drains zero, gate closed")
+    del noise, blurred, pool, dry, got, mega, wet_pool, wet_drains
+
+    # K5 at an odd size: Unity's 2^n + 1 heightmaps
+    res5 = res + 1
+    _, blurred5, pool5 = _inputs(res5)
+    got5 = PC.pool_automata_full_cuda(blurred5, pool5, steps, True)
+    rows.compare("K5", "K5 pool_automata_full_cuda (2049² wet)", SRC["K5"], POOL_TPU + ":30",
+                 got5, lambda: PC.pool_automata_full_cuda(blurred5, pool5, steps, True),
+                 lambda: PO._pool_automata_fullgrid(blurred5, pool5, steps, True), "full2049",
+                 10, 16 * res5 * res5, POOL_OPS_PER_ITER * steps * res5 * res5)
+    _check(int((got5[1] > 0).sum()) > 0, "K5 wet grid ran no drain")
+    del blurred5, pool5, got5
+
+
+def quickstart_phase(rows):
+    """README.md's Quickstart at 2048² through the port: the main path."""
+    import torch
+
+    from noize_tpu_torch.core.stageio import GeneratorData, MeshStageData
+    from noize_tpu_torch.core.store import PipelineStateManager
+    from noize_tpu_torch.erosion.sim import ErosionSim
+    from noize_tpu_torch.pipeline.driver import Pipeline
+    from noize_tpu_torch.pipeline.stages import (FlowMapStage, MeshTileReferenceDataStage,
+                                                 NoiseStage, StageGaussianBlur,
+                                                 WriteGeneratorContextStage)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    with tempfile.TemporaryDirectory() as saves:
+        _reset_counts()
+        sm = PipelineStateManager(saves, "world", "v1")
+        pipe = Pipeline([
+            NoiseStage(noiseType="Simplex", hurst=0.4, octaves=13, noiseSize=1700),
+            StageGaussianBlur(sigma="s1d00", width=5, iterations=17),
+            FlowMapStage(iterations=8),
+            WriteGeneratorContextStage(contextAlias="TERRAIN_HEIGHT"),
+        ], state_manager=sm)
+        out, pipe_ms = timed(lambda: pipe.run(
+            GeneratorData(uuid="t00", resolution=2048, xpos=0, zpos=0)))
+        sim = ErosionSim(out.data, state_manager=sm)
+        _, step_ms = timed(sim.step)
+        _, save_ms = timed(sim.save_erosion_state)
+        mesh_pipe = Pipeline([MeshTileReferenceDataStage("TERRAIN_HEIGHT")], state_manager=sm)
+        r = 2016
+        req = MeshStageData(uuid="t00", resolution=r, inputResolution=2048, marginPix=16,
+                            tileHeight=1000, tileSize=float(r), xpos=0, zpos=0)
+        mesh_out, mesh_ms = timed(lambda: mesh_pipe.run(req))
+        counts = _read_counts()
+        wet = _wet(_counters()["K4"])
+        names = [sim._buffer_name(a) for a in
+                 ("TERRAIN_HEIGHT", "PARTERO_WATERMAP_STREAM", "PARTERO_WATERMAP_POOL")]
+        fresh = PipelineStateManager(saves, "world", "v1")
+        for n in names:
+            back = fresh.get_buffer(n)
+            _check(back.device.type == "cuda" and back.dtype == torch.float32,
+                   f"restored {n} on {back.device} as {back.dtype}")
+            _check(torch.equal(back, sm.get_buffer(n)), f"restored {n} differs")
+    for key in ("K1", "K2", "K3", "K4"):
+        _check(counts[key] > 0, f"{key} was not launched on the Quickstart path")
+    for k, v in (("height", sim.height_map), ("pool", sim.pool_map), ("stream", sim.stream_map),
+                 ("flow map", out.data)):
+        _check(tuple(v.shape) == (2048, 2048), f"{k} shape {tuple(v.shape)}")
+        _check(bool(torch.isfinite(v).all()), f"{k} not finite")
+    _check(float(sim.stream_map.abs().max()) > 0, "erosion left no stream")
+    m = mesh_out.mesh
+    _check(tuple(m.positions.shape) == ((r + 1) ** 2, 3), "mesh positions shape")
+    _check(tuple(m.indices.shape) == (6 * r * r,), "mesh indices shape")
+    for f in ("positions", "normals", "tangents", "uvs"):
+        _check(bool(torch.isfinite(getattr(m, f)).all()), f"mesh {f} not finite")
+    print(f"quickstart 2048²: pipeline {pipe_ms:.3f} ms, sim step (3 cycles) {step_ms:.3f} ms, "
+          f"save {save_ms:.3f} ms, mesh {mesh_ms:.3f} ms; host syncs {len(sim.syncs)}; "
+          f"K4 gate open in {wet} of {counts['K4']} calls; checkpoint restored equal")
+    print(f"quickstart launches {counts}")
+    rows.set_launches({"#2": counts["K1"], "#4": counts["K2"], "#5": counts["K3"],
+                       "#10": counts["K4"]})
+    return sim
+
+
+def profile_step(sim):
+    """One more ``ErosionSim.step()`` under ``torch.profiler``: device busy
+    time, idle share of the wall clock and the kernels that take it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
-    _check(torch.equal(dp, dry) and not bool(dd.any()), "K4 dry gate is not a fixed point")
-    _check(int(pool_automata_cuda.wet_calls.item()) == wet_before, "K4 dry gate flag raised")
-    print("K4 dry grid: pool unchanged, drains zero, gate closed")
-    del noise, blurred, pool, dry, wet_pool, wet_drains
-    return rows
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        sim.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only (kernels, copies, sets): an operator's own
+    # entry also carries the device time of the kernels it launched
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if busy_ms == 0:
+        print(f"profiled sim step: wall {wall_ms:.3f} ms; device time not measured "
+              "(the profiler saw no device activity)")
+        return
+    n_ops = sum(e.count for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"profiled sim step (3 cycles, under the profiler): wall {wall_ms:.3f} ms, device "
+          f"busy {busy_ms:.3f} ms in {n_ops} device ops, idle share {1 - busy_ms / wall_ms:.3f}")
+    print("  top device time: " + "; ".join(
+        f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms ×{e.count}" for e in top))
 
 
-def flagship_phase(rows, steps=3):
-    """The main path: the 2048² flagship through make_tile_step."""
+def _wet(wrapper):
+    """Calls of ``wrapper`` whose gate was open since the last reset."""
+    return 0 if wrapper.wet_calls is None else int(wrapper.wet_calls.item())
+
+
+def flagship_phase(steps=2):
+    """The 2048² flagship through make_tile_step."""
     import torch
 
     from noize_tpu_torch.app.flagship import default_settings, make_tile_step
-    from noize_tpu_torch.erosion.pool_cuda import pool_automata_cuda
-    from noize_tpu_torch.ops.cuda.flow import flow_map_fused
-    from noize_tpu_torch.ops.cuda.stencil import separable_chain
-    from noize_tpu_torch.ops.cuda.thermal import thermal_erosion_fused
 
     settings = default_settings()
     step, meta, _ = make_tile_step(None, settings, device="cuda",
                                    erosion_cycles=settings.CYCLES)
-    wrappers = {"K1 separable_chain": separable_chain,
-                "K2 flow_map_fused": flow_map_fused,
-                "K3 thermal_erosion_fused": thermal_erosion_fused,
-                "K4 pool_automata_cuda": pool_automata_cuda}
-    for w in wrappers.values():
-        w.launches = 0
-    pool_automata_cuda.wet_calls = None
     gen = torch.Generator(device="cuda").manual_seed(0)
     times = []
+    _reset_counts()
     for i in range(steps + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = step(float(i * 100), 0.0, generator=gen)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    counts = {name: w.launches for name, w in wrappers.items()}
-    wet = int(pool_automata_cuda.wet_calls.item())
+    counts = _read_counts()
+    wet = _wet(_counters()["K4"])
     res, r = meta.generator_res, meta.tile_res
     for k in ("height", "pool", "stream", "flow_velocity"):
         _check(tuple(out[k].shape) == (res, res), f"{k} shape {tuple(out[k].shape)}")
@@ -211,25 +523,96 @@ def flagship_phase(rows, steps=3):
     for f in ("positions", "normals", "tangents", "uvs"):
         _check(bool(torch.isfinite(getattr(m, f)).all()), f"mesh {f} not finite")
     _check(float(out["stream"].abs().max()) > 0, "erosion left no stream")
-    for name, n in counts.items():
-        _check(n > 0, f"{name} was not launched on the main path")
+    for key in ("K1", "K2", "K3", "K4"):
+        _check(counts[key] > 0, f"{key} was not launched on the flagship path")
     timed = times[1:]
     print(f"flagship 2048² (3 cycles, mesh): warm-up {times[0]:.1f} ms, steps "
           f"{[round(t, 3) for t in timed]} ms, median {sorted(timed)[len(timed) // 2]:.3f} ms/step")
-    print(f"flagship launches {counts}; K4 gate open in {wet} of "
-          f"{counts['K4 pool_automata_cuda']} calls; host syncs per step "
-          f"{len(step.syncs)} ({', '.join(sorted(set(step.syncs)))})")
-    for row in rows:
-        row["launches"] = counts[row["name"]]
-    return timed
+    print(f"flagship launches over {steps + 1} steps {counts}; K4 gate open in {wet} of "
+          f"{counts['K4']} calls; host syncs per step {len(step.syncs)}")
+
+
+def odd_grid_phase(rows):
+    """ErosionSim on a 1025² blurred-noise tile: the odd-grid path (K3, K5).
+    Then K5 and K3 against their plain versions on that path's inputs."""
+    import torch
+
+    from noize_tpu_torch.erosion import pool as PO
+    from noize_tpu_torch.erosion import sim as SIM
+    from noize_tpu_torch.erosion.pool_cuda import pool_automata_full_cuda
+    from noize_tpu_torch.erosion.sim import ErosionSim
+    from noize_tpu_torch.ops import thermal as TH
+    from noize_tpu_torch.ops.cuda.stencil import gauss_chain
+    from noize_tpu_torch.ops.cuda.thermal import thermal_erosion_fused
+    from noize_tpu_torch.ops.fractal import fractal
+
+    res = 1025
+    h = gauss_chain(fractal(res, 0.0, 0.0, noise_type="Simplex", hurst=0.4, octaves=13,
+                            noise_size=1700.0, device="cuda"), 5, 1.0, 17)
+    sim = ErosionSim(h)
+    # keep a copy of what each pool call on the path is given (two 4 MB
+    # device copies a call), to hold K5 against its plain version on it
+    pool_inputs, pool_call = [], SIM.pool_automata_cuda
+
+    def recorded(height, pool, *args):
+        pool_inputs.append((height.clone(), pool.clone()))
+        return pool_call(height, pool, *args)
+
+    SIM.pool_automata_cuda = recorded
+    try:
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        SIM.pool_automata_cuda = pool_call
+    counts = _read_counts()
+    wet = _wet(pool_automata_full_cuda)
+    for key in ("K3", "K5"):
+        _check(counts[key] > 0, f"{key} was not launched on the odd-grid path")
+    _check(counts["K4"] == 0, "K4 launched on an odd grid")
+    for k, v in (("height", sim.height_map), ("pool", sim.pool_map), ("stream", sim.stream_map)):
+        _check(tuple(v.shape) == (res, res) and bool(torch.isfinite(v).all()),
+               f"odd-grid {k} not finite or misshapen")
+    _check(float(sim.stream_map.abs().max()) > 0, "odd-grid erosion left no stream")
+    print(f"odd grid 1025²: ErosionSim.step (3 cycles) {step_ms:.3f} ms; launches {counts}; "
+          f"K5 gate open in {wet} of {counts['K5']} calls; host syncs {len(sim.syncs)}")
+    rows.set_launches({"K5": counts["K5"], "K5@1025": counts["K5"], "K3@1025": counts["K3"]})
+
+    # K5 on the inputs of the step's last call whose gate was open
+    s, cells = sim.settings, res * res
+    wet_inputs = [hp for hp in pool_inputs if bool((hp[1] >= PO.MIN_WATER).any())]
+    _check(len(pool_inputs) == counts["K5"] and len(wet_inputs) == wet,
+           f"{len(wet_inputs)} of {len(pool_inputs)} recorded pool inputs wet, gate open {wet}")
+    _check(wet > 0, "K5's gate stayed closed on the odd-grid path")
+    height, pool = wet_inputs[-1]
+    got = pool_automata_full_cuda(height, pool, s.WATER_STEPS, True)
+    _check(bool((got[0] != pool).any()), "K5 ran no phase on the odd-grid pool")
+    rows.compare("K5@1025", "K5 pool_automata_full_cuda (1025² ErosionSim pool)", SRC["K5"],
+                 POOL_TPU + ":30", got,
+                 lambda: pool_automata_full_cuda(height, pool, s.WATER_STEPS, True),
+                 lambda: PO._pool_automata_fullgrid(height, pool, s.WATER_STEPS, True),
+                 "full1025", 10, 16 * cells, POOL_OPS_PER_ITER * s.WATER_STEPS * cells)
+    # K3 on the height the step leaves: the next cycle's K3 input
+    hw_ratio = float(sim.meta.tile_size) / float(sim.meta.height)
+    thermal = (sim.height_map, s.TALUS, s.THERMAL_STEP, hw_ratio, s.THERMAL_CYCLES)
+    rows.compare("K3@1025", "K3 thermal_erosion_fused (1025² ErosionSim height)", SRC["K3"],
+                 TPU + "thermal_pl.py:36", (thermal_erosion_fused(*thermal),),
+                 lambda: (thermal_erosion_fused(*thermal),),
+                 lambda: (TH.thermal_erosion(*thermal),), "k3_1025", 20,
+                 8 * cells, K3_OPS_PER_ITER * s.THERMAL_CYCLES * cells)
 
 
 def cross_device_phase():
-    """Port on the card against the port on the CPU, entry() configuration."""
+    """Port on the card against the port on the CPU, entry() configuration,
+    then the mesh export round trip at that size."""
     import dataclasses
 
     import torch
 
+    from noize_tpu_torch.app import mesh_export
     from noize_tpu_torch.app.flagship import default_meta, default_settings, make_tile_step
     from noize_tpu_torch.erosion.particles import spawn
 
@@ -260,17 +643,41 @@ def cross_device_phase():
     _check(torch.equal(outs["cuda"]["mesh"].indices.cpu(), outs["cpu"]["mesh"].indices),
            "mesh indices differ")
 
+    mesh = outs["cuda"]["mesh"]
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        mesh_export.to_obj(os.path.join(d, "tile.obj"), mesh)
+        mesh_export.to_npz(os.path.join(d, "tile.npz"), mesh)
+        back = mesh_export.from_npz(os.path.join(d, "tile.npz"))
+        export_ms = (time.perf_counter() - t0) * 1e3
+        with open(os.path.join(d, "tile.obj")) as fh:
+            lines = fh.read().splitlines()
+    nv, nf = mesh.positions.shape[0], mesh.indices.shape[0] // 3
+    _check(len(lines) == 1 + 3 * nv + nf, f"OBJ has {len(lines)} lines")
+    _check(lines[1].startswith("v ") and lines[-1].startswith("f "), "OBJ layout")
+    for f in ("positions", "normals", "tangents", "uvs", "indices"):
+        _check(getattr(back, f).device.type == "cuda"
+               and torch.equal(getattr(back, f), getattr(mesh, f)), f"NPZ round trip {f}")
+    print(f"export {meta.generator_res}² (tile {meta.tile_res}²): OBJ {len(lines)} lines + NPZ "
+          f"round trip equal in {export_ms:.1f} ms; {nv} vertices")
+
 
 def main():
     import torch
 
     sys.path.insert(0, HERE)
+    t0 = time.perf_counter()
     name = device_phase()
     build_phase()
-    rows = kernel_phase()
-    flagship_phase(rows)
+    rows = Rows()
+    kernel_phase(rows)
+    sim = quickstart_phase(rows)
+    flagship_phase()
+    odd_grid_phase(rows)
     cross_device_phase()
-    print(json.dumps({"kernels": rows}))
+    profile_step(sim)  # last: no timed phase runs after the profiler
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
+    print(rows.line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

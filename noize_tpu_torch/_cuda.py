@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled on first use with nvcc into one shared library
-with a plain C interface and bound with ``ctypes``:
+The sources are compiled on first use with nvcc, one process per source,
+all started together, and linked into one shared library with a plain C
+interface, bound with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC
+         -Xcompiler -fPIC -c <source>        (each csrc/*.cu)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared <objects>
 
 ``-fmad=false`` keeps every multiply and add separately rounded, as the
 reference's f32 arithmetic is; several kernels branch on exact f32 values
@@ -31,10 +33,8 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "noize_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,8 +50,9 @@ SIGNATURES = {
     # in, out, res, iterations, max_diff, increment, stream
     "noize_thermal_erosion": (_P, _P, _I, _I, _F, _F, _P),
     # height, pool_in, pool_out, drains, flag, scratch, res, iterations,
-    # drain_particles, stream
+    # drain_particles, stream (K4: even res; K5: any res)
     "noize_pool_automata": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "noize_pool_automata_full": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _LIB = None
@@ -79,22 +80,35 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"lib_{digest.hexdigest()[:16]}.so"
 
 
+def _run(cmds):
+    """Run the nvcc commands in parallel; raise with every failure's
+    output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> pathlib.Path:
     """Compile ``csrc/*.cu`` unless the library for these sources exists."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [os.path.join(tmpdir, f"{src.stem}.o") for src in srcs]
+        _run([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", obj]
+              for src, obj in zip(srcs, objs)])
+        lib = os.path.join(tmpdir, "lib.so")
+        _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
     return out
 
 
@@ -122,10 +136,9 @@ def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def check_map(t: torch.Tensor, name: str, square: bool = True,
-              even: bool = False) -> None:
+def check_map(t: torch.Tensor, name: str, square: bool = True) -> None:
     """Refuse what the kernels do not take: non-CUDA, non-f32, non-2-D,
-    non-contiguous, non-square where ``square``, odd-sized where ``even``."""
+    non-contiguous, non-square where ``square``."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != torch.float32:
@@ -133,7 +146,5 @@ def check_map(t: torch.Tensor, name: str, square: bool = True,
     if t.dim() != 2 or (square and t.shape[0] != t.shape[1]):
         raise ValueError(f"{name}: expected a {'square ' if square else ''}"
                          f"2-D map, got {tuple(t.shape)}")
-    if even and t.shape[0] % 2:
-        raise ValueError(f"{name}: expected an even size, got {t.shape[0]}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")

@@ -11,9 +11,8 @@ from typing import Optional
 
 import torch
 
-from noize_tpu.core.tiles import TileSetMeta
-from noize_tpu.erosion.params import ErosionSettings
-
+from ..core.tiles import TileSetMeta
+from ..erosion.params import ErosionSettings
 from ..erosion.sim import erosion_cycle, init_state
 from ..ops import mesh as _mesh
 from ..ops.cuda.flow import flow_map_fused

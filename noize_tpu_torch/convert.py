@@ -1,9 +1,12 @@
 """State that crosses between the JAX reference and the port.
 
 The system has no weights; what crosses is the erosion state — the five
-``WorldState`` maps plus the queued drain water — and particle buffers.
+``WorldState`` maps plus the queued drain water — particle buffers, the
+configuration dataclasses and the buffer store's save directories.
 Arrays travel as numpy: float32 stays float32, int32 stays int32, bool
-stays bool.
+stays bool.  The JAX dataclasses travel as plain dicts
+(``dataclasses.asdict``), so the port never imports them.  Tensors land on
+the card unless ``device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -11,6 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.store import PipelineStateManager
+from .core.tiles import TileSetMeta
+from .erosion.params import ErosionMode, ErosionSettings
 from .erosion.particles import Particles
 from .erosion.sim import SimState
 from .erosion.world import WorldState
@@ -32,7 +38,7 @@ def _to_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device=device)
 
 
-def sim_state_from_numpy(world: dict, drain_water, device="cpu",
+def sim_state_from_numpy(world: dict, drain_water, device="cuda",
                          generator=None) -> SimState:
     """SimState from the five world maps (``world[name]`` for name in
     WORLD_MAPS) and the drain-water map."""
@@ -48,7 +54,7 @@ def sim_state_to_numpy(state: SimState):
     return world, state.drain_water.cpu().numpy()
 
 
-def particles_from_numpy(parts: dict, device="cpu") -> Particles:
+def particles_from_numpy(parts: dict, device="cuda") -> Particles:
     """Particles from a dict (or any mapping / NamedTuple ``_asdict()``)
     of the eight particle fields."""
     return Particles(**{k: _to_tensor(parts[k], device) for k in Particles._fields})
@@ -56,3 +62,30 @@ def particles_from_numpy(parts: dict, device="cpu") -> Particles:
 
 def particles_to_numpy(p: Particles) -> dict:
     return {k: getattr(p, k).cpu().numpy() for k in Particles._fields}
+
+
+def meta_from_jax(meta: dict) -> TileSetMeta:
+    """The port's ``TileSetMeta`` from ``asdict`` of the reference's."""
+    return TileSetMeta(**meta)
+
+
+def settings_from_jax(settings: dict) -> ErosionSettings:
+    """The port's ``ErosionSettings`` from ``asdict`` of the reference's;
+    ``BEHAVIOR`` may be the reference's enum member or its name."""
+    fields = dict(settings)
+    if "BEHAVIOR" in fields:
+        mode = fields["BEHAVIOR"]
+        fields["BEHAVIOR"] = ErosionMode[getattr(mode, "name", mode)]
+    return ErosionSettings(**fields)
+
+
+def load_jax_store(save_dir: str, save_name: str = "default", version: str = "0",
+                   device="cuda") -> PipelineStateManager:
+    """The port's store over a save directory written by the reference's
+    ``PipelineStateManager``, with every buffer of its manifest restored
+    onto ``device``.  The files are read as they are: both packages write
+    the same format."""
+    sm = PipelineStateManager(save_dir, save_name, version, device=device)
+    for name in sm.serde.directory.entries:
+        sm.get_buffer(name)
+    return sm

@@ -61,9 +61,10 @@ def spawn(generator, n: int, res: int, water=1.0, alive=True, device=None):
     water 1, no heading.  ``generator`` is a ``torch.Generator`` (its
     device places the particles unless ``device`` is given); its numbers
     differ from ``jax.random``'s, so tests pass the JAX spawn in through
-    ``sim.erosion_cycle(..., fresh=)``."""
+    ``sim.erosion_cycle(..., fresh=)``.  Without a generator or a
+    device the particles go to the card."""
     if device is None:
-        device = generator.device if generator is not None else "cpu"
+        device = generator.device if generator is not None else "cuda"
     row = torch.randint(0, res, (n,), generator=generator, device=device)
     col = torch.randint(0, res, (n,), generator=generator, device=device)
     return Particles(

@@ -1,18 +1,28 @@
-"""K4 — pool automata in CUDA (``csrc/pool.cu``).
+"""K4 and K5 — pool automata in CUDA (``csrc/pool.cu``).
 
-One entry point stands in for both TPU kernels that compute
-``pool.pool_automata``'s (pool, drains) on an even grid:
-``noize_tpu.erosion.pool_pallas._mega_call`` (entry
-``pool_automata_pallas_mega``) and ``_fused_pair_call`` (entry
-``pool_automata_pallas_pair_fused``).  The plain version is
-``erosion.pool.pool_automata``.
+K4 (``pool_automata_cuda`` on an even grid) computes ``pool.pool_automata``
+on the half-row pair layout.  It stands in for the TPU kernels
+``noize_tpu.erosion.pool_pallas._mega_call``, ``_fused_pair_call``,
+``_phase_pair_call`` and ``_fused_quad_call``; their JAX entries
+(``pool_automata_pallas_mega``, ``_pair_fused``, ``_pair``, ``_quad``) have
+counterparts here with the same signatures, all on K4.
 
-The wetness gate never syncs the host: the kernel raises a device flag
-when any cell holds ``>= MIN_WATER`` and every phase launch returns at
-once when it is down.  ``pool_automata_cuda.wet_calls`` adds up those
-flags on the device (an int32 tensor; ``None`` until the first call on
-the card — set it back to ``None`` to reset), so a caller can count the
-calls that ran phases without stalling the main path; reading it syncs.
+K5 (``pool_automata_full_cuda``) computes ``pool._pool_automata_fullgrid``,
+the full-grid masked phases, at any size, odd included.  It stands in for
+``pool_pallas._phase_call``; its JAX entry ``pool_automata_pallas`` runs on
+K5 here at every size, and ``pool_automata_cuda`` hands odd grids to it, as
+``pool.pool_automata`` does.
+
+The TPU blocking arguments (``block``, ``phases_per_launch``, ``unroll``)
+are accepted and ignored: they choose Mosaic layouts, not results.
+
+The wetness gate never syncs the host: each kernel raises a device flag
+when any cell holds ``>= MIN_WATER`` and every phase launch returns at once
+when it is down.  Each wrapper's ``wet_calls`` adds up those flags on the
+device (an int32 tensor; ``None`` until the first call on the card — set it
+back to ``None`` to reset), so a caller can count the calls that ran phases
+without stalling the main path; reading it syncs.  Every wrapper counts the
+kernels it launches in ``launches``.
 """
 
 from __future__ import annotations
@@ -23,36 +33,132 @@ from .. import _cuda
 from . import pool as _pool
 
 
-def pool_automata_cuda(height, pool, iterations: int = 10,
-                       drain_particles: bool = True):
-    """``pool_automata`` on K4.  A CPU tensor takes the plain version; a
-    CUDA tensor launches K4 or raises (it needs an even, square grid)."""
-    if height.device.type == "cpu":
-        return _pool.pool_automata(height, pool, iterations, drain_particles)
-    _cuda.check_map(height, "pool_automata_cuda", even=True)
-    _cuda.check_map(pool, "pool_automata_cuda", even=True)
+def _launch(wrapper, entry: str, height, pool, iterations: int,
+            drain_particles: bool):
+    """Launch ``entry`` (K4 or K5) on CUDA tensors; returns (pool, drains)
+    and adds the call's gate flag to ``wrapper.wet_calls``."""
+    _cuda.check_map(height, wrapper.__name__)
+    _cuda.check_map(pool, wrapper.__name__)
     if pool.shape != height.shape or pool.device != height.device:
-        raise ValueError("pool_automata_cuda: height and pool must match in "
+        raise ValueError(f"{wrapper.__name__}: height and pool must match in "
                          "shape and device")
     res = height.shape[0]
     out = torch.empty_like(pool)
     drains = torch.empty_like(pool)
     flag = torch.empty((1,), dtype=torch.int32, device=pool.device)
-    scratch = torch.empty(9 * (res // 2) ** 2, dtype=torch.float32,
+    scratch = torch.empty(9 * ((res + 1) // 2) ** 2, dtype=torch.float32,
                           device=pool.device)
     with torch.cuda.device(pool.device):
-        _cuda.call("noize_pool_automata", height.data_ptr(), pool.data_ptr(),
-                   out.data_ptr(), drains.data_ptr(), flag.data_ptr(),
-                   scratch.data_ptr(), res, int(iterations),
-                   int(bool(drain_particles)), _cuda.stream(pool))
-    pool_automata_cuda.launches += 1
-    wet = pool_automata_cuda.wet_calls
+        _cuda.call(entry, height.data_ptr(), pool.data_ptr(), out.data_ptr(),
+                   drains.data_ptr(), flag.data_ptr(), scratch.data_ptr(), res,
+                   int(iterations), int(bool(drain_particles)), _cuda.stream(pool))
+    wrapper.launches += 1
+    wet = wrapper.wet_calls
     if wet is None or wet.device != flag.device:
-        pool_automata_cuda.wet_calls = flag.clone()
+        wrapper.wet_calls = flag.clone()
     else:
         wet.add_(flag)
     return out, drains
 
 
-pool_automata_cuda.launches = 0
-pool_automata_cuda.wet_calls = None
+def pool_automata_full_cuda(height, pool, iterations: int = 10,
+                            drain_particles: bool = True):
+    """``pool._pool_automata_fullgrid`` on K5, any square size.  A CPU
+    tensor takes the plain version; a CUDA tensor launches K5 or raises."""
+    if height.device.type == "cpu":
+        return _pool._pool_automata_fullgrid(height, pool, iterations,
+                                             drain_particles)
+    return _launch(pool_automata_full_cuda, "noize_pool_automata_full",
+                   height, pool, iterations, drain_particles)
+
+
+def pool_automata_cuda(height, pool, iterations: int = 10,
+                       drain_particles: bool = True):
+    """``pool_automata``: K4 on an even grid, K5 on an odd one (the
+    reference's full-grid fallback).  A CPU tensor takes the plain
+    version; a CUDA tensor launches a kernel or raises."""
+    if height.device.type == "cpu":
+        return _pool.pool_automata(height, pool, iterations, drain_particles)
+    if height.dim() == 2 and height.shape[0] % 2:
+        return pool_automata_full_cuda(height, pool, iterations, drain_particles)
+    return _launch(pool_automata_cuda, "noize_pool_automata", height, pool,
+                   iterations, drain_particles)
+
+
+for _w in (pool_automata_cuda, pool_automata_full_cuda):
+    _w.launches = 0
+    _w.wet_calls = None
+
+
+# --- the JAX entries of the five TPU pool kernels ---------------------------
+
+def _counted(entry, kernel, height, pool, iterations, drain_particles):
+    out = kernel(height, pool, iterations, drain_particles)
+    if height.device.type != "cpu":
+        entry.launches += 1
+    return out
+
+
+def _even(entry, height):
+    if height.shape[0] % 2:
+        raise ValueError(f"{entry.__name__}: the pair and quad layouts need an "
+                         f"even grid, got {height.shape[0]}")
+
+
+def pool_automata_pallas(height, pool, iterations: int = 10,
+                         drain_particles: bool = True, block: int = 256):
+    """``pool_pallas.pool_automata_pallas`` (TPU kernel ``_phase_call``):
+    the full-grid masked phases, on K5 at every size."""
+    return _counted(pool_automata_pallas, pool_automata_full_cuda, height,
+                    pool, iterations, drain_particles)
+
+
+def pool_automata_pallas_pair(height, pool, iterations: int = 10,
+                              drain_particles: bool = True, block: int = None):
+    """``pool_pallas.pool_automata_pallas_pair`` (TPU kernel
+    ``_phase_pair_call``) on K4.  The reference gates each step on
+    ``any(pool > 0)``, K4 each call on ``MIN_WATER``: both skip only fixed
+    points, so the results are equal."""
+    _even(pool_automata_pallas_pair, height)
+    return _counted(pool_automata_pallas_pair, pool_automata_cuda, height,
+                    pool, iterations, drain_particles)
+
+
+def pool_automata_pallas_quad(height, pool, iterations: int = 10,
+                              drain_particles: bool = True, block: int = None,
+                              phases_per_launch: int = 4, unroll: bool = None):
+    """``pool_pallas.pool_automata_pallas_quad`` (TPU kernel
+    ``_fused_quad_call``, diagonal quadrants) on K4; same gate note as
+    :func:`pool_automata_pallas_pair`."""
+    _even(pool_automata_pallas_quad, height)
+    return _counted(pool_automata_pallas_quad, pool_automata_cuda, height,
+                    pool, iterations, drain_particles)
+
+
+def pool_automata_pallas_pair_fused(height, pool, iterations: int = 10,
+                                    drain_particles: bool = True,
+                                    block: int = None,
+                                    phases_per_launch: int = 4,
+                                    unroll: bool = True):
+    """``pool_pallas.pool_automata_pallas_pair_fused`` (TPU kernel
+    ``_fused_pair_call``) on K4."""
+    _even(pool_automata_pallas_pair_fused, height)
+    return _counted(pool_automata_pallas_pair_fused, pool_automata_cuda,
+                    height, pool, iterations, drain_particles)
+
+
+def pool_automata_pallas_mega(height, pool, iterations: int = 10,
+                              drain_particles: bool = True, block: int = None,
+                              phases_per_launch: int = 4):
+    """``pool_pallas.pool_automata_pallas_mega`` (TPU kernel ``_mega_call``)
+    on K4."""
+    _even(pool_automata_pallas_mega, height)
+    return _counted(pool_automata_pallas_mega, pool_automata_cuda, height,
+                    pool, iterations, drain_particles)
+
+
+ENTRIES = (pool_automata_pallas, pool_automata_pallas_pair,
+           pool_automata_pallas_quad, pool_automata_pallas_pair_fused,
+           pool_automata_pallas_mega)
+for _w in ENTRIES:
+    _w.launches = 0

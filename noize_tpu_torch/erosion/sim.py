@@ -1,4 +1,5 @@
-"""One erosion cycle — port of ``noize_tpu.erosion.sim.erosion_cycle``.
+"""Live erosion — port of ``noize_tpu.erosion.sim``: one erosion cycle
+(``erosion_cycle``) and the per-tile host driver (``ErosionSim``).
 
   thermal erosion (kernel K3 on the card)
   → spawn particles (queued drain particles first, then fresh ones)
@@ -6,7 +7,8 @@
   → per-cell event reduce: pool/track placement multipliers
   → sediment write-back (disperse / pile deposit + [0,1] breaker)
   → track→flow decay + pool surface evaporation
-  → pool automata (kernel K4 on the card), emitting drain water
+  → pool automata (kernel K4 on the card, K5 on odd grids), emitting
+    drain water
 
 Drain water accumulates in a map; the next cycle's spawn converts the
 top-K wettest drain cells into particles (K = particle slots, ties to the
@@ -18,25 +20,25 @@ Host syncs: unlike the reference, whose gates are device-side
 each cycle (drains present, descent chunks alive, piles present).  Pass a
 list as ``syncs`` to have each one recorded.
 
-``ErosionSim``, live retuning of the tunable scalars and persistence are
-not ported yet.
+``ErosionSim.trigger``/``update`` (the continuous mode) wait for the port
+of ``utils.tracking``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
-from noize_tpu.core.tiles import TileSetMeta
-from noize_tpu.erosion.params import ErosionMode, ErosionSettings
-
+from ..core.tiles import TileSetMeta
 from ..ops.cuda.thermal import thermal_erosion_fused
+from .params import ErosionMode, ErosionSettings
 from .particles import Particles, descend_all, spawn
 from .pool_cuda import pool_automata_cuda
 from .sediment import write_sediment_map
-from .world import WorldState, update_flow_from_track
+from .world import WorldState, curvature_map, update_flow_from_track
 
 
 @dataclass
@@ -88,13 +90,19 @@ def _spawn_with_drains(generator, n: int, res: int, drain_water,
 
 
 def erosion_cycle(state: SimState, settings: ErosionSettings, meta: TileSetMeta,
-                  fresh: Optional[Particles] = None, syncs: list = None) -> SimState:
+                  tuned: Optional[dict] = None, fresh: Optional[Particles] = None,
+                  syncs: list = None) -> SimState:
     """One full cycle of TriggerQueuedBeyerMT's inner loop.
 
+    ``tuned``: optional dict of ``params.TUNABLE_FIELDS`` values that
+    override the settings' (the live-retuning hook; each value is rounded
+    to float32 as the reference's traced scalars are).
     ``fresh``: particles that replace the cycle's random spawn (drain
     particles still take the first slots) — the hook tests use to feed
     the reference's ``jax.random`` spawn."""
     params = settings.as_parameters()
+    if tuned is not None:
+        params = replace(params, **{k: float(np.float32(v)) for k, v in tuned.items()})
     res = meta.generator_res
     height_scale = float(meta.height)
     patch_res = meta.patch_res
@@ -135,3 +143,107 @@ def erosion_cycle(state: SimState, settings: ErosionSettings, meta: TileSetMeta,
     world = replace(world, pool=pool)
     return SimState(world=world, drain_water=drain_water + drains,
                     generator=state.generator)
+
+
+class ErosionSim:
+    """Host driver with the LiveErosion component surface (reset, step,
+    save — LiveErosion.cs:203-372).
+
+    The sim lives on ``height``'s device; a NumPy height goes to
+    ``device`` (the card by default — no GPU raises).  ``seed`` seeds the
+    particle spawn's ``torch.Generator`` on that device."""
+
+    def __init__(self, height, settings: Optional[ErosionSettings] = None,
+                 meta: Optional[TileSetMeta] = None, state_manager=None,
+                 tile_pos=(0, 0), seed: int = 0, device="cuda"):
+        self.settings = settings or ErosionSettings()
+        res = int(height.shape[0])
+        self.meta = meta or TileSetMeta(
+            tile_res=res, tile_size=res, generator_res=res, height=1000, margin=0)
+        self.state_manager = state_manager
+        self.tile_pos = tuple(tile_pos)
+        if isinstance(height, torch.Tensor):
+            height = height.to(torch.float32)
+        else:
+            device = torch.device(device)
+            if device.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError("ErosionSim(device='cuda'): no CUDA device")
+            height = torch.from_numpy(np.array(height, np.float32)).to(device)
+        self.original_height = height
+        generator = torch.Generator(device=height.device).manual_seed(seed)
+        self.state = init_state(self.original_height, generator)
+        self.cycle_count = 0
+        #: host syncs of the last ``step``
+        self.syncs: list = []
+
+    # --- map views (LiveErosion MapType, :118-154) --------------------------
+
+    @property
+    def height_map(self):
+        return self.state.world.height
+
+    @property
+    def pool_map(self):
+        return self.state.world.pool
+
+    @property
+    def stream_map(self):
+        return self.state.world.flow
+
+    @property
+    def plant_map(self):
+        return self.state.world.plants
+
+    def curvature(self):
+        return curvature_map(self.state.world.height, float(self.meta.height),
+                             self.meta.patch_res)
+
+    # --- stepping -----------------------------------------------------------
+
+    def _run_cycle(self, fresh: Optional[Particles] = None):
+        """One erosion cycle with the current settings (retuned live
+        between steps), their tunables rounded to float32 as the
+        reference's traced scalars are."""
+        self.state = erosion_cycle(
+            self.state, self.settings, self.meta,
+            tuned=self.settings.tunable_values(), fresh=fresh, syncs=self.syncs)
+        self.cycle_count += 1
+
+    def step(self, cycles: Optional[int] = None,
+             fresh: Optional[Sequence[Particles]] = None):
+        """Run CYCLES erosion cycles.  ``fresh``: optional list with one
+        ``Particles`` per cycle replacing that cycle's random spawn (the
+        test hook ``make_tile_step`` has too)."""
+        n = self.settings.CYCLES if cycles is None else cycles
+        self.syncs = []
+        for c in range(n):
+            self._run_cycle(None if fresh is None else fresh[c])
+        return self.state
+
+    # --- resets (LiveErosion.cs:267-294) ------------------------------------
+
+    def reset_land(self):
+        self.state = init_state(self.original_height, self.state.generator)
+
+    def reset_water(self):
+        w = self.state.world
+        z = torch.zeros_like(w.pool)
+        self.state = replace(
+            self.state, world=replace(w, pool=z, flow=z, track=z),
+            drain_water=torch.zeros_like(self.state.drain_water))
+
+    # --- persistence (SaveErosionState, LiveErosion.cs:111-116) -------------
+
+    def _buffer_name(self, alias: str) -> str:
+        return self.meta.buffer_name(self.tile_pos, alias)
+
+    def save_erosion_state(self):
+        if self.state_manager is None:
+            raise RuntimeError("no state manager attached")
+        self.original_height = self.state.world.height
+        sm = self.state_manager
+        sm.set_buffer(self._buffer_name("TERRAIN_HEIGHT"), self.state.world.height)
+        sm.set_buffer(self._buffer_name("PARTERO_WATERMAP_STREAM"), self.state.world.flow)
+        sm.set_buffer(self._buffer_name("PARTERO_WATERMAP_POOL"), self.state.world.pool)
+        for alias in ("TERRAIN_HEIGHT", "PARTERO_WATERMAP_STREAM", "PARTERO_WATERMAP_POOL"):
+            sm.save_buffer_to_disk(self._buffer_name(alias))

@@ -1,8 +1,15 @@
-"""Gaussian blur helpers — the subset of ``noize_tpu.ops.blur`` the
-flagship blur needs.  The blur itself runs on kernel K1
-(``ops.cuda.stencil.gauss_chain``)."""
+"""Parametric Gaussian / box blur — port of ``noize_tpu.ops.blur``.
+
+``gauss_blur`` and ``smooth_blur`` are one separable X/Z pass each, in
+plain PyTorch.  The blur stages and the flagship run whole chains of them
+on kernel K1 (``ops.cuda.stencil``).
+"""
 
 from __future__ import annotations
+
+import numpy as np
+
+from .kernels import gaussian_taps, separable_series
 
 MAX_WIDTH = 25
 
@@ -27,3 +34,22 @@ def sigma_value(sigma) -> float:
     if isinstance(sigma, int) and sigma < len(GAUSS_SIGMAS):
         return GAUSS_SIGMAS[sigma]
     return float(sigma)
+
+
+def smooth_taps(width: int) -> np.ndarray:
+    """SmoothBlur.GetKernel (BlurKernels.cs:40-44): box of 1/width."""
+    return np.full((width,), 1.0 / width, np.float32)
+
+
+def gauss_blur(a, width: int, sigma):
+    """GaussFilter.Schedule (BlurJob.cs:11-21): separable X/Z pass."""
+    width = limit_width(width)
+    taps = gaussian_taps(sigma_value(sigma), width)
+    return separable_series(a, taps, taps, 1.0)
+
+
+def smooth_blur(a, width: int):
+    """SmoothFilter.Schedule (BlurJob.cs:34-44)."""
+    width = limit_width(width)
+    taps = smooth_taps(width)
+    return separable_series(a, taps, taps, 1.0)

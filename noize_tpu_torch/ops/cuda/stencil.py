@@ -1,9 +1,12 @@
 """K1 — the iterated separable stencil chain (``csrc/stencil.cu``).
 
-Port of ``noize_tpu.ops.pallas.stencil.fused_separable_chain_rows`` and its
-entry ``gauss_chain``: ``iterations`` × (X pass, flipped Z pass) of an
-edge-clamped correlation, i.e. ``kernels.separable_series`` iterated.  The
-port's flagship blur runs here.
+Port of the TPU kernels ``noize_tpu.ops.pallas.stencil.fused_separable_chain``
+(2-D halo blocks) and ``fused_separable_chain_rows`` (full-width row
+blocks) and of their entry ``gauss_chain``: ``iterations`` × (X pass,
+flipped Z pass) of an edge-clamped correlation, i.e.
+``kernels.separable_series`` iterated.  The blur stages and the flagship
+blur run here.  The two JAX entries have counterparts of the same names;
+their blocking arguments choose TPU layouts, not results, and are ignored.
 """
 
 from __future__ import annotations
@@ -54,3 +57,26 @@ def gauss_chain(x, width: int, sigma, iterations: int):
     """StageGaussianBlur's iterated blur on K1 (``stencil.gauss_chain``)."""
     taps = _kernels.gaussian_taps(sigma_value(sigma), limit_width(width))
     return separable_chain(x, taps, iterations)
+
+
+def _entry(entry, x, taps, iterations):
+    out = separable_chain(x, taps, iterations)
+    if x.device.type != "cpu":
+        entry.launches += 1
+    return out
+
+
+def fused_separable_chain(x, taps, iterations: int, block: int = 256):
+    """``stencil.fused_separable_chain`` (2-D blocks on the TPU) on K1."""
+    return _entry(fused_separable_chain, x, taps, iterations)
+
+
+def fused_separable_chain_rows(x, taps, iterations: int, block: int = None,
+                               iterations_per_launch: int = 6):
+    """``stencil.fused_separable_chain_rows`` (row blocks on the TPU) on
+    K1."""
+    return _entry(fused_separable_chain_rows, x, taps, iterations)
+
+
+fused_separable_chain.launches = 0
+fused_separable_chain_rows.launches = 0

@@ -77,7 +77,7 @@ def fractal(
     detune_rate=0.0,
     noise_size=1000.0,
     starting_amplitude=1.0,
-    device="cpu",
+    device="cuda",
 ):
     """One fBm tile of shape ``(resolution, resolution)``, row-major
     ``[z, x]``, on ``device``; ``xpos``/``zpos`` offset the tile in the

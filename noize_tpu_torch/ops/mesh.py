@@ -1,5 +1,5 @@
-"""Heightmap → mesh emission; port of the overshoot emitters of
-``noize_tpu.ops.mesh``.
+"""Heightmap → mesh emission; port of ``noize_tpu.ops.mesh``'s
+``heightmap_mesh`` and its overshoot emitters.
 
 Formula quirks kept from the reference: vertex x == 0 gets position
 −(0.5·step) while x ≥ 1 gets x·step − 0.5; tangent = (−4·dx, 16, −4·dz, 0);
@@ -84,7 +84,7 @@ class MeshPlanes:
                           self.uvs, self.indices)
 
 
-def grid_indices(resolution: int, device="cpu") -> torch.Tensor:
+def grid_indices(resolution: int, device="cuda") -> torch.Tensor:
     """Triangle index list (SquareGridHeightMap.cs:96-103): per cell
     (z≥1, x≥1) two triangles (vi−R−2, vi−1, vi−R−1), (vi−R−1, vi−1, vi);
     int32 on ``device`` (see the module note on the reference's uint16/32)."""
@@ -155,6 +155,41 @@ def _tap_slices(heights, r: int, off: int):
     return t, l_in, r_in, u_in, d_in
 
 
+def _interp_edge(a, b):
+    """InterpolateEdge (SquareGridHeightMap.cs:36-38): a − (b − a)."""
+    return a - (b - a)
+
+
+def _assemble(r, t, l, rgt, u, d, tile_size, height, uv_denom, device):
+    vx_f, vz_f, step = _vertex_coords(r, tile_size, device)
+    pos, n, tan, uv = vertex_fields(t, l, rgt, u, d, vx_f, vz_f, step,
+                                    height, uv_denom)
+    nv = (r + 1) * (r + 1)
+    return MeshArrays(pos.reshape(nv, 3), n.reshape(nv, 3),
+                      tan.reshape(nv, 4), uv.reshape(nv, 2),
+                      grid_indices(r, device))
+
+
+def heightmap_mesh(heights, resolution: int, input_resolution: int, height,
+                   tile_size) -> MeshArrays:
+    """SquareGridHeightMap: center-crop ``heights`` to ``resolution``
+    cells with edge-extrapolated neighbour taps (the reference's
+    ``InterpolateEdge`` on the last two columns and rows, verbatim);
+    returns ``MeshArrays`` of (resolution+1)² vertices."""
+    r = resolution
+    off = (input_resolution - r) // 2  # PixOffset (SquareGridHeightMap.cs:33)
+    t, l_in, r_in, u_in, d_in = _tap_slices(heights, r, off)
+    ar = torch.arange(r + 1, device=heights.device)
+    xg = ar[None, :]
+    zg = ar[:, None]
+    l = torch.where(xg > 0, l_in, _interp_edge(t, r_in))
+    rgt = torch.where(xg < r - 1, r_in, _interp_edge(t, l_in))
+    u = torch.where(zg > 0, u_in, _interp_edge(d_in, t))
+    d = torch.where(zg < r - 1, d_in, _interp_edge(u_in, t))
+    return _assemble(r, t, l, rgt, u, d, tile_size, height, float(r + 1),
+                     heights.device)
+
+
 def heightmap_mesh_overshoot(heights, resolution: int, input_resolution: int,
                              height, tile_size) -> MeshArrays:
     """OvershootSquareGridHeightMap: center-crop ``heights`` to
@@ -163,13 +198,8 @@ def heightmap_mesh_overshoot(heights, resolution: int, input_resolution: int,
     r = resolution
     off = (input_resolution - r) // 2
     t, l, rgt, u, d = _tap_slices(heights, r, off)
-    vx_f, vz_f, step = _vertex_coords(r, tile_size, heights.device)
-    pos, n, tan, uv = vertex_fields(t, l, rgt, u, d, vx_f, vz_f, step,
-                                    height, float(r) - 0.5)
-    nv = (r + 1) * (r + 1)
-    return MeshArrays(pos.reshape(nv, 3), n.reshape(nv, 3),
-                      tan.reshape(nv, 4), uv.reshape(nv, 2),
-                      grid_indices(r, heights.device))
+    return _assemble(r, t, l, rgt, u, d, tile_size, height, float(r) - 0.5,
+                     heights.device)
 
 
 def heightmap_mesh_overshoot_planes(heights, resolution: int,

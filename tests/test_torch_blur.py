@@ -89,3 +89,35 @@ def test_separable_chain_plain_equals_wrapper_on_cpu():
     np.testing.assert_array_equal(TS.separable_chain(a, taps, 4).numpy(),
                                   TS.separable_chain_plain(a, taps, 4).numpy())
     np.testing.assert_array_equal(TS.separable_chain(a, taps, 0).numpy(), a.numpy())
+
+
+@pytest.mark.parametrize("name", ["fused_separable_chain", "fused_separable_chain_rows"])
+def test_stencil_entries_match_pallas_interpret(name):
+    """The port's entries of TPU kernels #1 (2-D blocks) and #2 (row
+    blocks) against the JAX entries in interpret mode, same tolerance as
+    test_gauss_chain_matches_pallas_kernel_interpret."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    a = _field(4, (64, 64))
+    taps = JK.gaussian_taps(1.0, 5)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(getattr(JS, name)(jnp.asarray(a), taps, 2, block=32))
+    entry = getattr(TS, name)
+    before = entry.launches
+    got = entry(torch.from_numpy(a), taps, 2, block=32).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got, TS.separable_chain_plain(torch.from_numpy(a), taps,
+                                                                2).numpy())
+    assert entry.launches == before
+
+
+@pytest.mark.parametrize("width,sigma", [(5, "s1d00"), (8, 2.5), (3, 0)])
+def test_gauss_and_smooth_blur_bit_exact(width, sigma):
+    a = _field(5, (48, 48))
+    with jax.disable_jit():
+        wg = np.asarray(JB.gauss_blur(jnp.asarray(a), width, sigma))
+        ws = np.asarray(JB.smooth_blur(jnp.asarray(a), width))
+    np.testing.assert_array_equal(TB.gauss_blur(torch.from_numpy(a), width, sigma).numpy(), wg)
+    np.testing.assert_array_equal(TB.smooth_blur(torch.from_numpy(a), width).numpy(), ws)
+    np.testing.assert_array_equal(TB.smooth_taps(TB.limit_width(width)),
+                                  JB.smooth_taps(JB.limit_width(width)))

@@ -63,7 +63,8 @@ def _jax_particles(key, n, res=RES):
 
 
 def _to_port(parts):
-    return convert.particles_from_numpy({k: np.array(v) for k, v in parts._asdict().items()})
+    return convert.particles_from_numpy({k: np.array(v) for k, v in parts._asdict().items()},
+                                        device="cpu")
 
 
 def _assert_close(got, want, rtol=1e-4):
@@ -212,7 +213,9 @@ def test_erosion_cycles_match_reference():
         fresh = _to_port(JPa.spawn(k1, settings.PARTICLES_PER_CYCLE, RES))
         jstate = JS.erosion_cycle(jstate, settings, meta)
         syncs = []
-        tstate = TS.erosion_cycle(tstate, settings, meta, fresh=fresh, syncs=syncs)
+        tstate = TS.erosion_cycle(tstate, convert.settings_from_jax(dataclasses.asdict(settings)),
+                                  convert.meta_from_jax(dataclasses.asdict(meta)),
+                                  fresh=fresh, syncs=syncs)
         assert syncs[0] == "spawn.drains" and syncs[-1] == "sediment.piles"
     world, drain = convert.sim_state_to_numpy(tstate)
     for k in ("height", "pool", "flow", "plants"):
@@ -223,18 +226,19 @@ def test_erosion_cycles_match_reference():
 
 def test_convert_round_trip_and_dtypes():
     world = _world(9, 16)
-    state = convert.sim_state_from_numpy(world, np.ones((16, 16), np.float32))
+    state = convert.sim_state_from_numpy(world, np.ones((16, 16), np.float32), device="cpu")
     back, drain = convert.sim_state_to_numpy(state)
     for k in convert.WORLD_MAPS:
         np.testing.assert_array_equal(back[k], world[k])
     np.testing.assert_array_equal(drain, 1.0)
     parts = {k: np.asarray(v) for k, v in
              _jax_particles(jax.random.PRNGKey(2), 10, 16)._asdict().items()}
-    tp = convert.particles_from_numpy(parts)
+    tp = convert.particles_from_numpy(parts, device="cpu")
     assert (tp.row.dtype, tp.heading.dtype, tp.alive.dtype) == (
         torch.float32, torch.int32, torch.bool)
     for k, v in convert.particles_to_numpy(tp).items():
         np.testing.assert_array_equal(v, parts[k])
     with pytest.raises(TypeError):
-        convert.particles_from_numpy({**parts, "row": parts["row"].astype(np.float64)})
+        convert.particles_from_numpy({**parts, "row": parts["row"].astype(np.float64)},
+                                     device="cpu")
     assert dataclasses.is_dataclass(state.world)

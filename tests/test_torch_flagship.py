@@ -17,6 +17,8 @@ that drift, so the flagship's normals are held to 5e-3 absolute, and the
 mesh math itself is checked at 1e-5 on the port's own heights.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -50,8 +52,10 @@ def outputs():
     k1, _ = jax.random.split(key)
     parts = jax_spawn(k1, settings.PARTICLES_PER_CYCLE, meta.generator_res)
     fresh = [convert.particles_from_numpy(
-        {k: np.asarray(v) for k, v in parts._asdict().items()})]
-    tstep, tmeta, tsettings = TF.make_tile_step(meta, settings, device="cpu", **kw)
+        {k: np.asarray(v) for k, v in parts._asdict().items()}, device="cpu")]
+    tstep, tmeta, tsettings = TF.make_tile_step(
+        convert.meta_from_jax(dataclasses.asdict(meta)),
+        convert.settings_from_jax(dataclasses.asdict(settings)), device="cpu", **kw)
     got = tstep(0.0, 0.0, fresh=fresh)
     return meta, want, got, tstep
 
@@ -118,5 +122,9 @@ def test_cuda_step_refuses_without_gpu():
 
 
 def test_defaults_mirror_reference():
-    assert TF.default_meta() == JF.default_meta()
-    assert TF.default_settings() == JF.default_settings()
+    # the port keeps its own copies of the dataclasses: compare field by field
+    assert dataclasses.asdict(TF.default_meta()) == dataclasses.asdict(JF.default_meta())
+    got = dataclasses.asdict(TF.default_settings())
+    want = dataclasses.asdict(JF.default_settings())
+    assert got.pop("BEHAVIOR").name == want.pop("BEHAVIOR").name
+    assert got == want

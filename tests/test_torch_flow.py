@@ -83,3 +83,16 @@ def test_flow_map_norm_guard_and_custom_range():
     # rng == 0: both take the guard and divide 0 − norm_min by 0
     np.testing.assert_array_equal(np.isfinite(got), np.isfinite(zero))
     assert TF.TIMESTEP == JF.TIMESTEP and TF.WATER_INIT == JF.WATER_INIT
+
+
+def test_flow_map_pallas_entry_matches_interpret():
+    """The port's entry of TPU kernel #3 (``_iteration_call``, one launch
+    per iteration) against the JAX entry in interpret mode."""
+    h = _field(5, 64)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(JP.flow_map_pallas(jnp.asarray(h), iterations=3, block=32))
+    before = TC.flow_map_pallas.launches
+    got = TC.flow_map_pallas(torch.from_numpy(h), 3, block=32).numpy()
+    assert TC.flow_map_pallas.launches == before
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got, TF.flow_map(torch.from_numpy(h), 3).numpy())

@@ -1,6 +1,8 @@
 """The port stands alone: importing any ``noize_tpu_torch`` module never
-loads JAX, and ``chip_smoke.py`` refuses to run without a GPU."""
+loads JAX nor any module of the JAX package ``noize_tpu``, neither does
+``chip_smoke.py``, and ``chip_smoke.py`` refuses to run without a GPU."""
 
+import ast
 import os
 import pathlib
 import shutil
@@ -30,8 +32,8 @@ def test_port_imports_no_jax():
         "import importlib, sys\n"
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
-        " or k == 'jaxlib' or k.startswith('jaxlib.'))\n"
+        "roots = ('jax', 'jaxlib', 'noize_tpu')\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in roots)\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -64,3 +66,23 @@ def test_chip_smoke_alone_fails(tmp_path):
     proc = _run_smoke(tmp_path)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def _imported_modules(path):
+    """Every module name an ``import`` or ``from ... import`` names in the
+    file (at any depth: chip_smoke.py imports inside its phases)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    return names
+
+
+def test_chip_smoke_imports_no_jax_package():
+    names = _imported_modules(REPO / "chip_smoke.py")
+    assert any(n.startswith("noize_tpu_torch") for n in names)
+    bad = sorted(n for n in names if n.split(".")[0] in ("jax", "jaxlib", "noize_tpu"))
+    assert not bad, bad

@@ -1,5 +1,5 @@
-"""noize_tpu_torch CUDA kernels K1-K4 against their plain PyTorch versions
-on the card.
+"""noize_tpu_torch CUDA kernels K1-K5 and the JAX-signature entries on
+them against their plain PyTorch versions on the card.
 
 Every test here needs an NVIDIA GPU (and nvcc to build the kernels); on a
 machine without one each test skips with a reason.  Run them on the card
@@ -16,12 +16,14 @@ import pytest
 import torch
 
 from noize_tpu_torch.erosion import pool as PO
-from noize_tpu_torch.erosion.pool_cuda import pool_automata_cuda
+from noize_tpu_torch.erosion import pool_cuda as PC
+from noize_tpu_torch.erosion.pool_cuda import pool_automata_cuda, pool_automata_full_cuda
 from noize_tpu_torch.ops import flow as FL
 from noize_tpu_torch.ops import thermal as TH
-from noize_tpu_torch.ops.cuda.flow import flow_map_fused
-from noize_tpu_torch.ops.cuda.stencil import (gauss_chain, separable_chain,
-                                              separable_chain_plain)
+from noize_tpu_torch.ops.cuda.flow import flow_map_fused, flow_map_pallas
+from noize_tpu_torch.ops.cuda.stencil import (fused_separable_chain,
+                                              fused_separable_chain_rows, gauss_chain,
+                                              separable_chain, separable_chain_plain)
 from noize_tpu_torch.ops.cuda.thermal import thermal_erosion_fused
 from noize_tpu_torch.ops.kernels import gaussian_taps
 
@@ -124,7 +126,96 @@ def test_wrappers_refuse_bad_input(cuda):
         flow_map_fused(x, 2)
     with pytest.raises(ValueError, match="even"):
         z = torch.zeros((63, 63), device=cuda)
-        pool_automata_cuda(z, z, 2, True)
+        PC.pool_automata_pallas_mega(z, z, 2, True)
+    with pytest.raises(ValueError, match="square"):
+        z = torch.zeros((64, 32), device=cuda)
+        pool_automata_full_cuda(z, z, 2, True)
     with pytest.raises(ValueError, match="contiguous"):
         thermal_erosion_fused(torch.zeros((64, 64), device=cuda).t()[:, :], 45.0,
                               0.5, 1.0)
+
+
+def _wet_calls_of(wrapper):
+    wet = wrapper.wet_calls
+    return 0 if wet is None else int(wet.item())
+
+
+@pytest.mark.parametrize("res,drain", [(16, True), (17, True), (33, True), (33, False),
+                                       (64, True)])
+def test_k5_full_grid_wet_matches_plain(cuda, res, drain):
+    h, p = _wet_case(res, 6)
+    h = torch.from_numpy(h).to(cuda)
+    p = torch.from_numpy(p).to(cuda)
+    before = (pool_automata_full_cuda.launches, _wet_calls_of(pool_automata_full_cuda))
+    gp, gd = pool_automata_full_cuda(h, p, 3, drain)
+    wp, wd = PO._pool_automata_fullgrid(h, p, 3, drain)
+    torch.cuda.synchronize()
+    _equal(gp, wp)
+    _equal(gd, wd)
+    assert not torch.equal(gp, p)
+    if drain:
+        assert bool((gd > 0).any())
+    assert (pool_automata_full_cuda.launches,
+            _wet_calls_of(pool_automata_full_cuda)) == (before[0] + 1, before[1] + 1)
+
+
+def test_odd_grid_runs_k5_through_pool_automata_cuda(cuda):
+    h, p = _wet_case(33, 7)
+    h = torch.from_numpy(h).to(cuda)
+    p = torch.from_numpy(p).to(cuda)
+    k4, k5 = pool_automata_cuda.launches, pool_automata_full_cuda.launches
+    gp, gd = pool_automata_cuda(h, p, 2, True)
+    wp, wd = PO.pool_automata(h, p, 2, True)
+    torch.cuda.synchronize()
+    _equal(gp, wp)
+    _equal(gd, wd)
+    assert (pool_automata_cuda.launches, pool_automata_full_cuda.launches) == (k4, k5 + 1)
+
+
+@pytest.mark.parametrize("entry", PC.ENTRIES, ids=lambda e: e.__name__)
+def test_pool_entries_match_plain(cuda, entry):
+    h, p = _wet_case(64, 8)
+    h = torch.from_numpy(h).to(cuda)
+    p = torch.from_numpy(p).to(cuda)
+    before = entry.launches
+    gp, gd = entry(h, p, 2, True)
+    plain = (PO._pool_automata_fullgrid if entry is PC.pool_automata_pallas
+             else PO.pool_automata)
+    wp, wd = plain(h, p, 2, True)
+    torch.cuda.synchronize()
+    _equal(gp, wp)
+    _equal(gd, wd)
+    assert entry.launches == before + 1
+
+
+def test_pair_entry_gate_between_zero_and_min_water(cuda):
+    """The reference's pair/quad entries gate on any(pool > 0), K4 on
+    MIN_WATER: a grid whose maximum lies between them is a fixed point of
+    both."""
+    rng = np.random.default_rng(9)
+    h = torch.from_numpy(_field(rng, 64, 0.0, 0.5)).to(cuda)
+    p = torch.from_numpy(
+        rng.uniform(0, PO.MIN_WATER * 0.9, (64, 64)).astype(np.float32)).to(cuda)
+    for entry in (PC.pool_automata_pallas_pair, PC.pool_automata_pallas_quad):
+        gp, gd = entry(h, p, 3, True)
+        torch.cuda.synchronize()
+        _equal(gp, p)
+        assert not bool(gd.any())
+
+
+def test_stencil_and_flow_entries_match_plain(cuda):
+    x = torch.from_numpy(_field(np.random.default_rng(10), 256)).to(cuda)
+    taps = gaussian_taps(1.0, 5)
+    want = separable_chain_plain(x, taps, 4)
+    for entry in (fused_separable_chain, fused_separable_chain_rows):
+        before = entry.launches
+        got = entry(x, taps, 4)
+        torch.cuda.synchronize()
+        _equal(got, want)
+        assert entry.launches == before + 1
+    before = flow_map_pallas.launches
+    got = flow_map_pallas(x, 3)
+    want = FL.flow_map(x, 3)
+    torch.cuda.synchronize()
+    _equal(got, want)
+    assert flow_map_pallas.launches == before + 1

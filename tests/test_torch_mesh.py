@@ -30,7 +30,7 @@ def _heights(seed, n):
 
 @pytest.mark.parametrize("r", [3, 16, 255, 256])
 def test_grid_indices_values_and_int32(r):
-    got = TM.grid_indices(r)
+    got = TM.grid_indices(r, device="cpu")
     want = JM.grid_indices(r)
     assert got.dtype == torch.int32
     assert want.dtype == (np.uint16 if (r + 1) ** 2 <= 65536 else np.uint32)
