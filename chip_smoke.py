@@ -29,7 +29,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    mesh export round trip (OBJ, NPZ) at that size;
 9. profile: one more Quickstart ``ErosionSim.step()`` under
    ``torch.profiler`` (device busy time, idle share), after every timed
-   phase.
+   phase;
+10. pool trace: one wet K4 call and one wet K5 call at 2048² under
+   ``torch.profiler``; each must run ``1 + WATER_STEPS`` device kernels
+   (the init kernel and one fused launch per water step).
 
 Each path phase resets every launch count just before it runs and fails
 if a kernel of its path was not launched.  Prints the per-kernel JSON
@@ -55,10 +58,14 @@ KERNEL_TOL = 0.0
 # whose CUDA and CPU implementations differ by an ulp; BASELINE.md's bar.
 CROSS_DEVICE_RTOL = 1e-4
 
-# NVIDIA H100 SXM data sheet: HBM
-# rate and float32 rate outside the tensor cores, at the 700 W limit.
+# NVIDIA H100 SXM at the 700 W limit: the data sheet's HBM rate, and the
+# float32 issue rate outside the tensor cores, 132 SMs x 128 lanes x
+# 1.98 GHz.  The data sheet's 67 TFLOP/s counts a fused multiply-add as two
+# operations; the kernels are built with -fmad=false (bit-equality with the
+# reference forbids contraction), so each add, multiply, compare or min/max
+# counted below is one instruction, and the peak for them is half that.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
+PEAK_F32_OPS_PER_S = 132 * 128 * 1.98e9
 
 # Float32 operations per cell (arithmetic, compares, min/max), counted
 # from the plain versions' source:
@@ -488,6 +495,54 @@ def profile_step(sim):
         f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms ×{e.count}" for e in top))
 
 
+def _traced_pool_kernels(fn):
+    """The pool kernels (init and step launches) that the last of three
+    calls of ``fn`` ran, in one ``torch.profiler`` trace; the first calls
+    take whatever the profiler misses while it starts, and a trace that saw
+    fewer than two of the calls' init kernels gives ``None``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+            torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and ("pool_init" in e.name or "pool_step" in e.name)),
+                     key=lambda e: e.time_range.start)
+    starts = [i for i, e in enumerate(kernels) if "pool_init" in e.name]
+    return kernels[starts[-1]:] if len(starts) >= 2 else None
+
+
+def pool_trace_phase():
+    """One wet K4 call and one wet K5 call on the 2048² wet pool under
+    ``torch.profiler``: the device kernels each runs (the init kernel and
+    one fused launch per water step)."""
+    from noize_tpu_torch.app.flagship import default_settings
+    from noize_tpu_torch.erosion import pool_cuda as PC
+
+    steps = default_settings().WATER_STEPS
+    want = 1 + steps
+    _, blurred, pool = _inputs(2048)
+    for key, fn in (("K4", PC.pool_automata_cuda), ("K5", PC.pool_automata_full_cuda)):
+        before = _wet(fn)
+        # a trace that missed the calls' init kernels is taken again
+        for attempt in range(3):
+            kernels = _traced_pool_kernels(lambda: fn(blurred, pool, steps, True))
+            if kernels is not None:
+                break
+            print(f"{key} trace attempt {attempt + 1} saw fewer than two init kernels")
+        _check(kernels is not None, f"{key}: no complete profiler trace in 3 attempts")
+        _check(_wet(fn) == before + 3 * (attempt + 1), f"{key} traced calls' gate stayed closed")
+        print(f"{key} wet call under torch.profiler: {len(kernels)} device kernels, "
+              f"1 + {steps} = {want} expected; "
+              f"{sum(e.self_device_time_total for e in kernels) / 1e3:.4f} ms of device time")
+        _check(len(kernels) == want, f"{key} wet call ran {len(kernels)} device kernels, "
+                                     f"not {want}")
+
+
 def _wet(wrapper):
     """Calls of ``wrapper`` whose gate was open since the last reset."""
     return 0 if wrapper.wet_calls is None else int(wrapper.wet_calls.item())
@@ -676,6 +731,7 @@ def main():
     odd_grid_phase(rows)
     cross_device_phase()
     profile_step(sim)  # last: no timed phase runs after the profiler
+    pool_trace_phase()
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(rows.line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -49,7 +49,7 @@ SIGNATURES = {
     "noize_flow_map": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
     # in, out, res, iterations, max_diff, increment, stream
     "noize_thermal_erosion": (_P, _P, _I, _I, _F, _F, _P),
-    # height, pool_in, pool_out, drains, flag, scratch, res, iterations,
+    # height, pool_in, pool_out, drains, flag, pool_tmp, res, iterations,
     # drain_particles, stream (K4: even res; K5: any res)
     "noize_pool_automata": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "noize_pool_automata_full": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),

@@ -12,9 +12,9 @@
 // K5 (noize_pool_automata_full, any grid, odd included) replaces
 // pool_pallas.py:_phase_call (entry pool_automata_pallas): the full-grid
 // masked phases of pool.py:_pool_automata_fullgrid / _spread_phase, which
-// the reference runs at odd sizes (Unity's 2^n + 1 heightmaps).  It shares
-// K4's core launch and differs in the add order of the apply launch:
-// _spread_phase scatters direction by direction (up, right, down, left),
+// the reference runs at odd sizes (Unity's 2^n + 1 heightmaps).  The two
+// share one kernel, templated on the add order in which a phase's transfers
+// land: _spread_phase scatters direction by direction (up, right, down, left),
 // each as the neighbour's transfer then the cell's own border self-return,
 // where _phase_pair.scatter adds an active cell's border returns as
 // right, left, vertical.
@@ -22,30 +22,55 @@
 // Bound: the least time for a call is set by the float32 rate — about 98
 // operations per active cell (a quarter of the cells) and 5 adds per cell
 // each phase, 40 phases at WATER_STEPS = 10, against 16 bytes a cell in
-// and out (chip_smoke.py counts both).  What limits this design is memory
-// traffic and launches: every phase re-reads height and pool from device
-// memory and writes and reads nine scratch planes, in 80 launches a call.
+// and out (chip_smoke.py counts both).  Every op is its own instruction
+// (-fmad=false), so the issue rate, not the data sheet's FMA rate, sets it.
+// The design this replaces was bound by its own memory traffic instead: two
+// launches a phase, nine scratch planes written and read back, about 41
+// bytes a cell a phase in 81 launches a call.
 //
-// Design: each phase is two launches.
-//   (a) core: one thread per active lattice cell (rows z = 2j + zoff,
-//       columns x = 2k + ((xoff + j) & 1)) reads the phase-start snapshot
-//       and runs pool._phase_core: the ascending (key, direction) rank, the
-//       4 sequential sub-steps, and the per-direction transfers and drains,
-//       written to compact half^2 scratch planes, half = ceil(res / 2),
-//       at (j, k) = (z >> 1, x >> 1).
-//   (b) apply: one thread per cell adds the incoming transfers to its own
-//       water (or, for an active cell, to its post-sub-step water) in the
-//       exact add order of pool._phase_pair.scatter (K4) or
-//       pool._spread_phase (K5), and its drain contributions onto the
-//       drain map, so every f32 sum matches.
-// Phases run in _PHASE_ORDER; drains accumulate across phases in that
-// order.  Transfers from inactive cells are exactly +0 in the reference and
-// adding +0 to non-negative water changes nothing, so apply skips them.
+// Design: one launch per water step, the phase chain of a tile in shared
+// memory, as _mega_call kept a row window's in VMEM.  A phase moves water
+// by at most one cell — an active cell reads its four neighbours, an
+// inactive cell takes only from its adjacent active cells — so the pool a
+// phase leaves at a cell depends on the phase-start state within 2 cells,
+// and a water step (4 phases) on the state within 8.  Each block owns a
+// kTile^2 output tile and loads the height, pool and drains of its window
+// (the tile with an 8-cell halo; cp.async, all in flight at once) into
+// shared memory.  Phase p of the launch then runs on the active lattice
+// cells (rows z = 2j + zoff, columns x = 2k + ((xoff + j) & 1)) of the
+// window less 2p + 1 cells a side, one thread per cell:
+//   (a) core: pool._phase_core (phase_core below) on the phase-start
+//       snapshot; the cell's post-sub-step water goes over its own pool cell
+//       (no active cell reads another), its four transfers and its drain to
+//       compact lattice planes at (z >> 1, x >> 1);
+//   (b) scatter, after a barrier: the thread writes every cell that only
+//       its cell gives to, in the add order of pool._phase_pair.scatter (K4)
+//       or pool._spread_phase (K5) — its own cell with its border
+//       self-returns, the complement cells above and below (each has one
+//       neighbour on the lattice) and the inactive cell to its right, which
+//       also takes the next active cell's left transfer from the planes —
+//       and adds the drains of the tile's cells onto the tile's running sum
+//       in phase order, so every f32 sum matches the reference's.
+// The region still exact shrinks by 2 cells a phase; after 4 phases it is
+// the tile, which is written back.  Global coordinates decide the grid's
+// edge: the clamped neighbour, the border self-returns, the off-grid zero
+// and the lattice parity; window cells beyond the grid are never read.
+// Blocks read halos that other blocks write, so the pool ping-pongs
+// between two buffers across launches; drains are read and written only in
+// a block's own tile and stay in place.  A launch moves about 24 bytes a
+// cell (the window's height and pool, 1.56x the tile; the pool out; the
+// drains in and out) and issues the core's ~200 f32 ops per active cell
+// plus the index arithmetic and the scatter: instruction issue, not
+// memory, now bounds it, and two resident blocks an SM hide most of the
+// window loads behind each other's phases.  Two water steps a launch (a
+// 16-cell halo) were slower, as were other tile sides and block sizes
+// (PERF.md section 6; scripts/pool_tile_sweep.py times the latter).
 //
 // The wetness gate (pool.MIN_WATER) never syncs the host: the init launch
 // copies the pool, zeroes the drains and raises a device flag if any cell
 // holds >= MIN_WATER; every later launch returns at once when the flag is
 // 0.  A grid below the gate is a bit-exact fixed point of the automata.
+// A call is 1 + iterations kernels.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -53,6 +78,11 @@
 namespace {
 
 constexpr float kMinWater = 1e-3f;  // erosion/pool.py MIN_WATER
+constexpr int kTile = 64;           // output tile side
+constexpr int kThreads = 512;       // threads per block
+// an even window origin and an even half-origin keep local and global
+// lattice parities equal
+static_assert(kTile % 4 == 0, "tile must be a multiple of 4");
 
 using noize::add;
 using noize::mul;
@@ -68,40 +98,22 @@ __global__ void pool_init(const float* __restrict__ pool_in, float* __restrict__
   if (p >= kMinWater) *flag = 1;
 }
 
-// half = ceil(res / 2): lattice rows and columns of a phase.
-__host__ __device__ __forceinline__ int half_of(int res) { return (res + 1) >> 1; }
+// One active cell's phase (pool._phase_core): rank the 4 neighbours by
+// ascending (height + pool, direction), run the 4 sequential sub-steps and
+// route the moved volumes back to directions.  Neighbour order up (z+1),
+// right (x+1), down (z-1), left (x-1).
+struct Core {
+  float water;             // the cell's water after its sub-steps
+  float delta[4];          // transfer toward each direction
+  float drain;             // water dropped at the drain site
+  unsigned char drain_to;  // bit d: drain_out[d] = drain, else +0
+};
 
-// Scratch layout: plane 0 = post-sub-step water of each active cell,
-// planes 1..4 = transfers toward up/right/down/left, planes 5..8 = drains
-// toward up/right/down/left; each plane is half^2, row j, column k.  On an
-// odd grid the last lattice row or column of a phase may fall off the
-// grid; those threads return.
-__global__ void pool_core(const float* __restrict__ h, const float* __restrict__ pool,
-                          const int* __restrict__ flag, float* __restrict__ scratch,
-                          int res, int xoff, int zoff, int drain_particles) {
-  if (*flag == 0) return;
-  const int half = half_of(res);
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
-  if (k >= half || j >= half) return;
-  const int z = 2 * j + zoff;
-  const int x = 2 * k + ((xoff + j) & 1);
-  if (z >= res || x >= res) return;
-  const size_t i = (size_t)z * res + x;
-  // neighbour order up (z+1), right (x+1), down (z-1), left (x-1); a
-  // neighbour off the grid aliases the cell itself (SafeIdx)
-  const size_t nidx[4] = {
-      (size_t)noize::clampi(z + 1, 0, res - 1) * res + x,
-      (size_t)z * res + noize::clampi(x + 1, 0, res - 1),
-      (size_t)noize::clampi(z - 1, 0, res - 1) * res + x,
-      (size_t)z * res + noize::clampi(x - 1, 0, res - 1),
-  };
-  const float hl = h[i];
-  float nh[4], nw[4], key[4];
+__device__ __forceinline__ Core phase_core(float hl, float own, const float nh[4],
+                                           const float nw[4], bool drain_particles) {
+  float key[4];
   bool elig[4];
   for (int d = 0; d < 4; ++d) {
-    nh[d] = h[nidx[d]];
-    nw[d] = pool[nidx[d]];
     key[d] = add(nh[d], nw[d]);
     elig[d] = (nw[d] <= 0.0f) && (hl >= nh[d]);
   }
@@ -119,7 +131,7 @@ __global__ void pool_core(const float* __restrict__ h, const float* __restrict__
       sub(add(add(1.0f, a02), a12), a23),
       add(add(a03, a13), a23),
   };
-  float h_water = pool[i];
+  float h_water = own;
   float t_height = add(hl, h_water);
   float moved[4];
   bool drain_s[4];
@@ -140,179 +152,318 @@ __global__ void pool_core(const float* __restrict__ h, const float* __restrict__
     moved[e] = m;
     drain_s[e] = elig_e;
   }
-  float deltas[4], drain_out[4];
+  Core c;
+  c.water = h_water;
+  c.drain = 0.0f;
+  c.drain_to = 0;
   for (int d = 0; d < 4; ++d) {
     // demux: route the sub-step volumes back to directions
-    deltas[d] = rank[d] == 0.0f ? moved[0]
-              : (rank[d] == 1.0f ? moved[1] : (rank[d] == 2.0f ? moved[2] : moved[3]));
-    drain_out[d] = 0.0f;
+    c.delta[d] = rank[d] == 0.0f ? moved[0]
+               : (rank[d] == 1.0f ? moved[1] : (rank[d] == 2.0f ? moved[2] : moved[3]));
   }
   if (drain_particles) {
     float drain_amt = drain_s[0] ? moved[0] : 0.0f;
     for (int e = 1; e < 4; ++e) drain_amt = add(drain_amt, drain_s[e] ? moved[e] : 0.0f);
     const float drain_e = drain_s[0] ? 0.0f
                         : (drain_s[1] ? 1.0f : (drain_s[2] ? 2.0f : (drain_s[3] ? 3.0f : -1.0f)));
+    c.drain = drain_amt;
     for (int d = 0; d < 4; ++d) {
-      drain_out[d] = rank[d] == drain_e ? drain_amt : 0.0f;
-      deltas[d] = sub(deltas[d], drain_out[d]);
+      const bool to_d = rank[d] == drain_e;
+      c.delta[d] = sub(c.delta[d], to_d ? drain_amt : 0.0f);
+      c.drain_to |= static_cast<unsigned char>(to_d) << d;
     }
   }
-  const size_t plane = (size_t)half * half;
-  const size_t o = (size_t)j * half + k;
-  scratch[o] = h_water;
-  for (int d = 0; d < 4; ++d) {
-    scratch[(1 + d) * plane + o] = deltas[d];
-    scratch[(5 + d) * plane + o] = drain_out[d];
-  }
-}
-
-// Reads plane `p` (1..8) of the active cell at global (z, x) if it is on
-// this phase's lattice, else +0 (an inactive cell moves nothing).
-__device__ __forceinline__ float from_cell(const float* scratch, int p, int z, int x,
-                                           int res, int xoff, int zoff) {
-  if (z < 0 || z >= res || x < 0 || x >= res) return 0.0f;
-  if ((z & 1) != zoff) return 0.0f;
-  const int j = (z - zoff) >> 1;
-  if ((x & 1) != ((xoff + j) & 1)) return 0.0f;
-  const int half = half_of(res);
-  return scratch[(size_t)p * half * half + (size_t)j * half + (x >> 1)];
-}
-
-__global__ void pool_apply(float* __restrict__ pool, float* __restrict__ drains,
-                           const int* __restrict__ flag, const float* __restrict__ scratch,
-                           int res, int xoff, int zoff, int drain_particles) {
-  if (*flag == 0) return;
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int z = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= res || z >= res) return;
-  const size_t i = (size_t)z * res + x;
-  const int half = half_of(res);
-  // planes: 1 + d transfers, 5 + d drains; d = 0 up, 1 right, 2 down, 3 left
-  float v, dv;
-  if ((z & 1) == zoff) {
-    const int j = (z - zoff) >> 1;
-    if ((x & 1) == ((xoff + j) & 1)) {
-      // active cell: own water, then the border self-returns in
-      // _phase_pair.scatter order (right, left, vertical)
-      const size_t o = (size_t)j * half + (x >> 1);
-      const size_t plane = (size_t)half * half;
-      v = scratch[o];
-      dv = 0.0f;
-      if (x == res - 1) {
-        v = add(v, scratch[2 * plane + o]);
-        dv = add(dv, scratch[6 * plane + o]);
-      }
-      if (x == 0) {
-        v = add(v, scratch[4 * plane + o]);
-        dv = add(dv, scratch[8 * plane + o]);
-      }
-      if (z == 0) {
-        v = add(v, scratch[3 * plane + o]);
-        dv = add(dv, scratch[7 * plane + o]);
-      } else if (z == res - 1) {
-        v = add(v, scratch[1 * plane + o]);
-        dv = add(dv, scratch[5 * plane + o]);
-      }
-    } else {
-      // inactive cell of an active row: from the left neighbour giving
-      // right, then from the right neighbour giving left
-      v = add(add(pool[i], from_cell(scratch, 2, z, x - 1, res, xoff, zoff)),
-              from_cell(scratch, 4, z, x + 1, res, xoff, zoff));
-      dv = add(add(0.0f, from_cell(scratch, 6, z, x - 1, res, xoff, zoff)),
-               from_cell(scratch, 8, z, x + 1, res, xoff, zoff));
-    }
-  } else {
-    // complement row: from the cell below giving up, then from the cell
-    // above giving down
-    v = add(add(pool[i], from_cell(scratch, 1, z - 1, x, res, xoff, zoff)),
-            from_cell(scratch, 3, z + 1, x, res, xoff, zoff));
-    dv = add(add(0.0f, from_cell(scratch, 5, z - 1, x, res, xoff, zoff)),
-             from_cell(scratch, 7, z + 1, x, res, xoff, zoff));
-  }
-  pool[i] = v;
-  if (drain_particles) drains[i] = add(drains[i], dv);
-}
-
-// K5's apply: pool._spread_phase's order.  For each direction d (up,
-// right, down, left) the cell adds the transfer of the neighbour that gives
-// toward it (shift_zero(delta_d, -dr, -dc)), then its own border
-// self-return (where(border_d, delta_d, 0)).  Every add the reference makes
-// is made, zeros included, so even the sign of a zero matches.
-__global__ void pool_apply_full(float* __restrict__ pool, float* __restrict__ drains,
-                                const int* __restrict__ flag, const float* __restrict__ scratch,
-                                int res, int xoff, int zoff, int drain_particles) {
-  if (*flag == 0) return;
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int z = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= res || z >= res) return;
-  const size_t i = (size_t)z * res + x;
-  const int half = half_of(res);
-  const size_t plane = (size_t)half * half;
-  const size_t o = (size_t)(z >> 1) * half + (x >> 1);
-  const bool active = ((z & 1) == zoff) && ((x & 1) == ((xoff + (z >> 1)) & 1));
-  // _DIRS (pool.py): up (+1, 0), right (0, +1), down (-1, 0), left (0, -1)
-  const int dz[4] = {1, 0, -1, 0};
-  const int dx[4] = {0, 1, 0, -1};
-  const bool border[4] = {z == res - 1, x == res - 1, z == 0, x == 0};
-  float v = active ? scratch[o] : pool[i];
-  float dv = 0.0f;
-  for (int d = 0; d < 4; ++d) {
-    v = add(v, from_cell(scratch, 1 + d, z - dz[d], x - dx[d], res, xoff, zoff));
-    v = add(v, (active && border[d]) ? scratch[(1 + d) * plane + o] : 0.0f);
-    dv = add(dv, from_cell(scratch, 5 + d, z - dz[d], x - dx[d], res, xoff, zoff));
-    dv = add(dv, (active && border[d]) ? scratch[(5 + d) * plane + o] : 0.0f);
-  }
-  pool[i] = v;
-  if (drain_particles) drains[i] = add(drains[i], dv);
+  return c;
 }
 
 enum class Order { kPair, kFull };
 
-// WATER_STEPS x 4 phases in _PHASE_ORDER (pool.py): (xoff, zoff) for xoff
-// in (0, 1) for zoff in (0, 1); drains accumulate across phases in order.
-int run_automata(const float* height, const float* pool_in, float* pool_out, float* drains,
-                 int* flag, float* scratch, int res, int iterations, int drain_particles,
-                 cudaStream_t stream, Order order) {
-  const int n = res * res;
-  cudaMemsetAsync(flag, 0, sizeof(int), stream);
-  pool_init<<<(n + 255) / 256, 256, 0, stream>>>(pool_in, pool_out, drains, flag, n);
-  const dim3 block(32, 8);
-  const dim3 core_grid = noize::grid2d(half_of(res), half_of(res), block);
-  const dim3 apply_grid = noize::grid2d(res, res, block);
-  for (int it = 0; it < iterations; ++it) {
-    for (int xoff = 0; xoff < 2; ++xoff) {
-      for (int zoff = 0; zoff < 2; ++zoff) {
-        pool_core<<<core_grid, block, 0, stream>>>(height, pool_out, flag, scratch, res, xoff,
-                                                   zoff, drain_particles);
-        if (order == Order::kPair) {
-          pool_apply<<<apply_grid, block, 0, stream>>>(pool_out, drains, flag, scratch, res,
-                                                       xoff, zoff, drain_particles);
-        } else {
-          pool_apply_full<<<apply_grid, block, 0, stream>>>(pool_out, drains, flag, scratch,
-                                                            res, xoff, zoff, drain_particles);
+// The adds an inactive cell's pool (or drain) v takes in one phase: `first`
+// then `second` from its left then right neighbour (row) or from below
+// then above (column).  _phase_pair.scatter adds the two; _spread_phase
+// adds, for each direction up, right, down, left, the neighbour's transfer
+// and the cell's +0 border term, zeros included, so even the sign of a zero
+// matches.
+template <Order kOrder>
+__device__ __forceinline__ float take(bool row, float v, float first, float second) {
+  if (kOrder == Order::kPair) return add(add(v, first), second);
+  const float t[4] = {row ? 0.0f : first, row ? first : 0.0f, row ? 0.0f : second,
+                      row ? second : 0.0f};
+  for (int d = 0; d < 4; ++d) v = add(add(v, t[d]), 0.0f);
+  return v;
+}
+
+// A 4-byte asynchronous copy from device to shared memory (cp.async); the
+// destination is zero-filled where !valid.
+__device__ __forceinline__ void copy_async(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Shared memory of a launch: the window (side W, origin (z0, x0) = tile
+// origin - halo) holds height and pool; the compact lattice planes (side
+// W / 2) hold each active cell's four transfers, its drain and the
+// directions the drain went; the tile holds its running drain sum.
+struct Window {
+  static constexpr int kHalo = 8;  // a water step's reach
+  static constexpr int kSide = kTile + 2 * kHalo;
+  static constexpr int kHalf = kSide / 2;
+  static constexpr int kCells = kSide * kSide;
+  static constexpr int kLattice = kHalf * kHalf;
+  static constexpr size_t kBytes =
+      sizeof(float) * (2 * kCells + 5 * kLattice + kTile * kTile) + kLattice;
+};
+
+// One launch: a water step (4 phases in _PHASE_ORDER) on one tile.
+template <Order kOrder>
+__global__ void __launch_bounds__(kThreads) pool_step(
+    const float* __restrict__ height, const float* __restrict__ src, float* __restrict__ dst,
+    float* __restrict__ drains, const int* __restrict__ flag, int res, int drain_particles) {
+  if (*flag == 0) return;
+  constexpr int W = Window::kSide, H = Window::kHalf, R = Window::kHalo, L = Window::kLattice;
+  extern __shared__ float smem[];
+  float* hs = smem;                   // height, W x W
+  float* ps = hs + Window::kCells;    // pool, W x W, updated in place
+  float* xfer = ps + Window::kCells;  // transfers, 4 planes of H x H
+  float* damt = xfer + 4 * L;         // drain, H x H
+  float* dsum = damt + L;             // the tile's drains, kTile x kTile
+  unsigned char* dto = reinterpret_cast<unsigned char*>(dsum + kTile * kTile);
+  const int z0 = blockIdx.y * kTile - R;
+  const int x0 = blockIdx.x * kTile - R;
+  const int tid = threadIdx.x;
+  const bool drain = drain_particles != 0;
+
+  // the window's height and pool and the tile's drains, all in flight at
+  // once (cp.async, zero-filled beyond the grid)
+  for (int i = tid; i < Window::kCells; i += kThreads) {
+    const int z = z0 + i / W, x = x0 + i % W;
+    const bool in = z >= 0 && z < res && x >= 0 && x < res;
+    const size_t g = in ? (size_t)z * res + x : 0;
+    copy_async(hs + i, height + g, in);
+    copy_async(ps + i, src + g, in);
+  }
+  if (drain) {
+    for (int i = tid; i < kTile * kTile; i += kThreads) {
+      const int z = z0 + R + i / kTile, x = x0 + R + i % kTile;
+      const bool in = z < res && x < res;
+      copy_async(dsum + i, drains + (in ? (size_t)z * res + x : 0), in);
+    }
+  }
+  copy_async_wait();
+  __syncthreads();
+
+  // transfer and drain toward d of the active cell at compact index o
+  auto xin = [&](int d, int o) { return xfer[d * L + o]; };
+  auto din = [&](int d, int o) { return ((dto[o] >> d) & 1) ? damt[o] : 0.0f; };
+  // a cell's new pool, and its drains if it lies in the tile
+  auto put = [&](int lz, int lx, float v, float dv) {
+    ps[lz * W + lx] = v;
+    if (drain && static_cast<unsigned>(lz - R) < static_cast<unsigned>(kTile) &&
+        static_cast<unsigned>(lx - R) < static_cast<unsigned>(kTile)) {
+      float& acc = dsum[(lz - R) * kTile + (lx - R)];
+      acc = add(acc, dv);
+    }
+  };
+  // an inactive cell receives `first` then `second`: from its left then its
+  // right neighbour in an active row, from below then above in a
+  // complement row (+0 where that neighbour is off the lattice or the grid)
+  auto receive = [&](bool row, int lz, int lx, float first, float second, float dfirst,
+                     float dsecond) {
+    const float v = take<kOrder>(row, ps[lz * W + lx], first, second);
+    put(lz, lx, v, drain ? take<kOrder>(row, 0.0f, dfirst, dsecond) : 0.0f);
+  };
+
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int xoff = (p >> 1) & 1, zoff = p & 1;  // _PHASE_ORDER: zoff varies fastest
+    // the active cells of local rows and columns [lo, hi), n x n of them
+    // (lo is odd, so each row and column starts at lo or lo + 1 by parity);
+    // o = (lz >> 1) * H + (lx >> 1) is a cell's compact index
+    const int lo = 2 * p + 1, hi = W - lo, n = (hi - lo) / 2;
+    auto slot = [&](int i, int& lz, int& lx, int& o) {
+      lz = lo + (zoff ^ 1) + 2 * (i / n);
+      lx = lo + (((xoff + (z0 >> 1) + (lz >> 1)) & 1) ^ 1) + 2 * (i % n);
+      o = (lz >> 1) * H + (lx >> 1);
+      const int z = z0 + lz, x = x0 + lx;
+      return z >= 0 && x >= 0 && z < res && x < res;
+    };
+
+    // (a) core: every active cell reads the phase-start snapshot
+    for (int i = tid; i < n * n; i += kThreads) {
+      int lz, lx, o;
+      if (!slot(i, lz, lx, o)) continue;
+      const int z = z0 + lz, x = x0 + lx;
+      // a neighbour off the grid aliases the cell itself (SafeIdx)
+      const int zu = noize::clampi(z + 1, 0, res - 1) - z0;
+      const int zd = noize::clampi(z - 1, 0, res - 1) - z0;
+      const int xr = noize::clampi(x + 1, 0, res - 1) - x0;
+      const int xl = noize::clampi(x - 1, 0, res - 1) - x0;
+      const int c = lz * W + lx;
+      const int nidx[4] = {zu * W + lx, lz * W + xr, zd * W + lx, lz * W + xl};
+      float nh[4], nw[4];
+      for (int d = 0; d < 4; ++d) {
+        nh[d] = hs[nidx[d]];
+        nw[d] = ps[nidx[d]];
+      }
+      const Core r = phase_core(hs[c], ps[c], nh, nw, drain);
+      ps[c] = r.water;
+      for (int d = 0; d < 4; ++d) xfer[d * L + o] = r.delta[d];
+      if (drain) {
+        damt[o] = r.drain;
+        dto[o] = r.drain_to;
+      }
+    }
+    __syncthreads();
+
+    // (b) scatter: every active cell writes itself and the inactive cells
+    // only it gives to — the cells above and below it (a complement cell
+    // has one neighbour on the lattice) and the cell to its right, which
+    // also takes the left transfer of the next active cell; the cell at
+    // x = 0 of an active row is written by its right neighbour.  Each
+    // cell of the region [lo + 1, hi - 1) is written exactly once.
+    for (int i = tid; i < n * n; i += kThreads) {
+      int lz, lx, o;
+      if (!slot(i, lz, lx, o)) continue;
+      const int z = z0 + lz, x = x0 + lx;
+      float dl[4], dd[4];
+      for (int d = 0; d < 4; ++d) {
+        dl[d] = xin(d, o);
+        dd[d] = drain ? din(d, o) : 0.0f;
+      }
+      // its own water, then its border self-returns
+      float v = ps[lz * W + lx], dv = 0.0f;
+      if (kOrder == Order::kPair) {
+        // _phase_pair.scatter: right, left, vertical
+        if (x == res - 1) {
+          v = add(v, dl[1]);
+          dv = add(dv, dd[1]);
+        }
+        if (x == 0) {
+          v = add(v, dl[3]);
+          dv = add(dv, dd[3]);
+        }
+        if (z == 0) {
+          v = add(v, dl[2]);
+          dv = add(dv, dd[2]);
+        } else if (z == res - 1) {
+          v = add(v, dl[0]);
+          dv = add(dv, dd[0]);
+        }
+      } else {
+        // _spread_phase: up, right, down, left, each after the +0 its
+        // inactive neighbour gives
+        const bool border[4] = {z == res - 1, x == res - 1, z == 0, x == 0};
+        for (int d = 0; d < 4; ++d) {
+          v = add(add(v, 0.0f), border[d] ? dl[d] : 0.0f);
+          dv = add(add(dv, 0.0f), border[d] ? dd[d] : 0.0f);
+        }
+      }
+      put(lz, lx, v, dv);
+      if (z + 1 < res) receive(false, lz + 1, lx, dl[0], 0.0f, dd[0], 0.0f);
+      if (z > 0) receive(false, lz - 1, lx, 0.0f, dl[2], 0.0f, dd[2]);
+      if (x + 1 < res) {
+        // the next active cell, if on the grid and in this phase's region
+        const bool next = x + 2 < res && lx + 2 < hi;
+        receive(true, lz, lx + 1, dl[1], next ? xin(3, o + 1) : 0.0f, dd[1],
+                next && drain ? din(3, o + 1) : 0.0f);
+      }
+      if (x == 1) receive(true, lz, 0 - x0, 0.0f, dl[3], 0.0f, dd[3]);
+    }
+    // cells with no neighbour on the lattice (a complement row's cell on the
+    // grid's top or bottom row whose lattice neighbour is off the grid, and
+    // a 1 x 1 grid's cell) take +0s
+    {
+      const int alo = lo + 1, ahi = hi - 1, aw = ahi - alo;
+      if (z0 + alo <= 0 || z0 + ahi >= res) {
+        for (int i = tid; i < 2 * aw; i += kThreads) {
+          const int z = i < aw ? 0 : res - 1;
+          const int lz = z - z0, lx = alo + (i < aw ? i : i - aw), x = x0 + lx;
+          if (lz < alo || lz >= ahi || x < 0 || x >= res || (i >= aw && res == 1)) continue;
+          const bool row_active = (z & 1) == zoff;
+          const bool below_on = (x & 1) == ((xoff + ((z - 1) >> 1)) & 1);
+          const bool written = row_active ? res > 1 || (x & 1) == ((xoff + (z >> 1)) & 1)
+                                          : (z > 0 && below_on) || (z < res - 1 && !below_on);
+          if (!written) receive(row_active, lz, lx, 0.0f, 0.0f, 0.0f, 0.0f);
         }
       }
     }
+    __syncthreads();
+  }
+
+  for (int i = tid; i < kTile * kTile; i += kThreads) {
+    const int lz = R + i / kTile, lx = R + i % kTile;
+    const int z = z0 + lz, x = x0 + lx;
+    if (z >= res || x >= res) continue;
+    const size_t g = (size_t)z * res + x;
+    dst[g] = ps[lz * W + lx];
+    if (drain) drains[g] = dsum[i];
+  }
+}
+
+// The launch's shared memory, and the carveout that lets as many blocks
+// as it allows share an SM: set once per device.
+template <Order kOrder>
+cudaError_t configure() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
+  err = cudaFuncSetAttribute(pool_step<kOrder>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(Window::kBytes));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(pool_step<kOrder>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
+// iterations water steps, one launch each; the pool ping-pongs so that the
+// last launch writes pool_out.
+template <Order kOrder>
+int run_automata(const float* height, const float* pool_in, float* pool_out, float* drains,
+                 int* flag, float* pool_tmp, int res, int iterations, int drain_particles,
+                 cudaStream_t stream) {
+  cudaError_t err = configure<kOrder>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n = res * res;
+  cudaMemsetAsync(flag, 0, sizeof(int), stream);
+  pool_init<<<(n + 255) / 256, 256, 0, stream>>>(pool_in, pool_out, drains, flag, n);
+  const int tiles = (res + kTile - 1) / kTile;
+  const float* src = pool_in;
+  for (int k = 0; k < iterations; ++k) {
+    float* dst = ((iterations - 1 - k) % 2 == 0) ? pool_out : pool_tmp;
+    pool_step<kOrder><<<dim3(tiles, tiles), kThreads, Window::kBytes, stream>>>(
+        height, src, dst, drains, flag, res, drain_particles);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    src = dst;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// scratch: 9 * ceil(res/2)^2 floats for both entries.
+// pool_tmp: a second res^2 pool buffer (the ping-pong partner of pool_out).
 extern "C" int noize_pool_automata(const float* height, const float* pool_in, float* pool_out,
-                                   float* drains, int* flag, float* scratch, int res,
+                                   float* drains, int* flag, float* pool_tmp, int res,
                                    int iterations, int drain_particles, void* stream_ptr) {
   if (res < 2 || res % 2 || iterations < 0) return static_cast<int>(cudaErrorInvalidValue);
-  return run_automata(height, pool_in, pool_out, drains, flag, scratch, res, iterations,
-                      drain_particles, static_cast<cudaStream_t>(stream_ptr), Order::kPair);
+  return run_automata<Order::kPair>(height, pool_in, pool_out, drains, flag, pool_tmp, res,
+                                    iterations, drain_particles,
+                                    static_cast<cudaStream_t>(stream_ptr));
 }
 
 extern "C" int noize_pool_automata_full(const float* height, const float* pool_in,
                                         float* pool_out, float* drains, int* flag,
-                                        float* scratch, int res, int iterations,
+                                        float* pool_tmp, int res, int iterations,
                                         int drain_particles, void* stream_ptr) {
   if (res < 1 || iterations < 0) return static_cast<int>(cudaErrorInvalidValue);
-  return run_automata(height, pool_in, pool_out, drains, flag, scratch, res, iterations,
-                      drain_particles, static_cast<cudaStream_t>(stream_ptr), Order::kFull);
+  return run_automata<Order::kFull>(height, pool_in, pool_out, drains, flag, pool_tmp, res,
+                                    iterations, drain_particles,
+                                    static_cast<cudaStream_t>(stream_ptr));
 }

@@ -16,13 +16,18 @@ K5 here at every size, and ``pool_automata_cuda`` hands odd grids to it, as
 The TPU blocking arguments (``block``, ``phases_per_launch``, ``unroll``)
 are accepted and ignored: they choose Mosaic layouts, not results.
 
-The wetness gate never syncs the host: each kernel raises a device flag
-when any cell holds ``>= MIN_WATER`` and every phase launch returns at once
-when it is down.  Each wrapper's ``wet_calls`` adds up those flags on the
-device (an int32 tensor; ``None`` until the first call on the card — set it
-back to ``None`` to reset), so a caller can count the calls that ran phases
-without stalling the main path; reading it syncs.  Every wrapper counts the
-kernels it launches in ``launches``.
+Both run as one fused launch per water step, with the phase chain of a
+tile and its halo in shared memory: a call is ``1 + iterations`` device
+kernels.  The pool ping-pongs between the output and a second buffer the
+wrapper allocates; the drains are updated in place.
+
+The wetness gate never syncs the host: the first kernel raises a device
+flag when any cell holds ``>= MIN_WATER`` and every step launch returns at
+once when it is down.  Each wrapper's ``wet_calls`` adds up those flags on
+the device (an int32 tensor; ``None`` until the first call on the card —
+set it back to ``None`` to reset), so a caller can count the calls that ran
+phases without stalling the main path; reading it syncs.  Every wrapper
+counts its calls on the card in ``launches``.
 """
 
 from __future__ import annotations
@@ -46,11 +51,10 @@ def _launch(wrapper, entry: str, height, pool, iterations: int,
     out = torch.empty_like(pool)
     drains = torch.empty_like(pool)
     flag = torch.empty((1,), dtype=torch.int32, device=pool.device)
-    scratch = torch.empty(9 * ((res + 1) // 2) ** 2, dtype=torch.float32,
-                          device=pool.device)
+    tmp = torch.empty_like(pool)  # the pool's ping-pong partner
     with torch.cuda.device(pool.device):
         _cuda.call(entry, height.data_ptr(), pool.data_ptr(), out.data_ptr(),
-                   drains.data_ptr(), flag.data_ptr(), scratch.data_ptr(), res,
+                   drains.data_ptr(), flag.data_ptr(), tmp.data_ptr(), res,
                    int(iterations), int(bool(drain_particles)), _cuda.stream(pool))
     wrapper.launches += 1
     wet = wrapper.wet_calls

@@ -219,3 +219,79 @@ def test_stencil_and_flow_entries_match_plain(cuda):
     torch.cuda.synchronize()
     _equal(got, want)
     assert flow_map_pallas.launches == before + 1
+
+
+# --- K4 and K5 tiled: sizes around the 64² tile, seams, borders, remainders --
+
+def _seam_case(res, seed):
+    """Water in bands 4 cells either side of every multiple of 32 in both
+    axes (so across every tile seam) and on the diagonal; dry cells between,
+    so drains fire at the band edges."""
+    rng = np.random.default_rng(seed)
+    h = _field(rng, res, 0.0, 0.5)
+    z, x = np.meshgrid(np.arange(res), np.arange(res), indexing="ij")
+    band = ((z + 4) % 32 < 8) | ((x + 4) % 32 < 8) | (np.abs(z - x) < 3)
+    p = rng.uniform(-0.05, 0.05, (res, res)).clip(0).astype(np.float32)
+    return h, np.where(band, p, np.float32(0))
+
+
+def _border_case(res, seed):
+    """Water only on the four border bands: every SafeIdx self-return path
+    carries volume."""
+    rng = np.random.default_rng(seed)
+    h = _field(rng, res, 0.0, 0.5)
+    p = np.zeros((res, res), np.float32)
+    for sl in (np.s_[:2, :], np.s_[-2:, :], np.s_[:, :2], np.s_[:, -2:]):
+        p[sl] = rng.uniform(0, 0.05, p[sl].shape).astype(np.float32)
+    return h, p
+
+
+def _check_tiled(cuda, wrapper, plain, case, res, iters, drain):
+    h, p = case(res, res + iters)
+    h = torch.from_numpy(h).to(cuda)
+    p = torch.from_numpy(p).to(cuda)
+    before = (wrapper.launches, _wet_calls_of(wrapper))
+    gp, gd = wrapper(h, p, iters, drain)
+    wp, wd = plain(h, p, iters, drain)
+    torch.cuda.synchronize()
+    _equal(gp, wp)
+    _equal(gd, wd)
+    assert not torch.equal(gp, p)
+    if drain:
+        assert bool((gd > 0).any())
+    else:
+        assert not bool(gd.any())
+    assert (wrapper.launches, _wet_calls_of(wrapper)) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("drain", [True, False])
+@pytest.mark.parametrize("iters", [1, 3, 10, 11])
+@pytest.mark.parametrize("res", [16, 64, 66, 130, 1000])
+def test_k4_tiled_seams_match_plain(cuda, res, iters, drain):
+    _check_tiled(cuda, pool_automata_cuda, PO.pool_automata, _seam_case, res, iters, drain)
+
+
+@pytest.mark.parametrize("drain", [True, False])
+@pytest.mark.parametrize("iters", [1, 3, 10, 11])
+@pytest.mark.parametrize("res", [16, 17, 33, 64, 66, 130, 1000, 1025, 2049])
+def test_k5_tiled_seams_match_plain(cuda, res, iters, drain):
+    _check_tiled(cuda, pool_automata_full_cuda, PO._pool_automata_fullgrid, _seam_case, res,
+                 iters, drain)
+
+
+@pytest.mark.parametrize("kernel,res", [("K4", 64), ("K4", 66), ("K5", 65), ("K5", 130)])
+def test_pool_tiled_borders_match_plain(cuda, kernel, res):
+    wrapper, plain = ((pool_automata_cuda, PO.pool_automata) if kernel == "K4"
+                      else (pool_automata_full_cuda, PO._pool_automata_fullgrid))
+    _check_tiled(cuda, wrapper, plain, _border_case, res, 11, True)
+
+
+def test_pool_iterations_zero_copies_pool(cuda):
+    h, p = _seam_case(66, 1)
+    h = torch.from_numpy(h).to(cuda)
+    p = torch.from_numpy(p).to(cuda)
+    for wrapper in (pool_automata_cuda, pool_automata_full_cuda):
+        gp, gd = wrapper(h, p, 0, True)
+        torch.cuda.synchronize()
+        _equal(gp, p)
+        assert not bool(gd.any())
