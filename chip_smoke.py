@@ -32,7 +32,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    phase;
 10. pool trace: one wet K4 call and one wet K5 call at 2048² under
    ``torch.profiler``; each must run ``1 + WATER_STEPS`` device kernels
-   (the init kernel and one fused launch per water step).
+   (the init kernel and one fused launch per water step);
+11. chain and flow trace: one K1 call (Gauss-5 ×17) and one K2 call (flow
+   ×8) at 2048² under ``torch.profiler``; each must run the device kernels
+   its plan gives (one a launch), and prints its device time beside its
+   CUDA-event time and its host enqueue time.
 
 Each path phase resets every launch count just before it runs and fails
 if a kernel of its path was not launched.  Prints the per-kernel JSON
@@ -543,6 +547,67 @@ def pool_trace_phase():
                                      f"not {want}")
 
 
+def _traced_call_kernels(fn, name):
+    """The device kernels whose names contain ``name`` that the last of
+    three calls of ``fn`` ran, in one ``torch.profiler`` trace.  A marker
+    kernel (an in-place add) runs before each call and delimits it; a trace
+    that saw fewer than two markers gives ``None``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    marker = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            marker.add_(1.0)
+            fn()
+            torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and (name in e.name or "elementwise" in e.name)),
+                     key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(kernels) if name not in e.name]
+    return kernels[marks[-1] + 1:] if len(marks) >= 2 else None
+
+
+def chain_flow_trace_phase(rows):
+    """One K1 call (Gauss-5 ×17) and one K2 call (flow ×8) at 2048² under
+    ``torch.profiler``: one device kernel a launch of the call's plan.
+    Prints each call's device time beside the CUDA-event time of its
+    kernels row, and the host time to enqueue one call."""
+    import torch
+
+    from noize_tpu_torch.ops.cuda import flow as FC
+    from noize_tpu_torch.ops.cuda import stencil as SC
+    from noize_tpu_torch.ops.kernels import gaussian_taps
+
+    _, blurred, _ = _inputs(2048)
+    taps = gaussian_taps(1.0, 5)
+    for key, row, name, fn, want in (
+            ("K1", "#2", "chain_tile", lambda: SC.separable_chain(blurred, taps, 17),
+             len(SC.chain_plan(len(taps), 17).launches)),
+            ("K2", "#4", "flow_tile", lambda: FC.flow_map_fused(blurred, 8),
+             len(FC.flow_plan(8).launches))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        for attempt in range(3):
+            kernels = _traced_call_kernels(fn, name)
+            if kernels is not None:
+                break
+            print(f"{key} trace attempt {attempt + 1} saw fewer than two markers")
+        _check(kernels is not None, f"{key}: no complete profiler trace in 3 attempts")
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        print(f"{key} call under torch.profiler: {len(kernels)} device kernels, {want} "
+              f"expected (its plan's launches); {device_ms:.4f} ms of device time, "
+              f"{rows.rows[row]['ms']:.4f} ms by CUDA events ({row}), "
+              f"{host_ms:.4f} ms host enqueue")
+        _check(len(kernels) == want, f"{key} call ran {len(kernels)} device kernels, not {want}")
+
+
 def _wet(wrapper):
     """Calls of ``wrapper`` whose gate was open since the last reset."""
     return 0 if wrapper.wet_calls is None else int(wrapper.wet_calls.item())
@@ -732,6 +797,7 @@ def main():
     cross_device_phase()
     profile_step(sim)  # last: no timed phase runs after the profiler
     pool_trace_phase()
+    chain_flow_trace_phase(rows)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(rows.line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

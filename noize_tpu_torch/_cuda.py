@@ -42,11 +42,12 @@ _F = ctypes.c_float
 
 #: argtypes of every C entry point (csrc/*.cu); all return int.
 SIGNATURES = {
-    # x, out, tmp, rows, cols, taps (host f32[k]), k, iterations, stream
-    "noize_separable_chain": (_P, _P, _P, _I, _I, _P, _I, _I, _P),
-    # height, out, water, fw, fe, fs, fn, res, iterations, norm_min, rng,
-    # stream
-    "noize_flow_map": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
+    # x, out, tmp, rows, cols, taps (host f32[k]), k, iterations per launch
+    # (host i32[launches]), launches, tile rows, tile cols, threads, stream
+    "noize_separable_chain": (_P, _P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P),
+    # height, out, carry (2 x 5 maps), res, iterations per launch (host
+    # i32[launches]), launches, window side, norm_min, rng, stream
+    "noize_flow_map": (_P, _P, _P, _I, _P, _I, _I, _F, _F, _P),
     # in, out, res, iterations, max_diff, increment, stream
     "noize_thermal_erosion": (_P, _P, _I, _I, _F, _F, _P),
     # height, pool_in, pool_out, drains, flag, pool_tmp, res, iterations,

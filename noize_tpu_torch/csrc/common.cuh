@@ -26,6 +26,20 @@ __device__ __forceinline__ float relu(float x) { return x < 0.0f ? 0.0f : x; }
 __device__ __forceinline__ float fmax2(float a, float b) { return a < b ? b : a; }
 __device__ __forceinline__ float fmin2(float a, float b) { return b < a ? b : a; }
 
+// A 4-byte asynchronous copy from device to shared memory (cp.async); the
+// destination is zero-filled where !valid.
+__device__ __forceinline__ void copy_async(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+// Waits for every cp.async the thread issued (a barrier must follow before
+// other threads read what they wrote).
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
 inline dim3 grid2d(int cols, int rows, dim3 block) {
   return dim3((cols + block.x - 1) / block.x, (rows + block.y - 1) / block.y);
 }

@@ -85,6 +85,8 @@ constexpr int kThreads = 512;       // threads per block
 static_assert(kTile % 4 == 0, "tile must be a multiple of 4");
 
 using noize::add;
+using noize::copy_async;
+using noize::copy_async_wait;
 using noize::mul;
 using noize::sub;
 
@@ -191,18 +193,6 @@ __device__ __forceinline__ float take(bool row, float v, float first, float seco
                       row ? second : 0.0f};
   for (int d = 0; d < 4; ++d) v = add(add(v, t[d]), 0.0f);
   return v;
-}
-
-// A 4-byte asynchronous copy from device to shared memory (cp.async); the
-// destination is zero-filled where !valid.
-__device__ __forceinline__ void copy_async(float* dst, const float* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void copy_async_wait() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Shared memory of a launch: the window (side W, origin (z0, x0) = tile

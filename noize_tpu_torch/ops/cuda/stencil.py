@@ -7,9 +7,15 @@ flipped Z pass) of an edge-clamped correlation, i.e.
 ``kernels.separable_series`` iterated.  The blur stages and the flagship
 blur run here.  The two JAX entries have counterparts of the same names;
 their blocking arguments choose TPU layouts, not results, and are ignored.
+
+K1 keeps several iterations on chip: :func:`chain_plan` splits the chain
+into launches, each of which runs its iterations on a tile and its halo in
+shared memory.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -17,6 +23,42 @@ import torch
 from ... import _cuda
 from .. import kernels as _kernels
 from ..blur import limit_width, sigma_value
+
+#: K1's blocking (``scripts/stencil_flow_sweep.py`` chose it; PERF.md):
+#: output tiles of TILE rows × columns, THREADS threads a block, and at most
+#: HALO cells of halo a side, so a launch runs up to HALO // off iterations
+#: of a k = 2·off + 1 chain.
+TILE = (128, 128)
+THREADS = 768
+HALO = 10
+
+
+@dataclass(frozen=True)
+class ChainPlan:
+    """How K1 runs a chain: ``launches[i]`` iterations in launch ``i``, on
+    ``tile`` output tiles whose windows carry ``halos[i]`` cells a side."""
+
+    launches: tuple
+    halos: tuple
+    tile: tuple
+    threads: int
+
+
+def chain_plan(k: int, iterations: int, tile=TILE, halo: int = HALO,
+               threads: int = THREADS) -> ChainPlan:
+    """Split ``iterations`` of a ``k``-tap chain into as few launches as a
+    halo of at most ``halo`` cells allows, as evenly as they go (17 at
+    k = 5 and the default halo of 10: 5 + 4 + 4 + 4).  A 1-tap chain needs
+    no halo and runs in one launch; 0 iterations in none.  A chain whose
+    half-width exceeds ``halo`` runs one iteration a launch."""
+    off = (k - 1) // 2
+    if iterations == 0:
+        return ChainPlan((), (), tuple(tile), threads)
+    per = iterations if off == 0 else max(1, halo // off)
+    n = -(-iterations // per)
+    base, extra = divmod(iterations, n)
+    launches = tuple(base + (i < extra) for i in range(n))
+    return ChainPlan(launches, tuple(off * m for m in launches), tuple(tile), threads)
 
 
 def separable_chain_plain(x, taps, iterations: int):
@@ -39,13 +81,19 @@ def separable_chain(x, taps, iterations: int):
     if taps.ndim != 1 or len(taps) % 2 == 0 or len(taps) > 25:
         raise ValueError(f"separable_chain: taps must be 1-D, odd, ≤ 25 long; "
                          f"got shape {taps.shape}")
+    if iterations < 0:
+        raise ValueError(f"separable_chain: iterations must be ≥ 0, got {iterations}")
+    plan = chain_plan(len(taps), int(iterations))
     out = torch.empty_like(x)
-    tmp = torch.empty_like(x)
+    tmp = torch.empty_like(x) if len(plan.launches) > 1 else None
+    per_launch = np.asarray(plan.launches, np.int32)
     rows, cols = x.shape
     with torch.cuda.device(x.device):
         _cuda.call("noize_separable_chain", x.data_ptr(), out.data_ptr(),
-                   tmp.data_ptr(), rows, cols, taps.ctypes.data, len(taps),
-                   int(iterations), _cuda.stream(x))
+                   None if tmp is None else tmp.data_ptr(), rows, cols,
+                   taps.ctypes.data, len(taps), per_launch.ctypes.data,
+                   len(per_launch), plan.tile[0], plan.tile[1], plan.threads,
+                   _cuda.stream(x))
     separable_chain.launches += 1
     return out
 

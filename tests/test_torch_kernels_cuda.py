@@ -20,6 +20,9 @@ from noize_tpu_torch.erosion import pool_cuda as PC
 from noize_tpu_torch.erosion.pool_cuda import pool_automata_cuda, pool_automata_full_cuda
 from noize_tpu_torch.ops import flow as FL
 from noize_tpu_torch.ops import thermal as TH
+from noize_tpu_torch.ops.blur import smooth_taps
+from noize_tpu_torch.ops.cuda import flow as FC
+from noize_tpu_torch.ops.cuda import stencil as SC
 from noize_tpu_torch.ops.cuda.flow import flow_map_fused, flow_map_pallas
 from noize_tpu_torch.ops.cuda.stencil import (fused_separable_chain,
                                               fused_separable_chain_rows, gauss_chain,
@@ -295,3 +298,84 @@ def test_pool_iterations_zero_copies_pool(cuda):
         torch.cuda.synchronize()
         _equal(gp, p)
         assert not bool(gd.any())
+
+
+# --- K1 and K2 tiled: tap counts, shapes around the tile, launch boundaries --
+
+def _map(shape, seed):
+    """Uniform noise with steps on rows and columns 3 cells either side of
+    every multiple of 31 and 32 (K1's and K2's tile edges at the default
+    plans fall on or near them), so structure crosses every tile seam."""
+    rng = np.random.default_rng(seed)
+    z, x = np.meshgrid(np.arange(shape[0]), np.arange(shape[1]), indexing="ij")
+    band = ((z + 3) % 32 < 6) | ((x + 3) % 31 < 6)
+    a = rng.uniform(0, 1, shape) + np.where(band, 0.5, 0.0)
+    return a.astype(np.float32)
+
+
+def _check_chain(cuda, x, taps, iters):
+    x = torch.from_numpy(x).to(cuda)
+    before = separable_chain.launches
+    got = separable_chain(x, taps, iters)
+    want = separable_chain_plain(x, taps, iters)
+    torch.cuda.synchronize()
+    _equal(got, want)
+    assert separable_chain.launches == before + 1
+
+
+@pytest.mark.parametrize("kind", ["gauss", "box"])
+@pytest.mark.parametrize("k", range(1, 26, 2))
+def test_k1_every_tap_count_matches_plain(cuda, k, kind):
+    taps = gaussian_taps(1.5, k) if kind == "gauss" else smooth_taps(k)
+    _check_chain(cuda, _map((300, 257), k), taps, 7)
+
+
+@pytest.mark.parametrize("shape", [(1, 2048), (2048, 1), (37, 1000), (2047, 2049), (1, 1),
+                                   (5, 3), (63, 64), (64, 65)])
+def test_k1_shapes_match_plain(cuda, shape):
+    _check_chain(cuda, _map(shape, sum(shape)), gaussian_taps(1.0, 5), 17)
+
+
+@pytest.mark.parametrize("iters", [0, 1, 4, 5, 6, 17, 32])
+def test_k1_iteration_counts_match_plain(cuda, iters):
+    """m = 5 iterations a launch at k = 5: 4, 5 and 6 sit on the first
+    launch boundary, 17 and 32 cross several."""
+    assert SC.chain_plan(5, 5).launches == (5,) and SC.chain_plan(5, 6).launches == (3, 3)
+    _check_chain(cuda, _map((200, 300), iters), gaussian_taps(1.0, 5), iters)
+
+
+@pytest.mark.parametrize("k,iters", [(3, 32), (25, 3), (1, 32)])
+def test_k1_seams_match_plain(cuda, k, iters):
+    _check_chain(cuda, _map((1000, 1000), k), smooth_taps(k), iters)
+
+
+def _check_flow(cuda, res, iters, norm_min=-0.1, norm_max=0.1):
+    h = torch.from_numpy(_map((res, res), res + iters)).to(cuda)
+    before = (flow_map_fused.launches, flow_map_pallas.launches)
+    got = flow_map_fused(h, iters, norm_min, norm_max)
+    want = FL.flow_map(h, iters, norm_min, norm_max)
+    torch.cuda.synchronize()
+    _equal(got, want)
+    assert (flow_map_fused.launches, flow_map_pallas.launches) == (before[0] + 1, before[1])
+    return got
+
+
+@pytest.mark.parametrize("iters", [0, 1, 4, 5, 8, 9, 17, 128])
+def test_k2_iteration_counts_match_plain(cuda, iters):
+    """m = 4 iterations a launch: 5 and more cross launch boundaries (from
+    three launches on the carried state ping-pongs), 128 is the stage's
+    maximum (32 launches)."""
+    assert FC.flow_plan(4).launches == (4,) and FC.flow_plan(5).launches == (3, 2)
+    _check_flow(cuda, 300, iters)
+
+
+@pytest.mark.parametrize("res", [1, 2, 63, 65, 1000, 2049])
+def test_k2_sizes_match_plain(cuda, res):
+    _check_flow(cuda, res, 8)
+
+
+def test_k2_degenerate_norm_range_matches_plain(cuda):
+    """norm_min == norm_max: the rng < 1e-12 guard zeroes the velocity and
+    the normalise divides by zero, on both sides alike."""
+    got = _check_flow(cuda, 130, 5, 0.05, 0.05)
+    assert bool(torch.isinf(got).all())
