@@ -33,9 +33,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 10. pool trace: one wet K4 call and one wet K5 call at 2048² under
    ``torch.profiler``; each must run ``1 + WATER_STEPS`` device kernels
    (the init kernel and one fused launch per water step);
-11. chain and flow trace: one K1 call (Gauss-5 ×17) and one K2 call (flow
-   ×8) at 2048² under ``torch.profiler``; each must run the device kernels
-   its plan gives (one a launch), and prints its device time beside its
+11. plan trace: one K1 call (Gauss-5 ×17), one K2 call (flow ×8) and one
+   K3 call (the sim's thermal, one iteration) at 2048², and one K3 call at
+   1025², under ``torch.profiler``; each must run the device kernels its
+   plan gives (one a launch), and prints its device time beside its
    CUDA-event time and its host enqueue time.
 
 Each path phase resets every launch count just before it runs and fails
@@ -343,13 +344,14 @@ def kernel_phase(rows):
     rows.compare("#4", "#4 flow_map_fused (K2)", SRC["K2"], TPU + "flow_pl.py:99",
                  (FC.flow_map_fused(blurred, 8),), lambda: (FC.flow_map_fused(blurred, 8),),
                  plain_k2, "k2", 20, k2_bytes, k2_ops)
+    thermal = (blurred, settings.TALUS, settings.THERMAL_STEP, hw_ratio, settings.THERMAL_CYCLES)
+    got_k3 = thermal_erosion_fused(*thermal)
+    n_changed = int((got_k3 != blurred).sum())
+    print(f"K3 2048²: {n_changed} of {cells} cells changed")
+    _check(n_changed > 0, "K3 changed no cell")
     rows.compare("#5", "#5 thermal_erosion_fused (K3)", SRC["K3"], TPU + "thermal_pl.py:36",
-                 (thermal_erosion_fused(blurred, settings.TALUS, settings.THERMAL_STEP,
-                                        hw_ratio, settings.THERMAL_CYCLES),),
-                 lambda: (thermal_erosion_fused(blurred, settings.TALUS, settings.THERMAL_STEP,
-                                                hw_ratio, settings.THERMAL_CYCLES),),
-                 lambda: (TH.thermal_erosion(blurred, settings.TALUS, settings.THERMAL_STEP,
-                                             hw_ratio, settings.THERMAL_CYCLES),),
+                 (got_k3,), lambda: (thermal_erosion_fused(*thermal),),
+                 lambda: (TH.thermal_erosion(*thermal),),
                  "k3", 20, 8 * cells, K3_OPS_PER_ITER * settings.THERMAL_CYCLES * cells)
     rows.compare("#6", "#6 pool_automata_pallas (K5, 2048² wet)", SRC["K5"],
                  POOL_TPU + ":30", got["#6"],
@@ -549,16 +551,17 @@ def pool_trace_phase():
 
 def _traced_call_kernels(fn, name):
     """The device kernels whose names contain ``name`` that the last of
-    three calls of ``fn`` ran, in one ``torch.profiler`` trace.  A marker
-    kernel (an in-place add) runs before each call and delimits it; a trace
-    that saw fewer than two markers gives ``None``."""
+    eight calls of ``fn`` ran, in one ``torch.profiler`` trace.  A marker
+    kernel (an in-place add) runs before each call and delimits it; the
+    trace may miss what runs while the profiler starts (several short calls
+    at a time), and one that saw fewer than two markers gives ``None``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     marker = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
+        for _ in range(8):
             marker.add_(1.0)
             fn()
             torch.cuda.synchronize()
@@ -570,29 +573,44 @@ def _traced_call_kernels(fn, name):
     return kernels[marks[-1] + 1:] if len(marks) >= 2 else None
 
 
-def chain_flow_trace_phase(rows):
-    """One K1 call (Gauss-5 ×17) and one K2 call (flow ×8) at 2048² under
+def plan_trace_phase(rows):
+    """One K1 call (Gauss-5 ×17), one K2 call (flow ×8) and one K3 call
+    (the sim's thermal) at 2048², and one K3 call at 1025², under
     ``torch.profiler``: one device kernel a launch of the call's plan.
     Prints each call's device time beside the CUDA-event time of its
-    kernels row, and the host time to enqueue one call."""
+    kernels row, and the host time to enqueue one call (mean of 10 calls
+    enqueued back to back)."""
     import torch
 
+    from noize_tpu_torch.app.flagship import default_meta, default_settings
     from noize_tpu_torch.ops.cuda import flow as FC
     from noize_tpu_torch.ops.cuda import stencil as SC
+    from noize_tpu_torch.ops.cuda import thermal as TC
     from noize_tpu_torch.ops.kernels import gaussian_taps
 
     _, blurred, _ = _inputs(2048)
+    _, blurred_odd, _ = _inputs(1025)
     taps = gaussian_taps(1.0, 5)
+    s, meta = default_settings(), default_meta()
+    hw_ratio = float(meta.tile_size) / float(meta.height)
+    k3_launches = len(TC.thermal_plan(s.THERMAL_CYCLES).launches)
+
+    def k3(h):
+        return lambda: TC.thermal_erosion_fused(h, s.TALUS, s.THERMAL_STEP, hw_ratio,
+                                                s.THERMAL_CYCLES)
     for key, row, name, fn, want in (
             ("K1", "#2", "chain_tile", lambda: SC.separable_chain(blurred, taps, 17),
              len(SC.chain_plan(len(taps), 17).launches)),
             ("K2", "#4", "flow_tile", lambda: FC.flow_map_fused(blurred, 8),
-             len(FC.flow_plan(8).launches))):
+             len(FC.flow_plan(8).launches)),
+            ("K3", "#5", "thermal_tile", k3(blurred), k3_launches),
+            ("K3@1025", "K3@1025", "thermal_tile", k3(blurred_odd), k3_launches)):
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fn()
-        host_ms = (time.perf_counter() - t0) * 1e3
+        for _ in range(10):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3 / 10
         torch.cuda.synchronize()
         for attempt in range(3):
             kernels = _traced_call_kernels(fn, name)
@@ -604,7 +622,7 @@ def chain_flow_trace_phase(rows):
         print(f"{key} call under torch.profiler: {len(kernels)} device kernels, {want} "
               f"expected (its plan's launches); {device_ms:.4f} ms of device time, "
               f"{rows.rows[row]['ms']:.4f} ms by CUDA events ({row}), "
-              f"{host_ms:.4f} ms host enqueue")
+              f"{host_ms:.4f} ms host enqueue a call")
         _check(len(kernels) == want, f"{key} call ran {len(kernels)} device kernels, not {want}")
 
 
@@ -797,7 +815,7 @@ def main():
     cross_device_phase()
     profile_step(sim)  # last: no timed phase runs after the profiler
     pool_trace_phase()
-    chain_flow_trace_phase(rows)
+    plan_trace_phase(rows)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(rows.line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -48,8 +48,9 @@ SIGNATURES = {
     # height, out, carry (2 x 5 maps), res, iterations per launch (host
     # i32[launches]), launches, window side, norm_min, rng, stream
     "noize_flow_map": (_P, _P, _P, _I, _P, _I, _I, _F, _F, _P),
-    # in, out, res, iterations, max_diff, increment, stream
-    "noize_thermal_erosion": (_P, _P, _I, _I, _F, _F, _P),
+    # in, out, tmp, res, iterations per launch (host i32[launches]),
+    # launches, tile rows, tile cols, threads, max_diff, increment, stream
+    "noize_thermal_erosion": (_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _F, _P),
     # height, pool_in, pool_out, drains, flag, pool_tmp, res, iterations,
     # drain_particles, stream (K4: even res; K5: any res)
     "noize_pool_automata": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),

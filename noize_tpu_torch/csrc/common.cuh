@@ -40,8 +40,22 @@ __device__ __forceinline__ void copy_async_wait() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
-inline dim3 grid2d(int cols, int rows, dim3 block) {
-  return dim3((cols + block.x - 1) / block.x, (rows + block.y - 1) / block.y);
-}
+// Walks the items (line, chunk) of a block's work with one division: item
+// it is line it % n, chunk it / n, and a thread's items are blockDim.x
+// apart, so neighbouring threads take neighbouring lines.
+struct Items {
+  int line, chunk, step_line, step_chunk, n;
+  __device__ __forceinline__ explicit Items(int lines)
+      : line(threadIdx.x % lines), chunk(threadIdx.x / lines),
+        step_line(blockDim.x % lines), step_chunk(blockDim.x / lines), n(lines) {}
+  __device__ __forceinline__ void next() {
+    line += step_line;
+    chunk += step_chunk;
+    if (line >= n) {
+      line -= n;
+      ++chunk;
+    }
+  }
+};
 
 }  // namespace noize

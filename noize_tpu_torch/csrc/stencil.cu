@@ -37,6 +37,8 @@
 
 namespace {
 
+using noize::Items;
+
 constexpr int kMaxTaps = 25;
 constexpr int kSeg = 8;  // outputs a thread computes from one register window
 
@@ -52,23 +54,6 @@ __device__ __forceinline__ int lo_after(int base, int j, int off) {
 __device__ __forceinline__ int hi_after(int base, int len, int n, int j, int off) {
   return min(n - 1, base + len - 1 - j * off) - base;
 }
-
-// Walks the items (line, chunk) of a pass with one division: item it is
-// line it % n, chunk it / n, and a thread's items are blockDim.x apart.
-struct Items {
-  int line, chunk, step_line, step_chunk, n;
-  __device__ __forceinline__ explicit Items(int lines)
-      : line(threadIdx.x % lines), chunk(threadIdx.x / lines),
-        step_line(blockDim.x % lines), step_chunk(blockDim.x / lines), n(lines) {}
-  __device__ __forceinline__ void next() {
-    line += step_line;
-    chunk += step_chunk;
-    if (line >= n) {
-      line -= n;
-      ++chunk;
-    }
-  }
-};
 
 // v[q] = line[clamp(start + q, lo, hi) * stride] for the kSeg + K - 1 values
 // a chunk reads; the clamp only where the chunk reaches past [lo, hi].

@@ -61,9 +61,11 @@ def flow_plan(iterations: int, per_launch: int = PER_LAUNCH,
     return FlowPlan(launches, halos, tiles)
 
 
-def flow_map_fused(height, iterations: int = 5, norm_min=-0.1, norm_max=0.1):
+def flow_map_fused(height, iterations: int = 5, norm_min=-0.1, norm_max=0.1,
+                   block: int = None):
     """``flow_map`` on K2.  A CPU tensor takes the plain version; a CUDA
-    tensor launches K2 or raises."""
+    tensor launches K2 or raises.  ``block`` (the TPU's row block) does
+    not change the result and is ignored."""
     if height.device.type == "cpu":
         return _flow.flow_map(height, iterations, norm_min, norm_max)
     _cuda.check_map(height, "flow_map_fused")

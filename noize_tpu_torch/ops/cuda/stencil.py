@@ -101,8 +101,11 @@ def separable_chain(x, taps, iterations: int):
 separable_chain.launches = 0
 
 
-def gauss_chain(x, width: int, sigma, iterations: int):
-    """StageGaussianBlur's iterated blur on K1 (``stencil.gauss_chain``)."""
+def gauss_chain(x, width: int, sigma, iterations: int, block: int = None,
+                interpret: bool = False):
+    """StageGaussianBlur's iterated blur on K1 (``stencil.gauss_chain``).
+    ``block`` (the TPU's row block) and ``interpret`` (the Pallas
+    interpreter) do not change the result and are ignored."""
     taps = _kernels.gaussian_taps(sigma_value(sigma), limit_width(width))
     return separable_chain(x, taps, iterations)
 

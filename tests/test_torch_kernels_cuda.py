@@ -23,6 +23,7 @@ from noize_tpu_torch.ops import thermal as TH
 from noize_tpu_torch.ops.blur import smooth_taps
 from noize_tpu_torch.ops.cuda import flow as FC
 from noize_tpu_torch.ops.cuda import stencil as SC
+from noize_tpu_torch.ops.cuda import thermal as TC
 from noize_tpu_torch.ops.cuda.flow import flow_map_fused, flow_map_pallas
 from noize_tpu_torch.ops.cuda.stencil import (fused_separable_chain,
                                               fused_separable_chain_rows, gauss_chain,
@@ -379,3 +380,42 @@ def test_k2_degenerate_norm_range_matches_plain(cuda):
     the normalise divides by zero, on both sides alike."""
     got = _check_flow(cuda, 130, 5, 0.05, 0.05)
     assert bool(torch.isinf(got).all())
+
+
+# --- K3 tiled: sizes around the tile, launch boundaries, seams, talus -------
+
+def _check_thermal(cuda, res, iters, talus=55.0, seed=0):
+    """K3 on ``_map``'s field (steps across every multiple of 31 and 32, so
+    across every seam of K3's tiles) against the plain version."""
+    h = torch.from_numpy(_map((res, res), seed)).to(cuda)
+    before = thermal_erosion_fused.launches
+    got = thermal_erosion_fused(h, talus, 0.6, 1.0, iters)
+    want = TH.thermal_erosion(h, talus, 0.6, 1.0, iters)
+    torch.cuda.synchronize()
+    _equal(got, want)
+    assert thermal_erosion_fused.launches == before + 1
+    # below 4 rows no anchor is valid; 0 iterations is a copy
+    assert torch.equal(got, h) == (res < 4 or iters == 0)
+    assert got.data_ptr() != h.data_ptr()
+
+
+@pytest.mark.parametrize("res", [1, 2, 3, 5, 63, 64, 127, 1000, 1025, 2048, 2049])
+def test_k3_sizes_match_plain(cuda, res):
+    """1-127 lie below one 128² tile; 1000 to 2049 cross many seams."""
+    _check_thermal(cuda, res, 1, seed=res)
+
+
+@pytest.mark.parametrize("iters", [0, 1, 2, TC.PER_LAUNCH, TC.PER_LAUNCH + 1, 32])
+def test_k3_iteration_counts_match_plain(cuda, iters):
+    """M + 1 and 32 cross launch boundaries (through the scratch map)."""
+    _check_thermal(cuda, 300, iters, seed=iters)
+
+
+@pytest.mark.parametrize("res", [5, 63, 130])
+def test_k3_small_maps_across_launches_match_plain(cuda, res):
+    _check_thermal(cuda, res, TC.PER_LAUNCH + 1, seed=res + 1)
+
+
+@pytest.mark.parametrize("talus", [1.0, 45.0, 89.0])
+def test_k3_talus_matches_plain(cuda, talus):
+    _check_thermal(cuda, 257, 2, talus=talus, seed=int(talus))

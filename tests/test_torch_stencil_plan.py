@@ -1,13 +1,15 @@
-"""The blocking plans of K1 (``ops/cuda/stencil.chain_plan``) and K2
-(``ops/cuda/flow.flow_plan``), replayed on the CPU.
+"""The blocking plans of K1 (``ops/cuda/stencil.chain_plan``), K2
+(``ops/cuda/flow.flow_plan``) and K3 (``ops/cuda/thermal.thermal_plan``),
+replayed on the CPU.
 
 The CUDA kernels cannot run here, but what makes their tiles exact can be
 checked: each launch of a plan computes every output tile from a window
 that is the tile with the plan's halo, cut at the grid's edge, and clamps
-its reads to that window.  The replay does the same with the plain
-versions (which clamp at the edge of what they are given) and must equal
-the whole-grid plain result bit for bit, and the JAX reference evaluated
-one primitive at a time.  A halo one cell short must not.
+its reads to that window (K3: decides coverage on grid coordinates).  The
+replay does the same with the plain versions (which clamp at the edge of
+what they are given) and must equal the whole-grid plain result bit for
+bit, and the JAX reference evaluated one primitive at a time.  A halo one
+cell short must not.
 """
 
 import jax
@@ -18,10 +20,13 @@ import torch
 
 from noize_tpu.ops import flow as JF
 from noize_tpu.ops import kernels as JK
+from noize_tpu.ops import thermal as JT
 from noize_tpu_torch.ops import flow as TF
+from noize_tpu_torch.ops import thermal as TT
 from noize_tpu_torch.ops.blur import smooth_taps
 from noize_tpu_torch.ops.cuda import flow as TC
 from noize_tpu_torch.ops.cuda import stencil as TS
+from noize_tpu_torch.ops.cuda import thermal as TH
 from noize_tpu_torch.ops.kernels import gaussian_taps
 
 
@@ -197,3 +202,87 @@ def test_flow_plan_halo_one_short_is_not_exact():
     plan = TC.flow_plan(3, per_launch=1, region=12)
     want = TF.flow_map(h, 3)
     assert not torch.equal(replay_flow(h, plan, shrink=1), want)
+
+
+# --- K3 ---------------------------------------------------------------------
+
+_TALUS, _INC, _HWR = 10.0, 0.5, 1.0  # max_diff far below the field's steps
+
+
+def replay_thermal(h, plan, shrink=(0, 0)):
+    """K3's plan on windows: each launch runs the 4m phases of its m
+    iterations of the plain masked phase on every tile's window, with the
+    window's grid origin, and keeps the tile.  ``shrink`` takes (rows,
+    columns) off every halo."""
+    res = h.shape[0]
+    md = TT.max_diff_value(_TALUS, _HWR, res)
+    tz, tx = plan.tile
+    for m, (hz, hx) in zip(plan.launches, plan.halos):
+        hz, hx = hz - shrink[0], hx - shrink[1]
+        out = torch.empty_like(h)
+        for z in _tiles(res, tz):
+            wz, iz = _window(z, tz, hz, res)
+            for c in _tiles(res, tx):
+                wx, ix = _window(c, tx, hx, res)
+                part = h[wz, wx]
+                for _ in range(m):
+                    for x0, z0 in TT._PHASE_OFFSETS:
+                        part = TT.thermal_phase_masked(part, x0, z0, wz.start, wx.start, res,
+                                                       md, _INC)
+                out[z:z + tz, c:c + tx] = part[iz, ix]
+        h = out
+    return h
+
+
+def test_thermal_plan_splits():
+    m = TH.PER_LAUNCH
+    p = TH.thermal_plan(0)
+    assert (p.launches, p.halos, p.tile, p.threads) == ((), (), TH.TILE, TH.THREADS)
+    p = TH.thermal_plan(1)
+    assert (p.launches, p.halos) == ((1,), ((2, 3),))
+    p = TH.thermal_plan(m)
+    assert (p.launches, p.halos) == ((m,), ((2 * m, 4 * m - 1),))
+    p = TH.thermal_plan(m + 1)
+    assert p.launches == ((m + 2) // 2, (m + 1) // 2)
+    p = TH.thermal_plan(32)
+    assert sum(p.launches) == 32 and max(p.launches) == m
+    assert len(p.launches) == -(-32 // m) and max(p.launches) - min(p.launches) <= 1
+    assert p.halos == tuple((2 * k, 4 * k - 1) for k in p.launches)
+    assert TH.thermal_plan(32, per_launch=4).launches == (4,) * 8
+    assert TH.thermal_plan(5, per_launch=4).launches == (3, 2)
+    for tile in ((7, 8), (8, 1), (0, 4)):
+        with pytest.raises(ValueError, match="even"):
+            TH.thermal_plan(1, tile=tile)
+
+
+@pytest.mark.parametrize("res,iterations,per_launch,tile", [
+    (37, 0, 2, (8, 8)), (37, 1, 2, (8, 8)), (36, 1, 2, (8, 6)), (36, 2, 2, (6, 8)),
+    (37, 3, 2, (8, 8)), (35, 5, 2, (10, 12)), (36, 4, 4, (12, 12)), (6, 3, 2, (8, 8)),
+    (1, 1, 2, (8, 8)), (2, 2, 1, (4, 4)), (5, 2, 4, (2, 2)),
+])
+def test_thermal_plan_replay_is_exact(res, iterations, per_launch, tile):
+    h = _field(res + iterations, (res, res))
+    plan = TH.thermal_plan(iterations, per_launch=per_launch, tile=tile)
+    want = TT.thermal_erosion(h, _TALUS, _INC, _HWR, iterations)
+    np.testing.assert_array_equal(replay_thermal(h, plan).numpy(), want.numpy())
+    if res >= 4 and iterations:
+        assert not torch.equal(want, h)
+
+
+@pytest.mark.parametrize("res", [29, 30])
+def test_thermal_plan_replay_matches_jax(res):
+    h = _field(res, (res, res))
+    with jax.disable_jit():
+        want = np.asarray(JT.thermal_erosion(jnp.asarray(h.numpy()), _TALUS, _INC, _HWR,
+                                             iterations=3))
+    got = replay_thermal(h, TH.thermal_plan(3, per_launch=2, tile=(8, 8)))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("shrink", [(1, 0), (0, 1)], ids=["row", "column"])
+@pytest.mark.parametrize("m", [1, 2])
+def test_thermal_plan_halo_one_short_is_not_exact(shrink, m):
+    h = _field(11 + m, (40, 40))
+    plan = TH.thermal_plan(m, tile=(8, 8))
+    want = TT.thermal_erosion(h, _TALUS, _INC, _HWR, m)
+    assert not torch.equal(replay_thermal(h, plan, shrink=shrink), want)
