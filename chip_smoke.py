@@ -25,15 +25,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    against its plain version on the inputs of the step's last wet pool
    call, and K3 on the height the step leaves (tolerance 0);
 8. the port on the card against the port on the CPU at the
-   ``__graft_entry__.entry()`` configuration, same particles, and the
-   mesh export round trip (OBJ, NPZ) at that size;
-9. profile: one more Quickstart ``ErosionSim.step()`` under
+   ``__graft_entry__.entry()`` configuration from the same seed (the same
+   threefry spawn), and the mesh export round trip (OBJ, NPZ) at that
+   size;
+9. prng: the threefry PRNG on the card against the CPU, 10⁶ ``randint``
+   draws (integers, exact), with the card's time for the draw;
+10. kernel filters: K1 with each non-Gauss filter's taps (distinct X and
+   Z taps, Smooth3's factor) and ``kernel_filter``'s Sobel3_2D at 2048²
+   against the plain version (tolerance 0), with CUDA-event times, the
+   bound and the same chain as ``conv2d`` calls with replicate padding;
+11. presets (the slice's main path): the BasicDemo presets PerlinGenerator
+   (K1), FlowMap (K2) and Sobel (K1) at 2048² through ``Pipeline.run`` and
+   ``compose.fuse`` (equal), and the Mesh preset on the PerlinGenerator
+   output at the Quickstart's mesh size; every preset at 256² on the card
+   within 1e-4 of the port on the CPU;
+12. profile: one more Quickstart ``ErosionSim.step()`` under
    ``torch.profiler`` (device busy time, idle share), after every timed
    phase;
-10. pool trace: one wet K4 call and one wet K5 call at 2048² under
+13. pool trace: one wet K4 call and one wet K5 call at 2048² under
    ``torch.profiler``; each must run ``1 + WATER_STEPS`` device kernels
    (the init kernel and one fused launch per water step);
-11. plan trace: one K1 call (Gauss-5 ×17), one K2 call (flow ×8) and one
+14. plan trace: one K1 call (Gauss-5 ×17), one K2 call (flow ×8) and one
    K3 call (the sim's thermal, one iteration) at 2048², and one K3 call at
    1025², under ``torch.profiler``; each must run the device kernels its
    plan gives (one a launch), and prints its device time beside its
@@ -177,20 +189,23 @@ def build_phase():
           f"({len(list(_cuda.CSRC.glob('*.cu')))} sources in parallel)")
 
 
-def _conv_chain(taps, iterations):
+def _conv_chain(taps, iterations, taps_z=None, factor=1.0):
     """K1's yardstick: the same chain as cuDNN convolutions, one call per
-    pass (2·iterations calls), replicate padding."""
+    pass (2·iterations calls), replicate padding; ``factor`` is folded into
+    the weights (the sums then round differently)."""
     import torch
 
-    k = len(taps)
-    t = torch.as_tensor(taps, dtype=torch.float32, device="cuda")
+    taps_z = taps if taps_z is None else taps_z
+    k, kz = len(taps), len(taps_z)
+    t = torch.as_tensor(taps, dtype=torch.float32, device="cuda") * factor
+    tz = torch.as_tensor(taps_z, dtype=torch.float32, device="cuda") * factor
     cx = torch.nn.Conv2d(1, 1, (1, k), padding=(0, k // 2), padding_mode="replicate",
                          bias=False).cuda()
-    cz = torch.nn.Conv2d(1, 1, (k, 1), padding=(k // 2, 0), padding_mode="replicate",
+    cz = torch.nn.Conv2d(1, 1, (kz, 1), padding=(kz // 2, 0), padding_mode="replicate",
                          bias=False).cuda()
     with torch.no_grad():
         cx.weight.copy_(t.view(1, 1, 1, k))
-        cz.weight.copy_(t.flip(0).view(1, 1, k, 1))  # conv_z's flipped taps
+        cz.weight.copy_(tz.flip(0).view(1, 1, kz, 1))  # conv_z's flipped taps
 
     def run(x):
         with torch.no_grad():
@@ -243,7 +258,7 @@ class Rows:
 
     def line(self):
         order = ["#1", "#2", "#3", "#4", "#5", "#6", "#7", "#8", "#9", "#10", "K5", "K5@1025",
-                 "K3@1025"]
+                 "K3@1025"] + [f"K1:{f}" for f in FILTERS]
         _check(set(self.rows) == set(order), f"rows {sorted(self.rows)}")
         for k in order:
             _check(self.launches.get(k, 0) > 0, f"{k} was launched on no path")
@@ -268,6 +283,10 @@ def _inputs(res):
     pool = torch.where(seed < 0.5, seed * 0.02, torch.zeros_like(seed))
     return noise, blurred, pool
 
+
+#: the non-Gauss KernelFilterStage filters, each timed on K1 at 2048²
+FILTERS = ("Smooth3", "Sobel3Horizontal", "Sobel3Vertical", "Sobel3_2D",
+           "Prewitt3Horizontal", "Prewitt3Vertical")
 
 SRC = {
     "K1": "noize_tpu_torch/csrc/stencil.cu", "K2": "noize_tpu_torch/csrc/flow.cu",
@@ -470,6 +489,164 @@ def quickstart_phase(rows):
     return sim
 
 
+def prng_phase():
+    """The threefry PRNG on the card against the CPU: 10⁶ ``randint``
+    draws and the keys, exact; the card's time for a draw and a spawn."""
+    import torch
+
+    from noize_tpu_torch import prng
+    from noize_tpu_torch.erosion.particles import spawn
+
+    n = 1_000_000
+    for seed in (0, 42, 2**31 - 1):
+        kc, kh = prng.PRNGKey(seed, device="cuda"), prng.PRNGKey(seed, device="cpu")
+        for lo, hi in ((0, 2048), (-1024, 1025)):
+            got, want = prng.randint(kc, (n,), lo, hi), prng.randint(kh, (n,), lo, hi)
+            _check(got.device.type == "cuda" and torch.equal(got.cpu(), want),
+                   f"threefry randint on the card differs from the CPU (seed {seed})")
+        for a, b in ((prng.split(kc, 3), prng.split(kh, 3)),
+                     (prng.fold_in(kc, 7), prng.fold_in(kh, 7))):
+            _check(torch.equal(a.cpu(), b), f"threefry keys differ on the card (seed {seed})")
+    kc = prng.PRNGKey(0, device="cuda")
+    draw_ms = _time_ms(lambda: prng.randint(kc, (n,), 0, 2048), 20)
+    spawn_ms = _time_ms(lambda: spawn(kc, 1000, 2048), 20)
+    print(f"prng: threefry on the card equals the CPU (3 seeds x 2 ranges x {n} randint draws, "
+          f"split, fold_in); randint 10^6 {draw_ms:.4f} ms, spawn of 1000 particles "
+          f"{spawn_ms:.4f} ms")
+
+
+def filter_phase(rows):
+    """K1 with each non-Gauss KernelFilterStage filter's taps, one
+    iteration at 2048², against its plain version (tolerance 0), with the
+    same chain as cuDNN convolutions as the library yardstick."""
+    import torch
+
+    from noize_tpu_torch.ops import kernels as KE
+    from noize_tpu_torch.ops.cuda import stencil as SC
+    from noize_tpu_torch.ops.filters import root_sum_squares_tiles
+
+    _, x, _ = _inputs(2048)
+    cells = x.numel()
+    for name in FILTERS:
+        if name == "Sobel3_2D":
+            sob = [(KE._SOBEL3_HX, KE._SOBEL3_HZ), (KE._SOBEL3_VX, KE._SOBEL3_VZ)]
+            convs = [_conv_chain(tx, 1, tz) for tx, tz in sob]
+            kernel = lambda: (KE.kernel_filter(x, "Sobel3_2D", 1),)  # noqa: E731
+            plain = lambda: (root_sum_squares_tiles(*(  # noqa: E731
+                SC.separable_chain_plain(x, tx, 1, taps_z=tz) for tx, tz in sob)),)
+            library = lambda: (torch.sqrt(sum(c(x) ** 2 for c in convs)),)  # noqa: E731
+            ops = 2 * 2 * 2 * 3 * cells + 4 * cells  # two series; squares, add, sqrt
+        else:
+            tx, tz, f = KE._SERIES_TABLE[name]
+            conv = _conv_chain(tx, 1, tz, f)
+            kernel = lambda tx=tx, tz=tz, f=f: (  # noqa: E731
+                SC.separable_chain(x, tx, 1, taps_z=tz, factor=f),)
+            plain = lambda tx=tx, tz=tz, f=f: (  # noqa: E731
+                SC.separable_chain_plain(x, tx, 1, taps_z=tz, factor=f),)
+            library = lambda conv=conv: (conv(x),)  # noqa: E731
+            ops = 2 * (2 * len(tx) + (f != 1.0)) * cells
+        got = kernel()
+        torch.cuda.synchronize()
+        _check(all(bool(torch.isfinite(g).all()) for g in got), f"K1 {name} not finite")
+        rows.compare(f"K1:{name}", f"K1 {name} taps (kernel_filter, 1 iteration, 2048²)",
+                     SRC["K1"], TPU + "stencil.py:153", got, kernel, plain, f"filter:{name}",
+                     20, 8 * cells, ops, library)
+    del x
+
+
+def presets_phase(rows):
+    """The BasicDemo presets on the card: PerlinGenerator, FlowMap and
+    Sobel at 2048² through ``Pipeline.run`` and ``compose.fuse`` (the main
+    path, launch counts reset before), the Mesh preset on the
+    PerlinGenerator output, then each preset at 256² against the port on
+    the CPU."""
+    import torch
+
+    from noize_tpu_torch.app import presets
+    from noize_tpu_torch.core.stageio import GeneratorData, MeshStageData
+    from noize_tpu_torch.ops.fractal import fractal
+    from noize_tpu_torch.pipeline.compose import fuse
+    from noize_tpu_torch.pipeline.driver import Pipeline
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def sobel_input(res, device):
+        return fractal(res, 0.0, 0.0, noise_type="Simplex", hurst=0.4, octaves=13,
+                       noise_size=1700.0, device=device)
+
+    res, r = 2048, 2016
+    gens = ("PerlinGenerator", "FlowMap", "Sobel")
+    inputs = {n: sobel_input(res, "cuda") if n == "Sobel" else None for n in gens}
+    runs = {}
+    for n in gens:
+        stages = presets.ALL[n].stages
+        runs[n] = (Pipeline(list(stages)), fuse(stages, res))
+    torch.cuda.synchronize()
+    _reset_counts()
+    outs, per_preset = {}, {}
+    for n in gens:
+        pipe, fn = runs[n]
+        before = _read_counts()
+        run_out = pipe.run(GeneratorData(uuid=n, resolution=res, data=inputs[n])).data
+        fused = fn(inputs[n], 0, 0)
+        torch.cuda.synchronize()
+        after = _read_counts()
+        per_preset[n] = {k: after[k] - before[k] for k in ("K1", "K2") if after[k] > before[k]}
+        outs[n] = (run_out, fused)
+    mesh_req = MeshStageData(uuid="m", resolution=r, inputResolution=res, marginPix=16,
+                             tileHeight=1000, tileSize=float(r), xpos=0, zpos=0,
+                             data=outs["PerlinGenerator"][0])
+    mesh = Pipeline(list(presets.ALL["Mesh"].stages)).run(mesh_req).mesh
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    print(f"presets 2048² launches {per_preset} (total {counts})")
+    _check(per_preset["PerlinGenerator"].get("K1", 0) > 0, "K1 not launched by PerlinGenerator")
+    _check(per_preset["Sobel"].get("K1", 0) > 0, "K1 not launched by Sobel")
+    _check(per_preset["FlowMap"].get("K2", 0) > 0, "K2 not launched by FlowMap")
+    for n, (run_out, fused) in outs.items():
+        _check(tuple(run_out.shape) == (res, res), f"{n} shape {tuple(run_out.shape)}")
+        _check(bool(torch.isfinite(run_out).all()), f"{n} not finite")
+        _check(torch.equal(run_out, fused), f"{n}: fuse differs from run")
+        _check(float(run_out.max() - run_out.min()) > 0.01, f"{n} is flat")
+    _check(tuple(mesh.positions.shape) == ((r + 1) ** 2, 3), "Mesh preset positions shape")
+    _check(tuple(mesh.indices.shape) == (6 * r * r,), "Mesh preset indices shape")
+    for f in ("positions", "normals", "tangents", "uvs"):
+        _check(bool(torch.isfinite(getattr(mesh, f)).all()), f"Mesh preset {f} not finite")
+    rows.set_launches({f"K1:{f}": counts["K1"] for f in FILTERS})
+
+    times = {}
+    for n in gens:
+        pipe, fn = runs[n]
+        req = GeneratorData(uuid=n, resolution=res, data=inputs[n])
+        times[n] = ([round(timed(lambda: pipe.run(req))[1], 3) for _ in range(3)],
+                    [round(timed(lambda: fn(inputs[n], 0, 0))[1], 3) for _ in range(3)])
+    mesh_ms = [round(timed(lambda: Pipeline(list(presets.ALL["Mesh"].stages)).run(mesh_req))[1], 3)
+               for _ in range(3)]
+    for n, (run_ms, fuse_ms) in times.items():
+        print(f"preset {n} 2048²: run {run_ms} ms, fuse {fuse_ms} ms; fuse equals run")
+    print(f"preset Mesh {r}² of 2048²: {mesh_ms} ms")
+    del outs, inputs, mesh
+
+    gaps = {}
+    for n in gens:
+        stages = presets.ALL[n].stages
+        got = {}
+        for dev in ("cuda", "cpu"):
+            data = sobel_input(256, dev) if n == "Sobel" else None
+            got[dev] = Pipeline(list(stages), device=dev).run(
+                GeneratorData(uuid=n, resolution=256, xpos=512, zpos=256, data=data)).data
+        a, b = got["cuda"].cpu(), got["cpu"]
+        gaps[n] = _max_abs(a, b) / max(float(b.abs().max()), 1e-30)
+        _check(gaps[n] <= CROSS_DEVICE_RTOL, f"preset {n} card vs cpu gap {gaps[n]}")
+    print("presets 256², card vs cpu, max gap relative to scale: "
+          + ", ".join(f"{k} {v!r}" for k, v in gaps.items()))
+
+
 def profile_step(sim):
     """One more ``ErosionSim.step()`` under ``torch.profiler``: device busy
     time, idle share of the wall clock and the kernels that take it."""
@@ -636,17 +813,18 @@ def flagship_phase(steps=2):
     import torch
 
     from noize_tpu_torch.app.flagship import default_settings, make_tile_step
+    from noize_tpu_torch.prng import PRNGKey, fold_in
 
     settings = default_settings()
     step, meta, _ = make_tile_step(None, settings, device="cuda",
                                    erosion_cycles=settings.CYCLES)
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    key = PRNGKey(0, device="cuda")
     times = []
     _reset_counts()
     for i in range(steps + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = step(float(i * 100), 0.0, generator=gen)
+        out = step(float(i * 100), 0.0, fold_in(key, i))
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     counts = _read_counts()
@@ -745,14 +923,14 @@ def odd_grid_phase(rows):
 
 def cross_device_phase():
     """Port on the card against the port on the CPU, entry() configuration,
-    then the mesh export round trip at that size."""
+    from the same seed, then the mesh export round trip at that size."""
     import dataclasses
 
     import torch
 
     from noize_tpu_torch.app import mesh_export
     from noize_tpu_torch.app.flagship import default_meta, default_settings, make_tile_step
-    from noize_tpu_torch.erosion.particles import spawn
+    from noize_tpu_torch.prng import PRNGKey
 
     # __graft_entry__.entry(): a 240² tile with an 8-cell margin on a 256²
     # generator grid, 256 particles of age ≤ 16, 4 water steps
@@ -760,12 +938,10 @@ def cross_device_phase():
     settings = dataclasses.replace(default_settings(), PARTICLES_PER_CYCLE=256, MAXAGE=16,
                                    WATER_STEPS=4, CYCLES=1, PILING_RADIUS=8)
     kw = dict(octaves=8, blur_iterations=5, flow_iterations=4, erosion_cycles=1)
-    fresh = spawn(torch.Generator().manual_seed(0), 256, meta.generator_res)
     outs = {}
     for dev in ("cpu", "cuda"):
         step, _, _ = make_tile_step(meta, settings, device=dev, **kw)
-        parts = type(fresh)(*(t.to(dev) for t in fresh))
-        outs[dev] = step(0.0, 0.0, fresh=[parts])
+        outs[dev] = step(0.0, 0.0, PRNGKey(0, device=dev))  # the same threefry spawn
     torch.cuda.synchronize()
     gaps = {}
     for k in ("height", "pool", "stream", "flow_velocity"):
@@ -813,6 +989,9 @@ def main():
     flagship_phase()
     odd_grid_phase(rows)
     cross_device_phase()
+    prng_phase()
+    filter_phase(rows)
+    presets_phase(rows)
     profile_step(sim)  # last: no timed phase runs after the profiler
     pool_trace_phase()
     plan_trace_phase(rows)

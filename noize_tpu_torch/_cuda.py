@@ -42,9 +42,10 @@ _F = ctypes.c_float
 
 #: argtypes of every C entry point (csrc/*.cu); all return int.
 SIGNATURES = {
-    # x, out, tmp, rows, cols, taps (host f32[k]), k, iterations per launch
-    # (host i32[launches]), launches, tile rows, tile cols, threads, stream
-    "noize_separable_chain": (_P, _P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P),
+    # x, out, tmp, rows, cols, X taps and Z taps (host f32[k] each), k,
+    # factor, iterations per launch (host i32[launches]), launches, tile
+    # rows, tile cols, threads, stream
+    "noize_separable_chain": (_P, _P, _P, _I, _I, _P, _P, _I, _F, _P, _I, _I, _I, _I, _P),
     # height, out, carry (2 x 5 maps), res, iterations per launch (host
     # i32[launches]), launches, window side, norm_min, rng, stream
     "noize_flow_map": (_P, _P, _P, _I, _P, _I, _I, _F, _F, _P),

@@ -37,7 +37,6 @@ def make_tile_step(
     meta: Optional[TileSetMeta] = None,
     settings: Optional[ErosionSettings] = None,
     *,
-    device="cuda",
     octaves: int = 13,
     hurst: float = 0.4,
     noise_size: float = 1700.0,
@@ -47,16 +46,18 @@ def make_tile_step(
     erosion_cycles: int = 1,
     emit_mesh: bool = True,
     mesh_layout: str = "arrays",
+    device="cuda",
 ):
     """Build the flagship step on ``device``; returns (step, meta,
     settings).
 
-    ``step(xpos, zpos, generator=None, fresh=None) -> dict`` with keys
+    ``step(xpos, zpos, key, *, fresh=None) -> dict`` with keys
     ``height``, ``flow_velocity``, ``pool``, ``stream`` and (with
-    ``emit_mesh``) ``mesh``.  ``generator`` seeds the particle spawn;
-    ``fresh`` is an optional list with one ``Particles`` per erosion cycle
-    that replaces that cycle's random spawn.  ``step.syncs`` lists the
-    host syncs of the last call.
+    ``emit_mesh``) ``mesh``.  ``key`` (``prng.PRNGKey``) seeds the particle
+    spawn as the reference's ``jax.random`` key does; ``fresh``, a test
+    hook, is an optional list with one ``Particles`` per erosion cycle that
+    replaces that cycle's random spawn.  ``step.syncs`` lists the host
+    syncs of the last call.
 
     ``device="cuda"`` raises when no GPU is present: the step never falls
     back to the CPU."""
@@ -69,13 +70,13 @@ def make_tile_step(
         raise ValueError(f"unknown mesh layout {mesh_layout!r}")
     res = meta.generator_res
 
-    def step(xpos, zpos, generator=None, fresh=None):
+    def step(xpos, zpos, key, *, fresh=None):
         syncs = []
         h = fractal(res, xpos, zpos, noise_type=noise_type, hurst=hurst,
                     octaves=octaves, noise_size=noise_size, device=device)
         h = gauss_chain(h, 5, 1.0, blur_iterations)
         flow_v = flow_map_fused(h, iterations=flow_iterations)
-        state = init_state(h, generator)
+        state = init_state(h, key)
         for c in range(erosion_cycles):
             state = erosion_cycle(state, settings, meta,
                                   fresh=None if fresh is None else fresh[c],

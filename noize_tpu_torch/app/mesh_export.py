@@ -55,7 +55,7 @@ def to_npz(path: str, mesh) -> None:
     )
 
 
-def from_npz(path: str, device="cuda"):
+def from_npz(path: str, *, device="cuda"):
     """Load a ``to_npz`` dump (the port's or the reference's) into a
     ``MeshArrays`` on ``device``; indices come back as int32 (the port's
     index type)."""

@@ -1,7 +1,8 @@
 """State that crosses between the JAX reference and the port.
 
 The system has no weights; what crosses is the erosion state — the five
-``WorldState`` maps plus the queued drain water — particle buffers, the
+``WorldState`` maps, the queued drain water and the threefry key (uint32[2]
+in both packages) — particle buffers, the
 configuration dataclasses and the buffer store's save directories.
 Arrays travel as numpy: float32 stays float32, int32 stays int32, bool
 stays bool.  The JAX dataclasses travel as plain dicts
@@ -20,6 +21,7 @@ from .erosion.params import ErosionMode, ErosionSettings
 from .erosion.particles import Particles
 from .erosion.sim import SimState
 from .erosion.world import WorldState
+from .prng import PRNGKey
 
 WORLD_MAPS = ("height", "pool", "flow", "track", "plants")
 
@@ -38,18 +40,28 @@ def _to_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device=device)
 
 
-def sim_state_from_numpy(world: dict, drain_water, device="cuda",
-                         generator=None) -> SimState:
+def key_from_jax(key, device="cuda") -> torch.Tensor:
+    """A ``jax.random`` threefry key (``np.asarray(key)``: uint32[2]) as
+    the port's key (``prng.PRNGKey``) on ``device``."""
+    key = np.asarray(key)
+    if key.shape != (2,) or key.dtype != np.uint32:
+        raise TypeError(f"expected a uint32[2] threefry key, got {key.dtype}{key.shape}")
+    return torch.from_numpy(np.array(key)).to(device=device)
+
+
+def sim_state_from_numpy(world: dict, drain_water, device="cuda", key=None) -> SimState:
     """SimState from the five world maps (``world[name]`` for name in
-    WORLD_MAPS) and the drain-water map."""
+    WORLD_MAPS), the drain-water map and a JAX key (``np.asarray`` of the
+    reference's ``SimState.key``; ``None`` is ``PRNGKey(0)``)."""
     maps = {k: _to_tensor(world[k], device) for k in WORLD_MAPS}
     return SimState(world=WorldState(**maps),
                     drain_water=_to_tensor(drain_water, device),
-                    generator=generator)
+                    key=PRNGKey(0, device) if key is None else key_from_jax(key, device))
 
 
 def sim_state_to_numpy(state: SimState):
-    """(world dict, drain_water) as numpy arrays."""
+    """(world dict, drain_water) as numpy arrays; the key is
+    ``state.key.cpu().numpy()``, the reference's uint32[2]."""
     world = {k: getattr(state.world, k).cpu().numpy() for k in WORLD_MAPS}
     return world, state.drain_water.cpu().numpy()
 

@@ -1,5 +1,6 @@
 """Buffer store disk serialization — port of ``noize_tpu.core.serde``
-(the NumPy route; no native library).
+(the NumPy route; no native library, so ``save(async_=True)`` writes at
+once and ``flush`` has nothing to wait for).
 
 Layout (PipelineSerialization.cs:15-236): a save root
 ``save__{name}_{version}/`` holding ``data/{buffer}.data`` raw
@@ -123,8 +124,11 @@ class SerdeManager:
         safe = name.replace("/", "_")
         return os.path.join(self.data_dir, f"{safe}.data")
 
-    def save(self, name: str, array: np.ndarray):
-        """Dump one buffer and rewrite the manifest."""
+    def save(self, name: str, array: np.ndarray, async_: bool = False):
+        """Dump one buffer and rewrite the manifest.  The write is always
+        made at once: ``async_`` (the reference's native write pool, not
+        ported) changes nothing, as it does in the reference without its
+        native library."""
         os.makedirs(self.data_dir, exist_ok=True)
         arr = np.ascontiguousarray(array)
         path = self._path_for(name)
@@ -132,6 +136,10 @@ class SerdeManager:
         self.directory.entries[name] = FileObject(
             os.path.basename(path), arr.size, str(arr.dtype), arr.shape)
         self.directory.flush()
+
+    def flush(self):
+        """Barrier for ``async_`` saves: a no-op, every save is already
+        on disk."""
 
     def exists(self, name: str) -> bool:
         return name in self.directory and os.path.exists(self._path_for(name))

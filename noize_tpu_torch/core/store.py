@@ -30,7 +30,7 @@ def _host(value) -> np.ndarray:
 
 class PipelineStateManager:
     def __init__(self, save_dir: Optional[str] = None,
-                 save_name: str = "default", version: str = "0",
+                 save_name: str = "default", version: str = "0", *,
                  device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -136,20 +136,21 @@ class PipelineStateManager:
 
     # --- checkpoint (PipelineStateManager.cs:98-113) -----------------------
 
-    def save_buffer_to_disk(self, name: str) -> bool:
+    def save_buffer_to_disk(self, name: str, async_: bool = False) -> bool:
         if self.serde is None:
             return False
         with self._mutex:
             if name not in self._buffers:
                 return False
             value = self._buffers[name]
-        self.serde.save(name, _host(value))
+        self.serde.save(name, _host(value), async_=async_)
         return True
 
-    def save_all(self) -> Dict[str, Exception]:
-        """Checkpoint every numeric buffer.  Returns ``{name: exception}``
-        for the writes that failed (empty when the checkpoint is whole);
-        each failure is also logged."""
+    def save_all(self, async_: bool = True) -> Dict[str, Exception]:
+        """Checkpoint every numeric buffer, ending with ``serde.flush()``
+        when ``async_``, as the reference does.  Returns ``{name:
+        exception}`` for the writes that failed (empty when the checkpoint
+        is whole); each failure is also logged."""
         failures: Dict[str, Exception] = {}
         if self.serde is None:
             return failures
@@ -165,9 +166,14 @@ class PipelineStateManager:
             if arr.dtype == object:
                 continue
             try:
-                self.serde.save(name, arr)
+                self.serde.save(name, arr, async_=async_)
             except OSError as e:
                 failures[name] = e
+        if async_:
+            try:
+                self.serde.flush()
+            except OSError as e:
+                failures["<flush>"] = e
         if failures:
             log.warning("save_all: %d buffer(s) failed to checkpoint: %s",
                         len(failures), {k: repr(v) for k, v in failures.items()})

@@ -1,9 +1,12 @@
-// K1 — iterated separable stencil chain (the Gauss-5 x17 blur).
+// K1 — iterated separable stencil chain (the Gauss-5 x17 blur, and every
+// KernelFilterStage filter: Gauss, Smooth3, Sobel, Prewitt).
 //
 // Replaces: noize_tpu/ops/pallas/stencil.py:fused_separable_chain_rows
 // (entry gauss_chain) and fused_separable_chain.  Computes `iterations` x
-// (X pass, flipped Z pass) of an edge-clamped correlation, i.e.
-// kernels.separable_series iterated.
+// (X pass with taps tx, flipped Z pass with taps tz) of an edge-clamped
+// correlation, each pass's sum multiplied by `factor` after the sum, i.e.
+// kernels.separable_series(a, tx, tz, factor) iterated.  The two tap lists
+// share one length K (the wrapper centres a shorter list in zeros).
 //
 // Bound: the float32 issue rate.  A pass does k multiplies and k adds a
 // cell (k = 5 on the flagship), each its own instruction (-fmad=false), so
@@ -43,7 +46,9 @@ constexpr int kMaxTaps = 25;
 constexpr int kSeg = 8;  // outputs a thread computes from one register window
 
 struct Taps {
-  float t[kMaxTaps];
+  float x[kMaxTaps];  // X-pass taps
+  float z[kMaxTaps];  // Z-pass taps (applied flipped)
+  float factor;       // each pass's sum times this (skipped at 1, which is exact)
 };
 
 // First and last window index (0-based, of a window of `len` cells that
@@ -76,7 +81,7 @@ __device__ __forceinline__ void load_window(const float* line, int stride, int s
 template <int K>
 __device__ __forceinline__ void pass_x(const float* src, int p, float* dst, long long doff,
                                        int dpitch, int zlo, int zhi, int xlo, int xhi,
-                                       int rlo, int rhi, const float (&t)[K]) {
+                                       int rlo, int rhi, const float (&t)[K], float factor) {
   constexpr int off = (K - 1) / 2;
   const int nr = zhi - zlo + 1;
   const int chunks = (xhi - xlo + kSeg) / kSeg;
@@ -90,6 +95,7 @@ __device__ __forceinline__ void pass_x(const float* src, int p, float* dst, long
       float acc = 0.0f;
 #pragma unroll
       for (int i = 0; i < K; ++i) acc = noize::add(acc, noize::mul(t[i], v[s + i]));
+      if (factor != 1.0f) acc = noize::mul(acc, factor);
       if (xs + s <= xhi) dst[doff + (long long)r * dpitch + xs + s] = acc;
     }
   }
@@ -101,7 +107,7 @@ __device__ __forceinline__ void pass_x(const float* src, int p, float* dst, long
 template <int K>
 __device__ __forceinline__ void pass_z(const float* src, int p, float* dst, long long doff,
                                        int dpitch, int zlo, int zhi, int xlo, int xhi,
-                                       int rlo, int rhi, const float (&t)[K]) {
+                                       int rlo, int rhi, const float (&t)[K], float factor) {
   constexpr int off = (K - 1) / 2;
   const int nc = xhi - xlo + 1;
   const int chunks = (zhi - zlo + kSeg) / kSeg;
@@ -115,6 +121,7 @@ __device__ __forceinline__ void pass_z(const float* src, int p, float* dst, long
       float acc = 0.0f;
 #pragma unroll
       for (int i = 0; i < K; ++i) acc = noize::add(acc, noize::mul(t[i], v[s + 2 * off - i]));
+      if (factor != 1.0f) acc = noize::mul(acc, factor);
       if (zs + s <= zhi) dst[doff + (long long)(zs + s) * dpitch + c] = acc;
     }
   }
@@ -127,9 +134,13 @@ __global__ void chain_tile(const float* __restrict__ in, float* __restrict__ out
                            int cols, Taps taps, int m, int tz, int tx) {
   constexpr int off = (K - 1) / 2;
   extern __shared__ float window[];
-  float t[K];
+  float t[K], u[K];
 #pragma unroll
-  for (int i = 0; i < K; ++i) t[i] = taps.t[i];
+  for (int i = 0; i < K; ++i) {
+    t[i] = taps.x[i];
+    u[i] = taps.z[i];
+  }
+  const float factor = taps.factor;
   const int h = off * m;
   const int rz = tz + 2 * h, rx = tx + 2 * h, p = rx | 1;
   const int z0 = blockIdx.y * tz - h, x0 = blockIdx.x * tx - h;
@@ -152,13 +163,14 @@ __global__ void chain_tile(const float* __restrict__ in, float* __restrict__ out
     const int xlp = lo_after(x0, j - 1, off), xhp = hi_after(x0, rx, cols, j - 1, off);
     const int zlj = lo_after(z0, j, off), zhj = hi_after(z0, rz, rows, j, off);
     const int xlj = lo_after(x0, j, off), xhj = hi_after(x0, rx, cols, j, off);
-    pass_x<K>(a, p, b, 0, p, zlp, zhp, xlj, xhj, xlp, xhp, t);
+    pass_x<K>(a, p, b, 0, p, zlp, zhp, xlj, xhj, xlp, xhp, t, factor);
     __syncthreads();
     if (j < m) {
-      pass_z<K>(b, p, a, 0, p, zlj, zhj, xlj, xhj, zlp, zhp, t);
+      pass_z<K>(b, p, a, 0, p, zlj, zhj, xlj, xhj, zlp, zhp, u, factor);
       __syncthreads();
     } else {  // the tile itself: straight to device memory
-      pass_z<K>(b, p, out, (long long)z0 * cols + x0, cols, zlj, zhj, xlj, xhj, zlp, zhp, t);
+      pass_z<K>(b, p, out, (long long)z0 * cols + x0, cols, zlj, zhj, xlj, xhj, zlp, zhp, u,
+                factor);
     }
   }
 }
@@ -216,12 +228,13 @@ int run_chain(const float* x, float* out, float* tmp, int rows, int cols, const 
 
 }  // namespace
 
+// taps_x_host, taps_z_host (host float[k]): the X- and Z-pass taps;
 // per_launch (host int[launches]): iterations of each launch, in order;
 // no launch copies x.  tmp: a second map, read only when launches > 1.
 extern "C" int noize_separable_chain(const float* x, float* out, float* tmp, int rows, int cols,
-                                     const float* taps_host, int k, const int* per_launch,
-                                     int launches, int tile_z, int tile_x, int threads,
-                                     void* stream_ptr) {
+                                     const float* taps_x_host, const float* taps_z_host, int k,
+                                     float factor, const int* per_launch, int launches,
+                                     int tile_z, int tile_x, int threads, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (k < 1 || k > kMaxTaps || k % 2 == 0 || rows < 1 || cols < 1 || launches < 0 ||
       tile_z < 1 || tile_x < 1 || threads < 32 || threads > 1024 || threads % 32 ||
@@ -234,7 +247,11 @@ extern "C" int noize_separable_chain(const float* x, float* out, float* tmp, int
     return static_cast<int>(cudaGetLastError());
   }
   Taps taps;
-  for (int i = 0; i < kMaxTaps; ++i) taps.t[i] = i < k ? taps_host[i] : 0.0f;
+  for (int i = 0; i < kMaxTaps; ++i) {
+    taps.x[i] = i < k ? taps_x_host[i] : 0.0f;
+    taps.z[i] = i < k ? taps_z_host[i] : 0.0f;
+  }
+  taps.factor = factor;
   switch (k) {
 #define NOIZE_CHAIN_CASE(K)                                                                  \
   case K:                                                                                    \

@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.f32 import recip, sqrt
+from ..prng import randint, split
 from .world import NEIGHBOR_OFFSETS, WorldState
 
 _F32 = torch.float32
@@ -56,20 +57,15 @@ class Particles(NamedTuple):
     alive: torch.Tensor     # bool[N]
 
 
-def spawn(generator, n: int, res: int, water=1.0, alive=True, device=None):
+def spawn(key, n: int, res: int, water=1.0, alive=True):
     """FillBeyerQueueJob parity: uniform random integer positions, vel .01,
-    water 1, no heading.  ``generator`` is a ``torch.Generator`` (its
-    device places the particles unless ``device`` is given); its numbers
-    differ from ``jax.random``'s, so tests pass the JAX spawn in through
-    ``sim.erosion_cycle(..., fresh=)``.  Without a generator or a
-    device the particles go to the card."""
-    if device is None:
-        device = generator.device if generator is not None else "cuda"
-    row = torch.randint(0, res, (n,), generator=generator, device=device)
-    col = torch.randint(0, res, (n,), generator=generator, device=device)
+    water 1, no heading.  ``key`` is a threefry key (``prng.PRNGKey``);
+    the draws are ``jax.random``'s bits, on the key's device."""
+    row, col = randint(split(key), (n,), 0, res).to(_F32)  # (kr, kc) in one draw
+    device = key.device
     return Particles(
-        row=row.to(_F32),
-        col=col.to(_F32),
+        row=row,
+        col=col,
         heading=torch.full((n,), NONE_HEADING, dtype=torch.int32, device=device),
         vel=torch.full((n,), 0.01, dtype=_F32, device=device),
         water=torch.full((n,), water, dtype=_F32, device=device),
@@ -128,10 +124,19 @@ def _gather_step_values(combo, row_i, col_i, res):
 
 
 def descend_step(p: Particles, state: WorldState, params, height_scale,
-                 patch_res, res: int, maps=None):
+                 patch_res, res: int, maps=None, patch_ctx=None,
+                 window_origin=None, window_shape=None, table_layout: str = "waf"):
     """One DescendSimultaneous step for every particle.  Returns
     (new_particles, events) with per-particle deltas and the cell
-    (row_i, col_i) they land on."""
+    (row_i, col_i) they land on.  ``table_layout`` chose the reference's
+    gather table on the TPU and gives the same result either way; the
+    patch-prefetch and windowed-table paths (``patch_ctx``,
+    ``window_origin``, ``window_shape``) are not ported and raise."""
+    if patch_ctx is not None or window_origin is not None or window_shape is not None:
+        raise NotImplementedError(
+            "descend_step: patch prefetch and windowed tables are not ported")
+    if table_layout not in ("waf", "wf"):
+        raise ValueError(f"unknown table_layout {table_layout!r}")
     if getattr(params, "VEGETATION_FRICTION", 0.0) > 0.0:
         raise NotImplementedError(
             "VEGETATION_FRICTION > 0 is not ported to noize_tpu_torch yet")
@@ -259,7 +264,8 @@ def descend_step(p: Particles, state: WorldState, params, height_scale,
 
 def descend_all(p: Particles, state: WorldState, params, height_scale,
                 patch_res, res: int, max_steps: int = None, chunk: int = 8,
-                syncs: list = None):
+                patch_k: int = 0, table_layout: str = "waf", scatter: str = "chunk",
+                compact: bool = True, *, syncs: list = None):
     """Run the full descent; returns (particles, track_acc, pool_acc,
     sed_acc).
 
@@ -269,7 +275,9 @@ def descend_all(p: Particles, state: WorldState, params, height_scale,
     scatter-add once per chunk, step-major then particle slot — the
     reference's order, so duplicate-cell f32 sums match.  ``index_put_``
     with ``accumulate=True`` adds duplicates in that order on the CPU and,
-    through its sort-based kernel, on CUDA too."""
+    through its sort-based kernel, on CUDA too.  ``patch_k``,
+    ``table_layout``, ``scatter`` and ``compact`` chose how the TPU ran
+    the same sums and are ignored."""
     steps = (params.MAXAGE + 1) if max_steps is None else max_steps
     n_chunks = -(-steps // chunk)
     shape = state.height.shape

@@ -68,7 +68,7 @@ def pile_deposit(pile_map, radius: int):
     return _disperse_axis(_disperse_axis(pile_map, taps, 0), taps, 1)
 
 
-def write_sediment_map(height, sed_acc, params, height_scale, syncs: list = None):
+def write_sediment_map(height, sed_acc, params, height_scale, *, syncs: list = None):
     """ErodeHeightMaps + WriteSedimentMap: deltas up to
     PILE_THRESHOLD/HEIGHT disperse through KERNEL5, larger ones pile; then
     the [0,1] breaker.  The pile pass runs only when a pile exists (one

@@ -35,6 +35,7 @@ import torch
 from ..core.tiles import TileSetMeta
 from ..ops.cuda.thermal import thermal_erosion_fused
 from .params import ErosionMode, ErosionSettings
+from ..prng import PRNGKey, split
 from .particles import Particles, descend_all, spawn
 from .pool_cuda import pool_automata_cuda
 from .sediment import write_sediment_map
@@ -47,29 +48,35 @@ class SimState:
 
     world: WorldState
     drain_water: torch.Tensor        # f32[R,R] — queued drain emissions
-    generator: Optional[torch.Generator]
+    key: torch.Tensor                # threefry key (``prng.PRNGKey``)
 
 
-def init_state(height, generator: Optional[torch.Generator] = None) -> SimState:
+def init_state(height, key=None) -> SimState:
+    """The state a sim starts from; ``key=None`` is ``PRNGKey(0)`` on the
+    height's device."""
+    if key is None:
+        key = PRNGKey(0, device=height.device)
     return SimState(
         world=WorldState.create(height),
         drain_water=torch.zeros_like(height),
-        generator=generator,
+        key=key,
     )
 
 
-def _spawn_with_drains(generator, n: int, res: int, drain_water,
+def _spawn_with_drains(key, n: int, res: int, drain_water, *,
                        fresh: Optional[Particles] = None, syncs: list = None):
     """Fill the particle buffer: drain particles first (top-K wettest
-    drain cells), ``fresh`` (or newly spawned) particles in the remaining
-    slots.  Returns (particles, leftover drain water)."""
+    drain cells), particles spawned from the first half of ``key`` (or
+    ``fresh``) in the remaining slots.  Returns (particles, leftover drain
+    water, the second half of ``key``), as the reference does."""
+    k1, k2 = split(key)
     if fresh is None:
-        fresh = spawn(generator, n, res, device=drain_water.device)
+        fresh = spawn(k1, n, res)
     flat = drain_water.reshape(-1)
     if syncs is not None:
         syncs.append("spawn.drains")
     if not bool((flat > 0.0).any()):
-        return fresh, drain_water
+        return fresh, drain_water, k2
     # exact top-k with ties to the lower index: a stable ascending sort of
     # -flat keeps equal values in index order
     neg, idxs = torch.sort(-flat, stable=True)
@@ -86,11 +93,11 @@ def _spawn_with_drains(generator, n: int, res: int, drain_water,
     taken = torch.zeros_like(flat).index_put_(
         (idxs,), torch.where(has_drain, vals, 0.0), accumulate=True)
     leftover = torch.clamp_min(flat - taken, 0.0)
-    return parts, leftover.reshape(drain_water.shape)
+    return parts, leftover.reshape(drain_water.shape), k2
 
 
 def erosion_cycle(state: SimState, settings: ErosionSettings, meta: TileSetMeta,
-                  tuned: Optional[dict] = None, fresh: Optional[Particles] = None,
+                  tuned: Optional[dict] = None, *, fresh: Optional[Particles] = None,
                   syncs: list = None) -> SimState:
     """One full cycle of TriggerQueuedBeyerMT's inner loop.
 
@@ -98,8 +105,9 @@ def erosion_cycle(state: SimState, settings: ErosionSettings, meta: TileSetMeta,
     override the settings' (the live-retuning hook; each value is rounded
     to float32 as the reference's traced scalars are).
     ``fresh``: particles that replace the cycle's random spawn (drain
-    particles still take the first slots) — the hook tests use to feed
-    the reference's ``jax.random`` spawn."""
+    particles still take the first slots; the key advances as without
+    them) — a test hook.
+    ``syncs``: a list that records the cycle's host syncs."""
     params = settings.as_parameters()
     if tuned is not None:
         params = replace(params, **{k: float(np.float32(v)) for k, v in tuned.items()})
@@ -116,9 +124,10 @@ def erosion_cycle(state: SimState, settings: ErosionSettings, meta: TileSetMeta,
             iterations=settings.THERMAL_CYCLES))
 
     drain_water = state.drain_water
+    key = state.key
     if behavior != ErosionMode.ONLY_FLOW_WATER:
-        parts, drain_water = _spawn_with_drains(
-            state.generator, settings.PARTICLES_PER_CYCLE, res, drain_water,
+        parts, drain_water, key = _spawn_with_drains(
+            key, settings.PARTICLES_PER_CYCLE, res, drain_water,
             fresh=fresh, syncs=syncs)
         # unconverted drain water re-enters the pool map
         world = replace(world, pool=world.pool + drain_water)
@@ -141,8 +150,7 @@ def erosion_cycle(state: SimState, settings: ErosionSettings, meta: TileSetMeta,
         world.height, world.pool, settings.WATER_STEPS,
         behavior != ErosionMode.ONLY_FLOW_WATER)
     world = replace(world, pool=pool)
-    return SimState(world=world, drain_water=drain_water + drains,
-                    generator=state.generator)
+    return SimState(world=world, drain_water=drain_water + drains, key=key)
 
 
 class ErosionSim:
@@ -150,12 +158,12 @@ class ErosionSim:
     save — LiveErosion.cs:203-372).
 
     The sim lives on ``height``'s device; a NumPy height goes to
-    ``device`` (the card by default — no GPU raises).  ``seed`` seeds the
-    particle spawn's ``torch.Generator`` on that device."""
+    ``device`` (the card by default — no GPU raises).  The particle spawn
+    draws from ``PRNGKey(seed)``, as the reference's does."""
 
     def __init__(self, height, settings: Optional[ErosionSettings] = None,
                  meta: Optional[TileSetMeta] = None, state_manager=None,
-                 tile_pos=(0, 0), seed: int = 0, device="cuda"):
+                 tile_pos=(0, 0), seed: int = 0, *, device="cuda"):
         self.settings = settings or ErosionSettings()
         res = int(height.shape[0])
         self.meta = meta or TileSetMeta(
@@ -170,8 +178,8 @@ class ErosionSim:
                 raise RuntimeError("ErosionSim(device='cuda'): no CUDA device")
             height = torch.from_numpy(np.array(height, np.float32)).to(device)
         self.original_height = height
-        generator = torch.Generator(device=height.device).manual_seed(seed)
-        self.state = init_state(self.original_height, generator)
+        self.state = init_state(self.original_height,
+                                PRNGKey(seed, device=height.device))
         self.cycle_count = 0
         #: host syncs of the last ``step``
         self.syncs: list = []
@@ -209,7 +217,7 @@ class ErosionSim:
             tuned=self.settings.tunable_values(), fresh=fresh, syncs=self.syncs)
         self.cycle_count += 1
 
-    def step(self, cycles: Optional[int] = None,
+    def step(self, cycles: Optional[int] = None, *,
              fresh: Optional[Sequence[Particles]] = None):
         """Run CYCLES erosion cycles.  ``fresh``: optional list with one
         ``Particles`` per cycle replacing that cycle's random spawn (the
@@ -223,7 +231,7 @@ class ErosionSim:
     # --- resets (LiveErosion.cs:267-294) ------------------------------------
 
     def reset_land(self):
-        self.state = init_state(self.original_height, self.state.generator)
+        self.state = init_state(self.original_height, self.state.key)
 
     def reset_water(self):
         w = self.state.world

@@ -1,11 +1,14 @@
-"""K1 — the iterated separable stencil chain (``csrc/stencil.cu``).
+"""K1 — the iterated separable stencil chain (``csrc/stencil.cu``), with
+its own X and Z taps and a per-pass factor.
 
 Port of the TPU kernels ``noize_tpu.ops.pallas.stencil.fused_separable_chain``
 (2-D halo blocks) and ``fused_separable_chain_rows`` (full-width row
 blocks) and of their entry ``gauss_chain``: ``iterations`` × (X pass,
 flipped Z pass) of an edge-clamped correlation, i.e.
-``kernels.separable_series`` iterated.  The blur stages and the flagship
-blur run here.  The two JAX entries have counterparts of the same names;
+``kernels.separable_series`` iterated.  The blur stages, the flagship
+blur, ``KernelFilterStage`` (every ``kernels.KERNEL_FILTER_TYPES`` entry,
+Sobel/Prewitt with distinct X and Z taps, Smooth3 with its factor 1/3) and
+the edge filters run here.  The two JAX entries have counterparts of the same names;
 their blocking arguments choose TPU layouts, not results, and are ignored.
 
 K1 keeps several iterations on chip: :func:`chain_plan` splits the chain
@@ -61,29 +64,43 @@ def chain_plan(k: int, iterations: int, tile=TILE, halo: int = HALO,
     return ChainPlan(launches, tuple(off * m for m in launches), tuple(tile), threads)
 
 
-def separable_chain_plain(x, taps, iterations: int):
-    """The plain PyTorch version: ``separable_series`` applied
-    ``iterations`` times."""
+def separable_chain_plain(x, taps, iterations: int, taps_z=None, factor=1.0):
+    """The plain PyTorch version: ``separable_series(x, taps, taps_z,
+    factor)`` applied ``iterations`` times (``taps_z=None``: ``taps`` on
+    both axes)."""
     taps = np.asarray(taps, np.float32)
+    taps_z = taps if taps_z is None else np.asarray(taps_z, np.float32)
     for _ in range(iterations):
-        x = _kernels.separable_series(x, taps, taps, 1.0)
+        x = _kernels.separable_series(x, taps, taps_z, factor)
     return x
 
 
-def separable_chain(x, taps, iterations: int):
-    """``iterations`` × (X pass, flipped Z pass) with the same odd-length
-    ``taps`` on both axes.  A CPU tensor takes the plain version; a CUDA
-    tensor launches K1 or raises."""
+def _taps_arg(taps, name):
     taps = np.ascontiguousarray(np.asarray(taps, np.float32))
-    if x.device.type == "cpu":
-        return separable_chain_plain(x, taps, iterations)
-    _cuda.check_map(x, "separable_chain", square=False)
     if taps.ndim != 1 or len(taps) % 2 == 0 or len(taps) > 25:
-        raise ValueError(f"separable_chain: taps must be 1-D, odd, ≤ 25 long; "
+        raise ValueError(f"separable_chain: {name} must be 1-D, odd, ≤ 25 long; "
                          f"got shape {taps.shape}")
+    return taps
+
+
+def separable_chain(x, taps, iterations: int, taps_z=None, factor=1.0):
+    """``iterations`` × (X pass with ``taps``, flipped Z pass with
+    ``taps_z``), each pass's sum multiplied by ``factor`` (float32), as
+    ``kernels.conv_x`` / ``conv_z`` do; ``taps_z=None`` takes ``taps`` on
+    both axes.  Both tap lists are odd and at most 25 long; the shorter is
+    centred in zeros for the kernel, which adds exact zeros on a finite
+    map.  ``factor`` 1.0 multiplies by one exactly.  A CPU tensor takes
+    the plain version; a CUDA tensor launches K1 or raises."""
+    if x.device.type == "cpu":
+        return separable_chain_plain(x, taps, iterations, taps_z, factor)
+    _cuda.check_map(x, "separable_chain", square=False)
+    tx = _taps_arg(taps, "taps")
+    tz = tx if taps_z is None else _taps_arg(taps_z, "taps_z")
     if iterations < 0:
         raise ValueError(f"separable_chain: iterations must be ≥ 0, got {iterations}")
-    plan = chain_plan(len(taps), int(iterations))
+    k = max(len(tx), len(tz))
+    tx, tz = (np.pad(t, (k - len(t)) // 2) for t in (tx, tz))
+    plan = chain_plan(k, int(iterations))
     out = torch.empty_like(x)
     tmp = torch.empty_like(x) if len(plan.launches) > 1 else None
     per_launch = np.asarray(plan.launches, np.int32)
@@ -91,9 +108,9 @@ def separable_chain(x, taps, iterations: int):
     with torch.cuda.device(x.device):
         _cuda.call("noize_separable_chain", x.data_ptr(), out.data_ptr(),
                    None if tmp is None else tmp.data_ptr(), rows, cols,
-                   taps.ctypes.data, len(taps), per_launch.ctypes.data,
-                   len(per_launch), plan.tile[0], plan.tile[1], plan.threads,
-                   _cuda.stream(x))
+                   tx.ctypes.data, tz.ctypes.data, k, float(np.float32(factor)),
+                   per_launch.ctypes.data, len(per_launch), plan.tile[0],
+                   plan.tile[1], plan.threads, _cuda.stream(x))
     separable_chain.launches += 1
     return out
 

@@ -8,8 +8,9 @@ Same formulas and the same float32 accumulation order as the reference
                    detune += detuneRate;  f *= (stepdown - detune);  a *= G
   * normalisation: t / sum_{i<octaves} G^i  with G = exp2(-hurst)
 
-Only the Simplex basis is ported; the scalar recurrences run on the host
-in float32, so the device sees the same constants on the CPU and the card.
+Every basis of ``NOISE_TYPES`` is ported (``ops/noise.py``); the scalar
+recurrences run on the host in float32, so the device sees the same
+constants on the CPU and the card.
 """
 
 from __future__ import annotations
@@ -33,6 +34,11 @@ NOISE_TYPES = (
     "DomainRotatedSimplex",
 )
 
+# Domain rotation constants (Fractal.cs:160-166): skew 2D -> 3D so the
+# "grain" of the 3D lattice does not align with the 2D plane.
+_ROT_S2 = -0.211324865405187
+_ROT_Y = -0.577350269189626
+
 
 def _rectify_half(v):
     """(1 + v) / 2 — maps [-1,1] noise to [0,1] (Fractal.cs:151-153)."""
@@ -40,14 +46,31 @@ def _rectify_half(v):
 
 
 def noise_value(kind: str, x, z):
-    """One rectified noise basis at world coords (x, z); only "Simplex" is
-    ported so far."""
+    """One rectified noise basis at world coords (x, z), as the
+    ``IMakeNoise`` getters (Fractal.cs:141-278); output in [0, 1]-ish."""
+    if kind == "Sin":
+        vx = 0.5 + 0.5 * torch.sin(x)
+        vz = 0.5 + 0.5 * torch.sin(z)
+        return vx * vz
+    if kind == "Perlin":
+        return _rectify_half(_n.cnoise2(x, z))
+    if kind == "PeriodicPerlin":
+        return _rectify_half(_n.psrnoise2(x, z, 1010.0, 102.0, 0.0))
     if kind == "Simplex":
         return _rectify_half(_n.snoise2(x, z))
-    if kind in NOISE_TYPES:
-        raise NotImplementedError(
-            f"noise basis {kind!r} is not ported to noize_tpu_torch yet "
-            "(only 'Simplex' is)")
+    if kind == "RotatedSimplex":
+        return _rectify_half(_n.psrnoise2(x, z, 1010.0, 102.0, 0.62))
+    if kind == "Cellular":
+        f1, f2 = _n.cellular2(x, z)
+        return _rectify_half(f1) * _rectify_half(f2)
+    if kind == "DomainRotatedPerlin":
+        xz = x + z
+        s2 = xz * _ROT_S2
+        return _rectify_half(_n.cnoise3(x + s2, z + s2, xz * _ROT_Y))
+    if kind == "DomainRotatedSimplex":
+        xz = x + z
+        s2 = xz * _ROT_S2
+        return _rectify_half(_n.snoise3(x + s2, z + s2, xz * _ROT_Y))
     raise ValueError(f"unknown noise type {kind!r}; expected one of {NOISE_TYPES}")
 
 
@@ -82,6 +105,9 @@ def fractal(
     """One fBm tile of shape ``(resolution, resolution)``, row-major
     ``[z, x]``, on ``device``; ``xpos``/``zpos`` offset the tile in the
     global noise domain."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("fractal(device='cuda'): no CUDA device")
     f32 = np.float32
     xpos = float(f32(xpos))
     zpos = float(f32(zpos))

@@ -1,15 +1,17 @@
-"""Heightmap → mesh emission; port of ``noize_tpu.ops.mesh``'s
-``heightmap_mesh`` and its overshoot emitters.
+"""Heightmap → mesh emission; port of ``noize_tpu.ops.mesh``: the
+square-grid and overshoot emitters in both layouts (``MeshArrays``,
+``MeshPlanes``), the flat water plane and its per-resolution cache.
 
 Formula quirks kept from the reference: vertex x == 0 gets position
 −(0.5·step) while x ≥ 1 gets x·step − 0.5; tangent = (−4·dx, 16, −4·dz, 0);
 NormalStrength = 8; the overshoot uv denominator is Res − 0.5.
 
 Index dtype: the reference emits uint16 indices for meshes up to 256²
-vertices and uint32 above (PositionStream16/32).  PyTorch's unsigned
-integer types support too few operations, so the port builds the index
-list on the device as int32 for every size; every index is below
-(R+1)² < 2³¹, so the values are the same.
+vertices and uint32 above (PositionStream16/32); ``index_dtype`` and
+``grid_indices`` keep that.  PyTorch's unsigned integer types support too
+few operations, so the port's meshes carry their index list as int32 for
+every size; every index is below (R+1)² < 2³¹, so the values are the
+same.
 """
 
 from __future__ import annotations
@@ -84,17 +86,24 @@ class MeshPlanes:
                           self.uvs, self.indices)
 
 
-def grid_indices(resolution: int, device="cuda") -> torch.Tensor:
+def index_dtype(resolution: int):
+    """PositionStream16 caveat: 16-bit indices only up to 256² meshes."""
+    return torch.uint16 if (resolution + 1) ** 2 <= 65536 else torch.uint32
+
+
+def grid_indices(resolution: int, dtype=None, *, device="cuda") -> torch.Tensor:
     """Triangle index list (SquareGridHeightMap.cs:96-103): per cell
-    (z≥1, x≥1) two triangles (vi−R−2, vi−1, vi−R−1), (vi−R−1, vi−1, vi);
-    int32 on ``device`` (see the module note on the reference's uint16/32)."""
+    (z≥1, x≥1) two triangles (vi−R−2, vi−1, vi−R−1), (vi−R−1, vi−1, vi),
+    on ``device``; ``dtype=None`` is ``index_dtype(resolution)``, as the
+    reference gives it (the port's meshes ask for int32)."""
     r = resolution
     ar = torch.arange(1, r + 1, dtype=torch.int32, device=device)
     z, x = torch.meshgrid(ar, ar, indexing="ij")
     vi = (r + 1) * z + x
     t0 = torch.stack([vi - r - 2, vi - 1, vi - r - 1], -1)
     t1 = torch.stack([vi - r - 1, vi - 1, vi], -1)
-    return torch.stack([t0, t1], -2).reshape(-1)
+    tris = torch.stack([t0, t1], -2).reshape(-1)
+    return tris.to(index_dtype(r) if dtype is None else dtype)
 
 
 def _normalized(nx, ny, nz):
@@ -167,7 +176,28 @@ def _assemble(r, t, l, rgt, u, d, tile_size, height, uv_denom, device):
     nv = (r + 1) * (r + 1)
     return MeshArrays(pos.reshape(nv, 3), n.reshape(nv, 3),
                       tan.reshape(nv, 4), uv.reshape(nv, 2),
-                      grid_indices(r, device))
+                      grid_indices(r, torch.int32, device=device))
+
+
+def _assemble_planes(r, t, l, rgt, u, d, tile_size, height, uv_denom, device):
+    vx_f, vz_f, step = _vertex_coords(r, tile_size, device)
+    planes = torch.stack(vertex_plane_list(t, l, rgt, u, d, vx_f, vz_f, step,
+                                           height, uv_denom), 0)
+    return MeshPlanes(planes, grid_indices(r, torch.int32, device=device))
+
+
+def _squaregrid_taps(heights, r: int, off: int):
+    """SquareGridHeightMap taps: centre crop with the reference's
+    ``InterpolateEdge`` on the last two columns and rows, verbatim."""
+    t, l_in, r_in, u_in, d_in = _tap_slices(heights, r, off)
+    ar = torch.arange(r + 1, device=heights.device)
+    xg = ar[None, :]
+    zg = ar[:, None]
+    l = torch.where(xg > 0, l_in, _interp_edge(t, r_in))
+    rgt = torch.where(xg < r - 1, r_in, _interp_edge(t, l_in))
+    u = torch.where(zg > 0, u_in, _interp_edge(d_in, t))
+    d = torch.where(zg < r - 1, d_in, _interp_edge(u_in, t))
+    return t, l, rgt, u, d
 
 
 def heightmap_mesh(heights, resolution: int, input_resolution: int, height,
@@ -178,16 +208,20 @@ def heightmap_mesh(heights, resolution: int, input_resolution: int, height,
     returns ``MeshArrays`` of (resolution+1)² vertices."""
     r = resolution
     off = (input_resolution - r) // 2  # PixOffset (SquareGridHeightMap.cs:33)
-    t, l_in, r_in, u_in, d_in = _tap_slices(heights, r, off)
-    ar = torch.arange(r + 1, device=heights.device)
-    xg = ar[None, :]
-    zg = ar[:, None]
-    l = torch.where(xg > 0, l_in, _interp_edge(t, r_in))
-    rgt = torch.where(xg < r - 1, r_in, _interp_edge(t, l_in))
-    u = torch.where(zg > 0, u_in, _interp_edge(d_in, t))
-    d = torch.where(zg < r - 1, d_in, _interp_edge(u_in, t))
+    t, l, rgt, u, d = _squaregrid_taps(heights, r, off)
     return _assemble(r, t, l, rgt, u, d, tile_size, height, float(r + 1),
                      heights.device)
+
+
+def heightmap_mesh_planes(heights, resolution: int, input_resolution: int, height,
+                          tile_size) -> MeshPlanes:
+    """``heightmap_mesh`` in the component-major ``MeshPlanes`` layout
+    (same math)."""
+    r = resolution
+    off = (input_resolution - r) // 2
+    t, l, rgt, u, d = _squaregrid_taps(heights, r, off)
+    return _assemble_planes(r, t, l, rgt, u, d, tile_size, height, float(r + 1),
+                            heights.device)
 
 
 def heightmap_mesh_overshoot(heights, resolution: int, input_resolution: int,
@@ -210,7 +244,39 @@ def heightmap_mesh_overshoot_planes(heights, resolution: int,
     r = resolution
     off = (input_resolution - r) // 2
     t, l, rgt, u, d = _tap_slices(heights, r, off)
-    vx_f, vz_f, step = _vertex_coords(r, tile_size, heights.device)
-    planes = torch.stack(vertex_plane_list(t, l, rgt, u, d, vx_f, vz_f, step,
-                                           height, float(r) - 0.5), 0)
-    return MeshPlanes(planes, grid_indices(r, heights.device))
+    return _assemble_planes(r, t, l, rgt, u, d, tile_size, height, float(r) - 0.5,
+                            heights.device)
+
+
+def flat_water_mesh(resolution: int, *, device="cuda") -> MeshArrays:
+    """The unit water plane (SharedSquareGridPosition) of
+    (resolution+1)² vertices on ``device``: x = i/R − 0.5 with the x = 0
+    column at −0.5, y = 0, normal (0, 0, −1), tangent (1, 0, 0, −1),
+    uv = i/(R+1)."""
+    r = resolution
+    ramp = torch.arange(r + 1, dtype=torch.float32, device=device)
+    xs = ramp / r - 0.5
+    xs[0] = -0.5
+    zs = ramp / r - 0.5
+    nv = (r + 1) * (r + 1)
+    pos = torch.stack([xs[None, :].expand(r + 1, r + 1),
+                       torch.zeros((r + 1, r + 1), dtype=torch.float32, device=device),
+                       zs[:, None].expand(r + 1, r + 1)], -1).reshape(nv, 3)
+    n = torch.tensor([[0.0, 0.0, -1.0]], device=device).expand(nv, 3).contiguous()
+    tan = torch.tensor([[1.0, 0.0, 0.0, -1.0]], device=device).expand(nv, 4).contiguous()
+    iu = ramp / (r + 1)
+    uv = torch.stack([iu[None, :].expand(r + 1, r + 1),
+                      iu[:, None].expand(r + 1, r + 1)], -1).reshape(nv, 2)
+    return MeshArrays(pos, n, tan, uv, grid_indices(r, torch.int32, device=device))
+
+
+_WATER_MESH_CACHE = {}
+
+
+def square_planar_mesh(resolution: int, *, device="cuda") -> MeshArrays:
+    """MeshHelper.SquarePlanarMesh's per-resolution cache (Helper.cs:63-69),
+    one per device."""
+    key = (resolution, torch.device(device))
+    if key not in _WATER_MESH_CACHE:
+        _WATER_MESH_CACHE[key] = flat_water_mesh(resolution, device=device)
+    return _WATER_MESH_CACHE[key]

@@ -36,7 +36,7 @@ class Pipeline:
     ``on_complete`` never fires.
     """
 
-    def __init__(self, stages: Sequence[Stage], state_manager=None, name: str = "",
+    def __init__(self, stages: Sequence[Stage], state_manager=None, name: str = "", *,
                  device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():

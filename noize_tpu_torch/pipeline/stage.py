@@ -9,12 +9,14 @@ A stage is a frozen dataclass of user-tunable parameters plus ``apply``:
   OnStageComplete              → on_complete(work)
 
 The work item carries the pipeline's device: stages that create tensors
-(``NoiseStage``) put them there.
+(``NoiseStage``) put them there.  Stages whose body is pure array math
+also expose ``array_fn(data, io=None) -> data``, so ``compose.fuse`` can
+chain them into one callable.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
 import torch
@@ -35,11 +37,15 @@ class PipelineWorkItem:
     state_manager: Any = None
     on_scheduled: Optional[Callable] = None
     on_complete: Optional[Callable] = None
-    device: torch.device = torch.device("cuda")
+    device: torch.device = field(default=torch.device("cuda"), kw_only=True)
 
 
 @dataclass(frozen=True)
 class Stage:
+    #: the stage makes its payload's data instead of transforming it, so its
+    #: ``array_fn`` takes the ``device`` to make it on (``NoiseStage``)
+    makes_data = False
+
     def check_requirements(self, work: PipelineWorkItem, payload_type):
         if not isinstance(work.data, payload_type):
             raise RequirementError(
@@ -54,3 +60,12 @@ class Stage:
 
     def on_complete(self, work: PipelineWorkItem):
         return None
+
+    # --- fusion -------------------------------------------------------------
+
+    @property
+    def fusable(self) -> bool:
+        """True when the stage is pure array→array on the payload's
+        ``data`` (it has ``array_fn(data, io)``) and can join a
+        ``compose.fuse`` chain."""
+        return hasattr(self, "array_fn")

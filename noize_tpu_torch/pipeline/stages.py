@@ -1,23 +1,27 @@
 """Concrete pipeline stages — port of ``noize_tpu.pipeline.stages``: same
 classes, parameter names and ranges.
 
-On the card the blur stages run kernel K1 (the whole iterated chain in one
-call), ``FlowMapStage`` runs K2 and ``StageThermalErosion`` runs K3, at any
-size; the reference runs its TPU kernels only on the TPU and falls back to
-XLA elsewhere.  On the CPU each wrapper runs its plain version.
+On the card the blur stages and ``KernelFilterStage`` run kernel K1 (the
+whole iterated chain in one call; Sobel3_2D two calls an iteration),
+``FlowMapStage`` runs K2 and ``StageThermalErosion`` runs K3, at any size;
+the reference runs its TPU kernels only on the TPU and falls back to XLA
+elsewhere.  On the CPU each wrapper runs its plain version.
 
-``KernelFilterStage``, ``ConstantStage``, ``CurveStage``, ``ReduceStage``
-and ``CropStage`` are not ported yet.
+The array stages expose ``array_fn(data, io=None)`` (``NoiseStage``:
+``array_fn(data, io, *, device)``), which ``compose.fuse`` chains.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 
-from ..core.stageio import GeneratorData, MeshStageData
+from ..core.stageio import DownsampleData, GeneratorData, MeshStageData, ReduceData
+from ..ops import filters as _filters
 from ..ops import fractal as _fractal
+from ..ops import kernels as _kernels
 from ..ops import mesh as _mesh
 from ..ops.blur import limit_width, smooth_taps
 from ..ops.cuda.flow import flow_map_fused
@@ -32,7 +36,7 @@ class _ArrayStage(Stage):
 
     def apply(self, work: PipelineWorkItem) -> PipelineWorkItem:
         self.check_requirements(work, GeneratorData)
-        work.data = work.data.with_(data=self.array_fn(work.data.data))
+        work.data = work.data.with_(data=self.array_fn(work.data.data, work.data))
         return work
 
 
@@ -53,26 +57,47 @@ class NoiseStage(Stage):
     detuneRate: float = 0.0            # [-.05, .05]
     noiseSize: int = 1000              # [5, 32000]
 
+    makes_data = True
+
     def __post_init__(self):
         if self.noiseType not in _fractal.NOISE_TYPES:
             raise ValueError(
                 f"unknown noiseType {self.noiseType!r}; expected one of "
                 f"{_fractal.NOISE_TYPES}")
 
+    def array_fn(self, data, io: GeneratorData, *, device="cuda"):
+        """The tile at ``io.resolution``, ``io.xpos``, ``io.zpos``; the
+        incoming ``data`` is ignored but for its device (``device`` when
+        ``data`` is None)."""
+        if isinstance(data, torch.Tensor):
+            device = data.device
+        return _fractal.fractal(
+            io.resolution, io.xpos, io.zpos, noise_type=self.noiseType,
+            hurst=self.hurst, octaves=self.octaves, stepdown=self.stepdown,
+            detune_rate=self.detuneRate, noise_size=float(self.noiseSize),
+            starting_amplitude=self.startingAmplitude, device=device)
+
     def apply(self, work: PipelineWorkItem) -> PipelineWorkItem:
         self.check_requirements(work, GeneratorData)
         d = work.data
-        work.data = d.with_(data=_fractal.fractal(
-            d.resolution, d.xpos, d.zpos, noise_type=self.noiseType,
-            hurst=self.hurst, octaves=self.octaves, stepdown=self.stepdown,
-            detune_rate=self.detuneRate, noise_size=float(self.noiseSize),
-            starting_amplitude=self.startingAmplitude, device=work.device))
+        work.data = d.with_(data=self.array_fn(d.data, d, device=work.device))
         return work
 
 
 # ---------------------------------------------------------------------------
 # filters
 # ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class KernelFilterStage(_ArrayStage):
+    """Filter/KernelFilterStage.cs:13-51; on K1."""
+
+    filter: str = "Smooth3"            # KernelFilterType member
+    iterations: int = 1                # [1, 32]
+
+    def array_fn(self, data, io=None):
+        return _kernels.kernel_filter(data, self.filter, self.iterations)
+
 
 @dataclass(frozen=True)
 class StageGaussianBlur(_ArrayStage):
@@ -83,7 +108,7 @@ class StageGaussianBlur(_ArrayStage):
     width: int = 3                     # [3, 25]
     iterations: int = 1                # [1, 32]
 
-    def array_fn(self, data):
+    def array_fn(self, data, io=None):
         return gauss_chain(data, self.width, self.sigma, self.iterations)
 
 
@@ -103,7 +128,7 @@ class StageSmoothBlur(_ArrayStage):
     width: int = 3
     iterations: int = 1
 
-    def array_fn(self, data):
+    def array_fn(self, data, io=None):
         return separable_chain(data, smooth_taps(limit_width(self.width)),
                                self.iterations)
 
@@ -117,10 +142,78 @@ class StageThermalErosion(_ArrayStage):
     increment: float = 0.5
     meshHeightWidthRatio: float = 0.75
 
-    def array_fn(self, data):
+    def array_fn(self, data, io=None):
         return thermal_erosion_fused(data, float(self.talus), self.increment,
                                      self.meshHeightWidthRatio,
                                      iterations=self.iterations)
+
+
+@dataclass(frozen=True)
+class ConstantStage(_ArrayStage):
+    """Filter/ConstantStage.cs:13-57."""
+
+    operation: str = "MULTIPLY"        # MULTIPLY | BINARIZE
+    value: float = 0.5                 # [0, 1]
+
+    def array_fn(self, data, io=None):
+        return _filters.CONSTANT_OPS[self.operation](data, self.value)
+
+
+@dataclass(frozen=True)
+class CurveStage(_ArrayStage):
+    """Filter/Curve/CurveStage.cs:13-71 — ``curve`` is the discretised LUT
+    (the AnimationCurve sampled at ``samples`` points)."""
+
+    curve: Tuple[float, ...] = ()
+    samples: int = 256
+
+    @classmethod
+    def from_function(cls, fn, samples: int = 256):
+        return cls(curve=tuple(float(fn(i / samples)) for i in range(samples)),
+                   samples=samples)
+
+    @classmethod
+    def from_keyframes(cls, keys, samples: int = 256):
+        """Discretise Unity AnimationCurve keyframes with the exact
+        Hermite/Bezier evaluator (CurveStage.cs ExtractCurve parity)."""
+        from ..utils.anim_curve import sample_lut
+
+        return cls(curve=sample_lut(keys, samples), samples=samples)
+
+    def array_fn(self, data, io=None):
+        lut = torch.tensor(self.curve, dtype=torch.float32, device=data.device)
+        return _filters.curve_apply(data, lut)
+
+
+@dataclass(frozen=True)
+class ReduceStage(Stage):
+    """Filter/Reduce/ReduceStage.cs:21-70 — consumes ReduceData, emits
+    GeneratorData (TransformData parity)."""
+
+    operation: str = "SUBTRACT"
+
+    def apply(self, work: PipelineWorkItem) -> PipelineWorkItem:
+        self.check_requirements(work, ReduceData)
+        d = work.data
+        out = _filters.REDUCTION_OPS[self.operation](d.data, d.right_data)
+        work.data = GeneratorData(uuid=d.uuid, resolution=d.resolution, data=out,
+                                  xpos=d.xpos, zpos=d.zpos)
+        return work
+
+
+@dataclass(frozen=True)
+class CropStage(Stage):
+    """Filter/Sample/CropStage.cs:12-19 — consumes DownsampleData, crops
+    ``inputData`` to resolution² (the reference's offset quirk: it starts
+    at (0, 0))."""
+
+    offset: int = 0
+
+    def apply(self, work: PipelineWorkItem) -> PipelineWorkItem:
+        self.check_requirements(work, DownsampleData)
+        d = work.data
+        work.data = d.with_(data=_filters.crop(d.inputData, d.resolution, self.offset))
+        return work
 
 
 @dataclass(frozen=True)
@@ -132,7 +225,7 @@ class FlowMapStage(_ArrayStage):
     normMin: float = -0.1
     normMax: float = 0.1
 
-    def array_fn(self, data):
+    def array_fn(self, data, io=None):
         return flow_map_fused(data, iterations=self.iterations,
                               norm_min=self.normMin, norm_max=self.normMax)
 

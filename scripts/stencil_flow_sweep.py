@@ -301,7 +301,8 @@ def main():
             out, tmp = torch.empty_like(noise), torch.empty_like(noise)
             per_launch = np.asarray(plan.launches, np.int32)
             rc = fn(noise.data_ptr(), out.data_ptr(), tmp.data_ptr(), res, res,
-                    taps.ctypes.data, len(taps), per_launch.ctypes.data, len(per_launch),
+                    taps.ctypes.data, taps.ctypes.data, len(taps), 1.0,
+                    per_launch.ctypes.data, len(per_launch),
                     plan.tile[0], plan.tile[1], plan.threads, stream)
             if rc:
                 raise RuntimeError(f"noize_separable_chain: CUDA error {rc}")

@@ -12,8 +12,9 @@ Tolerances:
     PyTorch's by an ulp (ROADMAP.md §3).
   * sediment dispersal and the world update: bit-exact against JAX
     evaluated one primitive at a time (``jax.disable_jit()``).
-The reference's random spawn cannot be reproduced with torch generators,
-so the tests build it with ``jax.random`` and pass it in as ``fresh``.
+The port's spawn draws the reference's ``jax.random`` bits
+(``noize_tpu_torch.prng``); the cycle tests still pass the JAX spawn in as
+``fresh`` to hold the rest of the cycle apart from the PRNG.
 """
 
 import dataclasses
@@ -36,6 +37,7 @@ from noize_tpu_torch.erosion import particles as TPa
 from noize_tpu_torch.erosion import sediment as TSe
 from noize_tpu_torch.erosion import sim as TS
 from noize_tpu_torch.erosion import world as TW
+from noize_tpu_torch.prng import PRNGKey
 
 RES = 64
 
@@ -82,12 +84,12 @@ def test_neighbor_offsets_and_constants():
 
 
 def test_spawn_shapes_and_ranges():
-    g = torch.Generator().manual_seed(0)
-    p = TPa.spawn(g, 500, 32)
+    p = TPa.spawn(PRNGKey(0, device="cpu"), 500, 32)
     want = _jax_particles(jax.random.PRNGKey(0), 500, 32)
     for k in TPa.Particles._fields:
         a, b = getattr(p, k), np.asarray(getattr(want, k))
         assert a.shape == b.shape and str(a.dtype).endswith(str(b.dtype)), k
+        np.testing.assert_array_equal(a.numpy(), b, err_msg=k)  # same threefry bits
     assert 0 <= float(p.row.min()) and float(p.row.max()) <= 31
     assert bool((p.heading == -1).all()) and bool(p.alive.all())
 
@@ -190,10 +192,15 @@ def test_spawn_with_drains_top_k_ties_to_lower_index():
         lambda k, d: JS._spawn_with_drains(k, n, res, d))(key, jnp.asarray(drain))
     k1, _ = jax.random.split(key)
     fresh = _to_port(JPa.spawn(k1, n, res))
-    tparts, tleft = TS._spawn_with_drains(None, n, res, torch.from_numpy(drain), fresh=fresh)
-    for k in TPa.Particles._fields:
-        np.testing.assert_array_equal(getattr(tparts, k).numpy(), np.asarray(getattr(jparts, k)))
-    np.testing.assert_array_equal(tleft.numpy(), np.asarray(jleft))
+    tkey = convert.key_from_jax(np.asarray(key), device="cpu")
+    for hook in (fresh, None):  # the test hook and the port's own spawn
+        tparts, tleft, tk2 = TS._spawn_with_drains(tkey, n, res, torch.from_numpy(drain),
+                                                   fresh=hook)
+        for k in TPa.Particles._fields:
+            np.testing.assert_array_equal(getattr(tparts, k).numpy(),
+                                          np.asarray(getattr(jparts, k)))
+        np.testing.assert_array_equal(tleft.numpy(), np.asarray(jleft))
+        np.testing.assert_array_equal(tk2.numpy(), np.asarray(jax.random.split(key)[1]))
 
 
 def _cycle_inputs(res, seed):

@@ -2,9 +2,10 @@
 ``__graft_entry__.entry()`` configuration (256² generator, 8 octaves,
 blur ×5, flow ×4, one erosion cycle of 256 particles, mesh on).
 
-The reference's particle spawn comes from ``jax.random``; the test builds
-it the way ``sim._spawn_with_drains`` does (split the step key, spawn from
-the first half) and hands it to the port through ``fresh``.
+The port's spawn draws ``jax.random``'s threefry bits from the same key
+(``noize_tpu_torch.prng``), so the step runs from the seed alone; the
+``fresh`` test hook (the JAX spawn handed in, as ``sim._spawn_with_drains``
+builds it) is held to the same result.
 
 Tolerance: 1e-4 relative to each map's scale (BASELINE.md's bar) for
 height, pool, stream, flow velocity and the mesh positions, tangents and
@@ -32,6 +33,7 @@ from noize_tpu.erosion.particles import spawn as jax_spawn
 from noize_tpu.ops import mesh as JM
 from noize_tpu_torch import convert
 from noize_tpu_torch.app import flagship as TF
+from noize_tpu_torch.prng import PRNGKey
 
 
 def entry_config():
@@ -56,7 +58,7 @@ def outputs():
     tstep, tmeta, tsettings = TF.make_tile_step(
         convert.meta_from_jax(dataclasses.asdict(meta)),
         convert.settings_from_jax(dataclasses.asdict(settings)), device="cpu", **kw)
-    got = tstep(0.0, 0.0, fresh=fresh)
+    got = tstep(0.0, 0.0, PRNGKey(0, device="cpu"), fresh=fresh)
     return meta, want, got, tstep
 
 
@@ -73,6 +75,14 @@ def _close(got, want, rtol=1e-4):
 def test_maps_match_reference(outputs, key):
     _, want, got, _ = outputs
     _close(got[key].numpy(), want[key])
+
+
+def test_seeded_step_matches_reference_without_fresh(outputs):
+    meta, want, fresh_got, tstep = outputs
+    got = tstep(0.0, 0.0, PRNGKey(0, device="cpu"))
+    for k in ("height", "pool", "stream", "flow_velocity"):
+        _close(got[k].numpy(), want[k])
+        np.testing.assert_array_equal(got[k].numpy(), fresh_got[k].numpy())
 
 
 def test_erosion_really_ran(outputs):
@@ -106,7 +116,7 @@ def test_step_keys_and_planes_layout():
                                    device="cpu", octaves=3, blur_iterations=2,
                                    flow_iterations=2, erosion_cycles=2,
                                    mesh_layout="planes")
-    out = step(5.0, 7.0, generator=torch.Generator().manual_seed(1))
+    out = step(5.0, 7.0, PRNGKey(1, device="cpu"))
     assert set(out) == {"height", "flow_velocity", "pool", "stream", "mesh"}
     assert out["mesh"].planes.shape == (12, 25, 25)
     assert all(bool(torch.isfinite(out[k]).all()) for k in ("height", "pool", "stream"))

@@ -27,6 +27,16 @@ def test_every_module_is_listed():
     assert len(mods) >= 20
 
 
+def test_slice_modules_are_listed():
+    """The BasicDemo preset slice and the PRNG are among the modules
+    imported below."""
+    mods = set(_modules())
+    for m in ("prng", "ops.noise", "ops.kernels", "ops.edge", "ops.filters", "ops.mesh",
+              "utils.anim_curve", "pipeline.stage", "pipeline.stages", "pipeline.compose",
+              "app.presets"):
+        assert f"noize_tpu_torch.{m}" in mods, m
+
+
 def test_port_imports_no_jax():
     code = (
         "import importlib, sys\n"

@@ -19,6 +19,7 @@ from noize_tpu_torch.erosion import pool as PO
 from noize_tpu_torch.erosion import pool_cuda as PC
 from noize_tpu_torch.erosion.pool_cuda import pool_automata_cuda, pool_automata_full_cuda
 from noize_tpu_torch.ops import flow as FL
+from noize_tpu_torch.ops import kernels as KE
 from noize_tpu_torch.ops import thermal as TH
 from noize_tpu_torch.ops.blur import smooth_taps
 from noize_tpu_torch.ops.cuda import flow as FC
@@ -419,3 +420,83 @@ def test_k3_small_maps_across_launches_match_plain(cuda, res):
 @pytest.mark.parametrize("talus", [1.0, 45.0, 89.0])
 def test_k3_talus_matches_plain(cuda, talus):
     _check_thermal(cuda, 257, 2, talus=talus, seed=int(talus))
+
+
+# --- K1 with distinct X / Z taps and a factor: the kernel filters ----------
+
+FILTER_TAPS = {
+    "Smooth3": (KE._SMOOTH3, KE._SMOOTH3, KE._SMOOTH3_FACTOR),
+    "Sobel3Horizontal": (KE._SOBEL3_HX, KE._SOBEL3_HZ, 1.0),
+    "Sobel3Vertical": (KE._SOBEL3_VX, KE._SOBEL3_VZ, 1.0),
+    "Prewitt3Horizontal": (KE._PREWITT3_HX, KE._PREWITT3_HZ, 1.0),
+    "Prewitt3Vertical": (KE._PREWITT3_VX, KE._PREWITT3_VZ, 1.0),
+}
+
+
+def _check_filter_chain(cuda, x, tx, tz, factor, iters):
+    x = torch.from_numpy(x).to(cuda)
+    before = separable_chain.launches
+    got = separable_chain(x, tx, iters, taps_z=tz, factor=factor)
+    want = separable_chain_plain(x, tx, iters, taps_z=tz, factor=factor)
+    torch.cuda.synchronize()
+    _equal(got, want)
+    assert separable_chain.launches == before + 1
+
+
+@pytest.mark.parametrize("name", sorted(FILTER_TAPS))
+@pytest.mark.parametrize("iters", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(64, 64), (300, 257), (2049, 2049)])
+def test_k1_filter_taps_match_plain(cuda, name, iters, shape):
+    """A swapped or unflipped tap list passes for Gauss taps and fails
+    here: Sobel/Prewitt are asymmetric, and the Z pass flips its taps."""
+    tx, tz, factor = FILTER_TAPS[name]
+    _check_filter_chain(cuda, _map(shape, iters), tx, tz, factor, iters)
+
+
+@pytest.mark.parametrize("tx,tz,factor,iters", [
+    (gaussian_taps(1.0, 5), KE._SOBEL3_HZ, 0.5, 7),
+    (KE._PREWITT3_VX, gaussian_taps(2.0, 9), 1.0, 4),
+    (smooth_taps(25), KE._SOBEL3_VZ, 2.0, 2),
+])
+def test_k1_unequal_tap_lengths_match_plain(cuda, tx, tz, factor, iters):
+    _check_filter_chain(cuda, _map((1000, 1000), iters), tx, tz, factor, iters)
+
+
+@pytest.mark.parametrize("filter_type", KE.KERNEL_FILTER_TYPES)
+def test_kernel_filter_on_k1_matches_cpu(cuda, filter_type):
+    """``kernel_filter`` on the card (K1, Sobel3_2D two calls an iteration)
+    against the port on the CPU, bit for bit."""
+    a = _map((256, 256), 5)
+    before = separable_chain.launches
+    got = KE.kernel_filter(torch.from_numpy(a).to(cuda), filter_type, 2)
+    want = KE.kernel_filter(torch.from_numpy(a), filter_type, 2)
+    torch.cuda.synchronize()
+    _equal(got, want)
+    assert separable_chain.launches == before + (4 if filter_type == "Sobel3_2D" else 1)
+
+
+def test_threefry_on_card_matches_cpu(cuda):
+    from noize_tpu_torch import prng
+
+    for seed in (0, 42):
+        kc, kh = prng.PRNGKey(seed, device=cuda), prng.PRNGKey(seed, device="cpu")
+        _equal(prng.split(kc, 3), prng.split(kh, 3))
+        _equal(prng.fold_in(kc, 9), prng.fold_in(kh, 9))
+        _equal(prng.randint(kc, (100_003,), -7, 2049), prng.randint(kh, (100_003,), -7, 2049))
+
+
+@pytest.mark.parametrize("name", ["PerlinGenerator", "FlowMap", "Sobel"])
+def test_preset_fuse_equals_run_on_card(cuda, name):
+    from noize_tpu_torch.app import presets
+    from noize_tpu_torch.core.stageio import GeneratorData
+    from noize_tpu_torch.pipeline.compose import fuse
+    from noize_tpu_torch.pipeline.driver import Pipeline
+
+    stages = presets.ALL[name].stages
+    data = None if name != "Sobel" else torch.from_numpy(_map((256, 256), 3)).to(cuda)
+    run = Pipeline(list(stages)).run(
+        GeneratorData(uuid=name, resolution=256, xpos=64, zpos=0, data=data)).data
+    fused = fuse(stages, 256)(data, 64, 0)
+    torch.cuda.synchronize()
+    assert fused.device.type == "cuda"
+    _equal(fused, run)

@@ -30,11 +30,14 @@ def _heights(seed, n):
 
 @pytest.mark.parametrize("r", [3, 16, 255, 256])
 def test_grid_indices_values_and_int32(r):
-    got = TM.grid_indices(r, device="cpu")
+    got = TM.grid_indices(r, torch.int32, device="cpu")  # what the port's meshes carry
     want = JM.grid_indices(r)
     assert got.dtype == torch.int32
     assert want.dtype == (np.uint16 if (r + 1) ** 2 <= 65536 else np.uint32)
     np.testing.assert_array_equal(got.numpy().astype(np.int64), want.astype(np.int64))
+    default = TM.grid_indices(r, device="cpu")  # the reference's dtype
+    assert default.numpy().dtype == want.dtype
+    np.testing.assert_array_equal(default.numpy(), want)
 
 
 @pytest.mark.parametrize("res,inres,height,size", [(24, 32, 1000.0, 24.0),

@@ -1,10 +1,12 @@
 """The port's ``ErosionSim`` (``noize_tpu_torch.erosion.sim``) against
 ``noize_tpu.erosion.sim.ErosionSim`` at 64², on the CPU.
 
-The reference's spawn comes from ``jax.random``: the test replays its
-chain (``PRNGKey(seed)``, split per cycle, spawn from the first half, as
-``sim._spawn_with_drains`` does) into ``Particles`` and hands them to the
-port's ``step(fresh=...)``.
+The port's spawn draws ``jax.random``'s threefry bits
+(``noize_tpu_torch.prng``), so ``ErosionSim(seed=s).step()`` runs from the
+seed alone.  Most tests also replay the reference's chain (``PRNGKey(seed)``,
+split per cycle, spawn from the first half, as ``sim._spawn_with_drains``
+does) into ``Particles`` and hand them to the port's ``step(fresh=...)``
+test hook.
 
 Tolerance: 1e-4 relative to each map's scale (BASELINE.md's bar), as
 tests/test_torch_erosion.py holds ``erosion_cycle``: the reference runs
@@ -101,6 +103,16 @@ def test_step_matches_reference(sims):
     assert np.count_nonzero(tsim.stream_map.numpy()) > 50
     # 15 host syncs per cycle at most (PERF.md): drains, descent chunks, piles
     assert 0 < len(tsim.syncs) <= 15 * SETTINGS.CYCLES
+
+
+def test_seeded_step_matches_reference_without_fresh(sims):
+    h, jsim, tsim = sims
+    seeded = TS.ErosionSim(h, settings=_port_settings(SETTINGS), seed=3, device="cpu")
+    seeded.step()
+    _assert_sims_close(seeded, jsim)
+    np.testing.assert_array_equal(seeded.state.key.numpy(), np.asarray(jsim.state.key))
+    for m in MAPS:
+        np.testing.assert_array_equal(getattr(seeded, m).numpy(), getattr(tsim, m).numpy())
 
 
 def test_live_retuning_matches_reference():
