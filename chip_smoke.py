@@ -34,22 +34,39 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    Z taps, Smooth3's factor) and ``kernel_filter``'s Sobel3_2D at 2048²
    against the plain version (tolerance 0), with CUDA-event times, the
    bound and the same chain as ``conv2d`` calls with replicate padding;
-11. presets (the slice's main path): the BasicDemo presets PerlinGenerator
-   (K1), FlowMap (K2) and Sobel (K1) at 2048² through ``Pipeline.run`` and
-   ``compose.fuse`` (equal), and the Mesh preset on the PerlinGenerator
-   output at the Quickstart's mesh size; every preset at 256² on the card
-   within 1e-4 of the port on the CPU;
-12. profile: one more Quickstart ``ErosionSim.step()`` under
+11. presets: the BasicDemo presets PerlinGenerator (K1), FlowMap (K2) and
+   Sobel (K1) at 2048² through ``Pipeline.run`` and ``compose.fuse``
+   (equal), and the Mesh preset on the PerlinGenerator output at the
+   Quickstart's mesh size; every preset at 256² on the card within 1e-4 of
+   the port on the CPU;
+12. tiles (this slice's main path): ``bench.py``'s config 5 (16 tiles of
+   1024², 13 octaves, Gauss-5 ×17, one erosion cycle of 250 particles) as
+   one ``tile_batch``, then with mesh planes, then the same grid's flow map
+   (×8, no erosion); every tile equals ``generate_tile`` of it alone; then
+   K1 and K2 on the [16, 1024, 1024] stack against their plain versions and
+   the 2-D kernel on each tile (tolerance 0), with the times of both and of
+   16 2-D calls;
+13. serve: ``TileServer(config 5, batch_size=4)`` serving the 16 tiles in a
+   cold wave and a warm wave, each tile equal to ``tile_batch``'s;
+14. CLI: ``demo --resolution 2048`` and ``erode --resolution 2048 --cycles
+   3 --mesh --heightmap16`` into a temporary directory;
+15. generator: ``DemoTileGenerator(...).start(1, 1)`` with 1024² tiles,
+   ``step_erosion(1)``, ``StreamDrawer.export``, ``save_erosion_state``,
+   ``TileDrawer.draw`` from a fresh store, ``MeshBakery`` of the 4 meshes;
+16. continuous sim: ``ErosionSim`` at 2048² driven by ``update()`` until
+   "completed";
+17. profile: one more Quickstart ``ErosionSim.step()`` under
    ``torch.profiler`` (device busy time, idle share), after every timed
    phase;
-13. pool trace: one wet K4 call and one wet K5 call at 2048² under
+18. pool trace: one wet K4 call and one wet K5 call at 2048² under
    ``torch.profiler``; each must run ``1 + WATER_STEPS`` device kernels
    (the init kernel and one fused launch per water step);
-14. plan trace: one K1 call (Gauss-5 ×17), one K2 call (flow ×8) and one
-   K3 call (the sim's thermal, one iteration) at 2048², and one K3 call at
-   1025², under ``torch.profiler``; each must run the device kernels its
-   plan gives (one a launch), and prints its device time beside its
-   CUDA-event time and its host enqueue time.
+19. plan trace: one K1 call (Gauss-5 ×17), one K2 call (flow ×8) and one
+   K3 call (the sim's thermal, one iteration) at 2048², one K3 call at
+   1025², and K1 and K2 on the config-5 stack, under ``torch.profiler``;
+   each must run the device kernels its plan gives (one a launch, whatever
+   the stack's depth), and prints its device time beside its CUDA-event
+   time and its host enqueue time.
 
 Each path phase resets every launch count just before it runs and fails
 if a kernel of its path was not launched.  Prints the per-kernel JSON
@@ -209,16 +226,17 @@ def _conv_chain(taps, iterations, taps_z=None, factor=1.0):
 
     def run(x):
         with torch.no_grad():
-            y = x[None, None]
+            y = x[:, None] if x.dim() == 3 else x[None, None]  # a stack is the batch
             for _ in range(iterations):
                 y = cz(cx(y))
-            return y[0, 0]
+            return y[:, 0] if x.dim() == 3 else y[0, 0]
     return run
 
 
 class Rows:
-    """The kernels JSON line: one row per TPU kernel, and K5 at 2049² and
-    K5 and K3 at 1025² (odd sizes), filled as the phases run."""
+    """The kernels JSON line: one row per TPU kernel, K5 at 2049², K5 and
+    K3 at 1025² (odd sizes), K1 with each filter's taps, and K1 and K2 on
+    the config-5 stack, filled as the phases run."""
 
     def __init__(self):
         self.rows = {}
@@ -258,7 +276,7 @@ class Rows:
 
     def line(self):
         order = ["#1", "#2", "#3", "#4", "#5", "#6", "#7", "#8", "#9", "#10", "K5", "K5@1025",
-                 "K3@1025"] + [f"K1:{f}" for f in FILTERS]
+                 "K3@1025"] + [f"K1:{f}" for f in FILTERS] + ["K1@stack", "K2@stack"]
         _check(set(self.rows) == set(order), f"rows {sorted(self.rows)}")
         for k in order:
             _check(self.launches.get(k, 0) > 0, f"{k} was launched on no path")
@@ -647,6 +665,281 @@ def presets_phase(rows):
           + ", ".join(f"{k} {v!r}" for k, v in gaps.items()))
 
 
+def _timed(fn):
+    """(fn(), host ms to the card's end of it)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def config5(**kw):
+    """``bench.py``'s config 5 (bench.py:304-347): a 4 x 4 grid of 1024²
+    tiles (992² meshed, 16-cell margin), 13 octaves, Gauss-5 ×17, one
+    erosion cycle of 250 particles of age ≤ 32; ``kw`` overrides fields.
+    Returns (config, origins)."""
+    from noize_tpu_torch.core.tiles import TileSetMeta
+    from noize_tpu_torch.erosion.params import ErosionSettings
+    from noize_tpu_torch.parallel import tiled as TL
+
+    meta = TileSetMeta(tile_res=992, tile_size=992, generator_res=1024, height=1000,
+                       margin=16).validate()
+    es = ErosionSettings(PARTICLES_PER_CYCLE=250, MAXAGE=32, WATER_STEPS=4, CYCLES=1,
+                         PILING_RADIUS=8)
+    fields = dict(meta=meta, octaves=13, noise_size=1700.0, blur_iterations=17, erosion=es,
+                  erosion_cycles=1)
+    fields.update(kw)
+    return TL.TilePipelineConfig(**fields), TL.grid_origins(meta, 4, 4)
+
+
+def _stack_inputs():
+    """Config 5's noise stack [16, 1024, 1024] and its Gauss-5 ×17 blur
+    (plain version)."""
+    from noize_tpu_torch.ops.cuda.stencil import separable_chain_plain
+    from noize_tpu_torch.ops.fractal import fractal
+    from noize_tpu_torch.ops.kernels import gaussian_taps
+
+    cfg, origins = config5()
+    noise = fractal(cfg.meta.generator_res, origins[:, 0].astype("float32"),
+                    origins[:, 1].astype("float32"), noise_type=cfg.noise_type,
+                    hurst=cfg.hurst, octaves=cfg.octaves, noise_size=cfg.noise_size,
+                    device="cuda")
+    return noise, separable_chain_plain(noise, gaussian_taps(1.0, 5), 17)
+
+
+def tiles_phase(rows):
+    """Config 5 through ``tile_batch`` (the main path): the batch, the
+    batch with mesh planes, the grid's flow map; every tile against
+    ``generate_tile`` alone; then K1 and K2 on the stack against their
+    plain versions and the 2-D kernel on each tile.  Returns the batch's
+    heights."""
+    import torch
+
+    from noize_tpu_torch.ops import flow as FL
+    from noize_tpu_torch.ops.cuda import flow as FC
+    from noize_tpu_torch.ops.cuda import stencil as SC
+    from noize_tpu_torch.ops.kernels import gaussian_taps
+    from noize_tpu_torch.parallel import tiled as TL
+    from noize_tpu_torch.prng import PRNGKey, fold_in
+
+    cfg, origins = config5()
+    cfg_mesh, _ = config5(emit_mesh=True)
+    cfg_flow, _ = config5(erosion=None, erosion_cycles=0, flow_iterations=8)
+    n, res, tr = len(origins), cfg.meta.generator_res, cfg.meta.tile_res
+    for c in (cfg, cfg_mesh, cfg_flow):  # each kernel's first launch, outside the timing
+        TL.tile_batch(c, origins[:1])
+    _reset_counts()
+    heights, batch_ms = _timed(lambda: TL.tile_batch(cfg, origins))
+    meshed, mesh_ms = _timed(lambda: TL.tile_batch(cfg_mesh, origins))
+    flow, flow_ms = _timed(lambda: TL.tile_batch(cfg_flow, origins))
+    counts = _read_counts()
+    print(f"config 5 tile_batch, 16 tiles of {res}²: {batch_ms:.3f} ms "
+          f"({batch_ms / n:.3f} ms/tile); with mesh planes {mesh_ms:.3f} ms "
+          f"({mesh_ms / n:.3f} ms/tile); flow map ×8, no erosion {flow_ms:.3f} ms "
+          f"({flow_ms / n:.3f} ms/tile)")
+    k1_plan = len(SC.chain_plan(5, cfg.blur_iterations).launches)
+    print(f"tiles launches {counts}: K1 {counts['K1']} calls of {k1_plan} launches each "
+          f"(Gauss-5 ×17 on the stack: {k1_plan} launches a batch, whatever its depth)")
+    _check(counts["K1"] == 3 and k1_plan == 4, "K1 not one call of 4 launches a batch")
+    _check(counts["K2"] == 1, "K2 not one call on the flow stack")
+    _check(counts["K3"] == 2 * n and counts["K4"] == 2 * n, "erosion not once a tile")
+    _check(tuple(heights.shape) == (n, res, res) and bool(torch.isfinite(heights).all()),
+           "heights misshapen or not finite")
+    _check(torch.equal(meshed["height"], heights), "mesh variant's heights differ")
+    planes = meshed["mesh_planes"]
+    _check(tuple(planes.shape) == (n, 12, tr + 1, tr + 1)
+           and bool(torch.isfinite(planes).all()), "mesh planes misshapen or not finite")
+    _check(tuple(flow.shape) == (n, res, res) and bool(torch.isfinite(flow).all()),
+           "flow stack misshapen or not finite")
+    del meshed, planes, flow
+    for i, (x, z) in enumerate(origins.tolist()):
+        key = fold_in(fold_in(PRNGKey(0, device="cuda"), x), z)  # tile_batch's, seed 0
+        one = TL.generate_tile(cfg, float(x), float(z), key)
+        _check(torch.equal(one, heights[i]), f"tile {i} differs from generate_tile alone")
+    print(f"config 5: each of the {n} tiles equals generate_tile of it alone")
+    rows.set_launches({"K1@stack": counts["K1"], "K2@stack": counts["K2"]})
+
+    noise, blurred = _stack_inputs()
+    cells = noise.numel()
+    taps = gaussian_taps(1.0, 5)
+    conv = _conv_chain(taps, 17)
+    got1 = SC.separable_chain(noise, taps, 17)
+    got2 = FC.flow_map_fused(blurred, 8)
+    torch.cuda.synchronize()
+    for i in range(n):
+        _check(torch.equal(got1[i], SC.separable_chain(noise[i], taps, 17)),
+               f"K1 stack tile {i} differs from the 2-D kernel")
+        _check(torch.equal(got2[i], FC.flow_map_fused(blurred[i], 8)),
+               f"K2 stack tile {i} differs from the 2-D kernel")
+    rows.compare("K1@stack", "K1 separable_chain on the config-5 stack [16, 1024, 1024] "
+                 "(Gauss-5 ×17)", SRC["K1"], TPU + "stencil.py:153", (got1,),
+                 lambda: (SC.separable_chain(noise, taps, 17),),
+                 lambda: (SC.separable_chain_plain(noise, taps, 17),), "k1stack", 20,
+                 8 * cells, 2 * 2 * len(taps) * 17 * cells, lambda: (conv(noise),))
+    rows.compare("K2@stack", "K2 flow_map_fused on the config-5 stack [16, 1024, 1024] "
+                 "(flow ×8)", SRC["K2"], TPU + "flow_pl.py:99", (got2,),
+                 lambda: (FC.flow_map_fused(blurred, 8),), lambda: (FL.flow_map(blurred, 8),),
+                 "k2stack", 20, 8 * cells, (K2_OPS_PER_ITER * 8 + K2_OPS_ONCE) * cells)
+    k1_2d = _time_ms(lambda: [SC.separable_chain(noise[i], taps, 17) for i in range(n)], 5)
+    k2_2d = _time_ms(lambda: [FC.flow_map_fused(blurred[i], 8) for i in range(n)], 5)
+    print(f"stack vs 16 2-D calls, CUDA events: K1 {rows.rows['K1@stack']['ms']:.4f} ms "
+          f"vs {k1_2d:.4f} ms; K2 {rows.rows['K2@stack']['ms']:.4f} ms vs {k2_2d:.4f} ms; "
+          "every tile bit-equal to its 2-D call")
+    del noise, blurred, got1, got2
+    return heights
+
+
+def serve_phase(heights):
+    """``TileServer(config 5, batch_size=4)`` serving the 16 tiles twice:
+    a cold wave (the worker thread's first batches) and a warm wave."""
+    import torch
+
+    from noize_tpu_torch.app.server import TileServer
+
+    cfg, origins = config5()
+    poses = [(x // cfg.meta.tile_res, z // cfg.meta.tile_res) for x, z in origins.tolist()]
+    _reset_counts()
+    srv = TileServer(cfg, batch_size=4)
+    waves = []
+    try:
+        srv.start()
+        for wave in ("cold", "warm"):
+            done, batches = {}, srv.batches
+            t0 = time.perf_counter()
+            for i, pos in enumerate(poses):
+                srv.submit(f"{wave}{i}", pos, on_complete=lambda st: done.__setitem__(
+                    st.request.uuid, st))
+            _check(srv.drain(timeout=600), f"{wave} wave did not drain in 600 s")
+            wall = (time.perf_counter() - t0) * 1e3
+            waves.append((wave, wall, srv.batches - batches))
+            _check(len(done) == len(poses) and not srv.errors, f"{wave} wave: {srv.errors}")
+            for i in range(len(poses)):
+                st = done[f"{wave}{i}"]
+                _check(st.error is None and torch.equal(st.heights, heights[i]),
+                       f"{wave} wave tile {i} differs from tile_batch's")
+    finally:
+        srv.stop()
+    counts = _read_counts()
+    for key in ("K1", "K3", "K4"):
+        _check(counts[key] > 0, f"{key} was not launched on the serving path")
+    for wave, wall, batches in waves:
+        print(f"TileServer {wave} wave: 16 tiles in {batches} batches of 4, {wall:.3f} ms "
+              f"({wall / 16:.3f} ms/tile)")
+    print(f"serve launches {counts}")
+
+
+def cli_phase():
+    """The port's CLI on the card: README example #1 at 2048², and erode
+    at 2048² with the mesh and 16-bit heightmaps."""
+    import numpy as np
+
+    from noize_tpu_torch.app import cli
+
+    with tempfile.TemporaryDirectory() as d:
+        _reset_counts()
+        _, demo_ms = _timed(lambda: cli.main(["demo", "--resolution", "2048", "-o", d]))
+        counts = _read_counts()
+        demo = np.load(os.path.join(d, "demo.npy"))
+        _check(demo.shape == (2048, 2048) and np.isfinite(demo).all(), "demo.npy")
+        _check(counts["K1"] == 1 and counts["K2"] == 1, f"demo launches {counts}")
+        out = os.path.join(d, "erode")
+        _reset_counts()
+        _, erode_ms = _timed(lambda: cli.main(["erode", "--resolution", "2048", "--cycles", "3",
+                                               "--mesh", "--heightmap16", "-o", out]))
+        counts = _read_counts()
+        for key in ("K1", "K3", "K4"):
+            _check(counts[key] > 0, f"{key} was not launched by the CLI's erode")
+        _check(os.path.getsize(os.path.join(out, "eroded_height.raw")) == 2 * 2048 * 2048,
+               "eroded_height.raw size")
+        with np.load(os.path.join(out, "tile.npz")) as z:
+            _check(z["positions"].shape == (2049 * 2049, 3)
+                   and np.isfinite(z["positions"]).all(), "tile.npz positions")
+        files = sorted(os.listdir(out))
+    print(f"CLI on the card: demo 2048² {demo_ms:.1f} ms; erode 2048² (3 cycles, mesh, "
+          f"16-bit) {erode_ms:.1f} ms, launches {counts}; wrote {files}")
+
+
+def generator_phase():
+    """``DemoTileGenerator.start(1, 1)`` with config 5's 1024² tiles, one
+    erosion step, the drawers, a checkpoint restored in a fresh store, and
+    the bakery of the four meshes."""
+    import torch
+
+    from noize_tpu_torch.app.bakery import MeshBakeOrder, MeshBakery
+    from noize_tpu_torch.app.drawers import StreamDrawer, TileDrawer
+    from noize_tpu_torch.app.tile_generator import DemoTileGenerator
+    from noize_tpu_torch.core.store import PipelineStateManager
+    from noize_tpu_torch.pipeline.driver import Pipeline
+    from noize_tpu_torch.pipeline.stages import (NoiseStage, StageGaussianBlur,
+                                                 WriteGeneratorContextStage)
+
+    cfg, _ = config5()
+    meta = cfg.meta
+    with tempfile.TemporaryDirectory() as d:
+        sm = PipelineStateManager(os.path.join(d, "saves"), "island", "v1")
+        source = Pipeline([
+            NoiseStage(noiseType="Simplex", hurst=0.4, octaves=13, noiseSize=1700),
+            StageGaussianBlur(sigma="s1d00", width=5, iterations=17),
+            WriteGeneratorContextStage(contextAlias="TERRAIN_HEIGHT"),
+        ], state_manager=sm, name="generator")
+        _reset_counts()
+        gen = DemoTileGenerator(source, meta=meta, state_manager=sm, erosion_settings=cfg.erosion)
+        children, start_ms = _timed(lambda: gen.start(1, 1))
+        _, step_ms = _timed(lambda: gen.step_erosion(1))
+        counts = _read_counts()
+        _check(len(children) == 4, f"{len(children)} children")
+        for key in ("K1", "K3", "K4"):
+            _check(counts[key] > 0, f"{key} was not launched by the tile generator")
+        t0 = time.perf_counter()
+        pngs = []
+        for child in children.values():
+            child.erosion.save_erosion_state()
+            pngs += StreamDrawer(child.erosion, meta).export(
+                d, prefix=f"tile{child.request.pos}")
+        drawn = TileDrawer(PipelineStateManager(os.path.join(d, "saves"), "island", "v1"),
+                           meta, tile_pos=(0, 0)).draw(d, "restored_00")
+        draw_ms = (time.perf_counter() - t0) * 1e3
+        _check(len(pngs) == 8 and len(drawn) == 2, "drawer outputs")
+        bakery = MeshBakery()
+        for key, child in children.items():
+            _check(bakery.enqueue(MeshBakeOrder(key, child.mesh)), f"bake {key} refused")
+        baked, bake_ms = bakery.service()
+        _check(baked == 4 and len(bakery.known) == 4, "bakery")
+        for b in bakery.known.values():
+            _check(b.positions.shape == ((meta.tile_res + 1) ** 2, 3), "baked positions shape")
+            _check(bool(torch.isfinite(torch.from_numpy(b.normals)).all()), "baked normals")
+    print(f"DemoTileGenerator 2 x 2 of 1024²: start {start_ms:.1f} ms, step_erosion(1) "
+          f"{step_ms:.1f} ms, save + StreamDrawer.export + TileDrawer.draw {draw_ms:.1f} ms, "
+          f"bakery of 4 meshes {bake_ms:.1f} ms; launches {counts}")
+
+
+def continuous_phase():
+    """``ErosionSim`` at 2048² in the continuous mode: ``update()`` until
+    "completed"."""
+    from noize_tpu_torch.erosion.sim import ErosionSim
+
+    _, blurred, _ = _inputs(2048)
+    sim = ErosionSim(blurred)
+    _reset_counts()
+    states = []
+    t0 = time.perf_counter()
+    while not states or states[-1] != "completed":
+        states.append(sim.update())
+        _check(time.perf_counter() - t0 < 300, f"no 'completed' in 300 s: {states[-5:]}")
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = _read_counts()
+    _check(states[0] == "triggered" and set(states[1:-1]) <= {"running"}, f"states {states[:5]}")
+    _check(sim.cycle_count == sim.settings.CYCLES, f"{sim.cycle_count} cycles")
+    for key in ("K3", "K4"):
+        _check(counts[key] > 0, f"{key} was not launched by the continuous sim")
+    print(f"continuous ErosionSim 2048²: triggered, running ×{len(states) - 2}, completed in "
+          f"{wall:.1f} ms ({sim.cycle_count} cycles, {len(sim.syncs)} host syncs before the "
+          f"trigger returned); launches {counts}")
+
+
 def profile_step(sim):
     """One more ``ErosionSim.step()`` under ``torch.profiler``: device busy
     time, idle share of the wall clock and the kernels that take it."""
@@ -752,8 +1045,9 @@ def _traced_call_kernels(fn, name):
 
 def plan_trace_phase(rows):
     """One K1 call (Gauss-5 ×17), one K2 call (flow ×8) and one K3 call
-    (the sim's thermal) at 2048², and one K3 call at 1025², under
-    ``torch.profiler``: one device kernel a launch of the call's plan.
+    (the sim's thermal) at 2048², one K3 call at 1025², and K1 and K2 on
+    config 5's [16, 1024, 1024] stack, under ``torch.profiler``: one device
+    kernel a launch of the call's plan, whatever the stack's depth.
     Prints each call's device time beside the CUDA-event time of its
     kernels row, and the host time to enqueue one call (mean of 10 calls
     enqueued back to back)."""
@@ -767,6 +1061,7 @@ def plan_trace_phase(rows):
 
     _, blurred, _ = _inputs(2048)
     _, blurred_odd, _ = _inputs(1025)
+    noise_stack, blurred_stack = _stack_inputs()
     taps = gaussian_taps(1.0, 5)
     s, meta = default_settings(), default_meta()
     hw_ratio = float(meta.tile_size) / float(meta.height)
@@ -781,7 +1076,12 @@ def plan_trace_phase(rows):
             ("K2", "#4", "flow_tile", lambda: FC.flow_map_fused(blurred, 8),
              len(FC.flow_plan(8).launches)),
             ("K3", "#5", "thermal_tile", k3(blurred), k3_launches),
-            ("K3@1025", "K3@1025", "thermal_tile", k3(blurred_odd), k3_launches)):
+            ("K3@1025", "K3@1025", "thermal_tile", k3(blurred_odd), k3_launches),
+            ("K1@stack", "K1@stack", "chain_tile",
+             lambda: SC.separable_chain(noise_stack, taps, 17),
+             len(SC.chain_plan(len(taps), 17).launches)),
+            ("K2@stack", "K2@stack", "flow_tile", lambda: FC.flow_map_fused(blurred_stack, 8),
+             len(FC.flow_plan(8).launches))):
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -992,6 +1292,12 @@ def main():
     prng_phase()
     filter_phase(rows)
     presets_phase(rows)
+    heights = tiles_phase(rows)
+    serve_phase(heights)
+    del heights
+    cli_phase()
+    generator_phase()
+    continuous_phase()
     profile_step(sim)  # last: no timed phase runs after the profiler
     pool_trace_phase()
     plan_trace_phase(rows)

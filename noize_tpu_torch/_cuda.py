@@ -42,13 +42,15 @@ _F = ctypes.c_float
 
 #: argtypes of every C entry point (csrc/*.cu); all return int.
 SIGNATURES = {
-    # x, out, tmp, rows, cols, X taps and Z taps (host f32[k] each), k,
-    # factor, iterations per launch (host i32[launches]), launches, tile
-    # rows, tile cols, threads, stream
-    "noize_separable_chain": (_P, _P, _P, _I, _I, _P, _P, _I, _F, _P, _I, _I, _I, _I, _P),
-    # height, out, carry (2 x 5 maps), res, iterations per launch (host
-    # i32[launches]), launches, window side, norm_min, rng, stream
-    "noize_flow_map": (_P, _P, _P, _I, _P, _I, _I, _F, _F, _P),
+    # x, out, tmp, rows, cols, maps in the stack, X taps and Z taps (host
+    # f32[k] each), k, factor, iterations per launch (host i32[launches]),
+    # launches, tile rows, tile cols, threads, stream
+    "noize_separable_chain": (_P, _P, _P, _I, _I, _I, _P, _P, _I, _F, _P, _I, _I, _I, _I,
+                              _P),
+    # height, out, carry (2 x 5 stacks), res, maps in the stack, iterations
+    # per launch (host i32[launches]), launches, window side, norm_min,
+    # rng, stream
+    "noize_flow_map": (_P, _P, _P, _I, _I, _P, _I, _I, _F, _F, _P),
     # in, out, tmp, res, iterations per launch (host i32[launches]),
     # launches, tile rows, tile cols, threads, max_diff, increment, stream
     "noize_thermal_erosion": (_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _F, _P),
@@ -139,15 +141,18 @@ def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def check_map(t: torch.Tensor, name: str, square: bool = True) -> None:
+def check_map(t: torch.Tensor, name: str, square: bool = True,
+              stack: bool = False) -> None:
     """Refuse what the kernels do not take: non-CUDA, non-f32, non-2-D,
-    non-contiguous, non-square where ``square``."""
+    non-contiguous, non-square where ``square``.  ``stack`` (K1 and K2)
+    also admits a non-empty stack of maps, ``[T, R, C]``."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != torch.float32:
         raise ValueError(f"{name}: expected float32, got {t.dtype}")
-    if t.dim() != 2 or (square and t.shape[0] != t.shape[1]):
-        raise ValueError(f"{name}: expected a {'square ' if square else ''}"
-                         f"2-D map, got {tuple(t.shape)}")
+    dims_ok = t.dim() == 2 or (stack and t.dim() == 3 and t.shape[0] >= 1)
+    if not dims_ok or (square and t.shape[-2] != t.shape[-1]):
+        what = f"{'square ' if square else ''}2-D map" + (" or a stack of them" if stack else "")
+        raise ValueError(f"{name}: expected a {what}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")

@@ -34,6 +34,11 @@
 // do, so the result is bit-equal to the plain version.  Window rows have
 // an odd pitch, so a warp walking 32 rows in the X pass hits 32 banks.
 // Launches ping-pong between `out` and `tmp`, the last writing `out`.
+//
+// A stack of `batch` maps (parallel/tiled's [T, R, C] tiles) runs in the
+// same launches as one map: the map index is blockIdx.z, every pointer is
+// offset to its map, and every clamp above is on the map's own rows and
+// columns, so no block reads another map's cells.  `tmp` is a stack too.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -134,6 +139,8 @@ __global__ void chain_tile(const float* __restrict__ in, float* __restrict__ out
                            int cols, Taps taps, int m, int tz, int tx) {
   constexpr int off = (K - 1) / 2;
   extern __shared__ float window[];
+  in += (size_t)blockIdx.z * rows * cols;  // this block's map of the stack
+  out += (size_t)blockIdx.z * rows * cols;
   float t[K], u[K];
 #pragma unroll
   for (int i = 0; i < K; ++i) {
@@ -205,13 +212,13 @@ cudaError_t configure(int* optin) {
 }
 
 template <int K>
-int run_chain(const float* x, float* out, float* tmp, int rows, int cols, const Taps& taps,
-              const int* per_launch, int launches, int tz, int tx, int threads,
-              cudaStream_t stream) {
+int run_chain(const float* x, float* out, float* tmp, int rows, int cols, int batch,
+              const Taps& taps, const int* per_launch, int launches, int tz, int tx,
+              int threads, cudaStream_t stream) {
   int optin = 0;
   cudaError_t err = configure<K>(&optin);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((cols + tx - 1) / tx, (rows + tz - 1) / tz);
+  const dim3 grid((cols + tx - 1) / tx, (rows + tz - 1) / tz, batch);
   const float* src = x;
   for (int i = 0; i < launches; ++i) {
     const int m = per_launch[i];
@@ -228,22 +235,24 @@ int run_chain(const float* x, float* out, float* tmp, int rows, int cols, const 
 
 }  // namespace
 
+// x, out, tmp: `batch` rows x cols maps each, one after another;
 // taps_x_host, taps_z_host (host float[k]): the X- and Z-pass taps;
 // per_launch (host int[launches]): iterations of each launch, in order;
-// no launch copies x.  tmp: a second map, read only when launches > 1.
+// no launch copies x.  tmp: a second stack, read only when launches > 1.
 extern "C" int noize_separable_chain(const float* x, float* out, float* tmp, int rows, int cols,
-                                     const float* taps_x_host, const float* taps_z_host, int k,
-                                     float factor, const int* per_launch, int launches,
-                                     int tile_z, int tile_x, int threads, void* stream_ptr) {
+                                     int batch, const float* taps_x_host,
+                                     const float* taps_z_host, int k, float factor,
+                                     const int* per_launch, int launches, int tile_z, int tile_x,
+                                     int threads, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (k < 1 || k > kMaxTaps || k % 2 == 0 || rows < 1 || cols < 1 || launches < 0 ||
-      tile_z < 1 || tile_x < 1 || threads < 32 || threads > 1024 || threads % 32 ||
-      (launches > 1 && tmp == nullptr)) {
+  if (k < 1 || k > kMaxTaps || k % 2 == 0 || rows < 1 || cols < 1 || batch < 1 ||
+      batch > 65535 || launches < 0 || tile_z < 1 || tile_x < 1 || threads < 32 ||
+      threads > 1024 || threads % 32 || (launches > 1 && tmp == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (launches == 0) {
-    cudaMemcpyAsync(out, x, sizeof(float) * (size_t)rows * cols, cudaMemcpyDeviceToDevice,
-                    stream);
+    cudaMemcpyAsync(out, x, sizeof(float) * (size_t)batch * rows * cols,
+                    cudaMemcpyDeviceToDevice, stream);
     return static_cast<int>(cudaGetLastError());
   }
   Taps taps;
@@ -255,8 +264,8 @@ extern "C" int noize_separable_chain(const float* x, float* out, float* tmp, int
   switch (k) {
 #define NOIZE_CHAIN_CASE(K)                                                                  \
   case K:                                                                                    \
-    return run_chain<K>(x, out, tmp, rows, cols, taps, per_launch, launches, tile_z, tile_x, \
-                        threads, stream);
+    return run_chain<K>(x, out, tmp, rows, cols, batch, taps, per_launch, launches, tile_z, \
+                        tile_x, threads, stream);
     NOIZE_CHAIN_CASE(1) NOIZE_CHAIN_CASE(3) NOIZE_CHAIN_CASE(5) NOIZE_CHAIN_CASE(7)
     NOIZE_CHAIN_CASE(9) NOIZE_CHAIN_CASE(11) NOIZE_CHAIN_CASE(13) NOIZE_CHAIN_CASE(15)
     NOIZE_CHAIN_CASE(17) NOIZE_CHAIN_CASE(19) NOIZE_CHAIN_CASE(21) NOIZE_CHAIN_CASE(23)

@@ -19,9 +19,6 @@ Host syncs: unlike the reference, whose gates are device-side
 ``lax.cond``/``while_loop``, the eager port reads a few flags on the host
 each cycle (drains present, descent chunks alive, piles present).  Pass a
 list as ``syncs`` to have each one recorded.
-
-``ErosionSim.trigger``/``update`` (the continuous mode) wait for the port
-of ``utils.tracking``.
 """
 
 from __future__ import annotations
@@ -36,6 +33,7 @@ from ..core.tiles import TileSetMeta
 from ..ops.cuda.thermal import thermal_erosion_fused
 from .params import ErosionMode, ErosionSettings
 from ..prng import PRNGKey, split
+from ..utils.tracking import StandAloneJobHandler
 from .particles import Particles, descend_all, spawn
 from .pool_cuda import pool_automata_cuda
 from .sediment import write_sediment_map
@@ -181,8 +179,9 @@ class ErosionSim:
         self.state = init_state(self.original_height,
                                 PRNGKey(seed, device=height.device))
         self.cycle_count = 0
-        #: host syncs of the last ``step``
+        #: host syncs of the last ``step`` or ``trigger``
         self.syncs: list = []
+        self._job: Optional[StandAloneJobHandler] = None
 
     # --- map views (LiveErosion MapType, :118-154) --------------------------
 
@@ -227,6 +226,43 @@ class ErosionSim:
         for c in range(n):
             self._run_cycle(None if fresh is None else fresh[c])
         return self.state
+
+    # --- continuous mode (LiveErosion.updateContinuous, :363-370) -----------
+
+    def trigger(self):
+        """Start one CYCLES batch; returns False while one is in flight
+        (TriggerQueuedBeyerMT + erosionJobCtl.TrackJob).  A CUDA event
+        recorded after the batch's work tracks it.
+
+        Unlike the reference, whose dispatch returns at once, the eager
+        port blocks here on each cycle's host syncs (``syncs``; 45 in a
+        3-cycle step at 2048², PERF.md) and returns when the last cycle's
+        work is enqueued; ``update`` then reports the states the reference
+        reports for the same calls."""
+        if self._job is None:
+            self._job = StandAloneJobHandler()
+        if self._job.is_running:
+            return False
+        self.syncs = []
+        for _ in range(self.settings.CYCLES):
+            self._run_cycle()
+        self._job.track_job(self.state)
+        return True
+
+    def update(self, continuous: bool = True):
+        """One frame tick: complete a finished batch and (in continuous
+        mode) trigger the next — the LiveErosion.Update state machine:
+        "running", "completed", "triggered" or "idle"."""
+        job = self._job
+        if job is not None and job.is_running:
+            if not job.job_complete():
+                return "running"
+            job.close_job()
+            return "completed"
+        if continuous:
+            self.trigger()
+            return "triggered"
+        return "idle"
 
     # --- resets (LiveErosion.cs:267-294) ------------------------------------
 

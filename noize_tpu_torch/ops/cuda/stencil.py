@@ -13,7 +13,8 @@ their blocking arguments choose TPU layouts, not results, and are ignored.
 
 K1 keeps several iterations on chip: :func:`chain_plan` splits the chain
 into launches, each of which runs its iterations on a tile and its halo in
-shared memory.
+shared memory.  A stack of maps ``[T, R, C]`` (``parallel.tiled``'s tiles)
+runs in the same launches as one map, each map clamped at its own edges.
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ def chain_plan(k: int, iterations: int, tile=TILE, halo: int = HALO,
 def separable_chain_plain(x, taps, iterations: int, taps_z=None, factor=1.0):
     """The plain PyTorch version: ``separable_series(x, taps, taps_z,
     factor)`` applied ``iterations`` times (``taps_z=None``: ``taps`` on
-    both axes)."""
+    both axes), on a map or a stack of maps."""
     taps = np.asarray(taps, np.float32)
     taps_z = taps if taps_z is None else np.asarray(taps_z, np.float32)
     for _ in range(iterations):
@@ -89,11 +90,13 @@ def separable_chain(x, taps, iterations: int, taps_z=None, factor=1.0):
     ``kernels.conv_x`` / ``conv_z`` do; ``taps_z=None`` takes ``taps`` on
     both axes.  Both tap lists are odd and at most 25 long; the shorter is
     centred in zeros for the kernel, which adds exact zeros on a finite
-    map.  ``factor`` 1.0 multiplies by one exactly.  A CPU tensor takes
-    the plain version; a CUDA tensor launches K1 or raises."""
+    map.  ``factor`` 1.0 multiplies by one exactly.  ``x`` is a map
+    ``[R, C]`` or a stack ``[T, R, C]``, whose maps run in the launches of
+    one.  A CPU tensor takes the plain version; a CUDA tensor launches K1
+    or raises."""
     if x.device.type == "cpu":
         return separable_chain_plain(x, taps, iterations, taps_z, factor)
-    _cuda.check_map(x, "separable_chain", square=False)
+    _cuda.check_map(x, "separable_chain", square=False, stack=True)
     tx = _taps_arg(taps, "taps")
     tz = tx if taps_z is None else _taps_arg(taps_z, "taps_z")
     if iterations < 0:
@@ -104,10 +107,11 @@ def separable_chain(x, taps, iterations: int, taps_z=None, factor=1.0):
     out = torch.empty_like(x)
     tmp = torch.empty_like(x) if len(plan.launches) > 1 else None
     per_launch = np.asarray(plan.launches, np.int32)
-    rows, cols = x.shape
+    rows, cols = x.shape[-2:]
+    batch = x.shape[0] if x.dim() == 3 else 1
     with torch.cuda.device(x.device):
         _cuda.call("noize_separable_chain", x.data_ptr(), out.data_ptr(),
-                   None if tmp is None else tmp.data_ptr(), rows, cols,
+                   None if tmp is None else tmp.data_ptr(), rows, cols, batch,
                    tx.ctypes.data, tz.ctypes.data, k, float(np.float32(factor)),
                    per_launch.ctypes.data, len(per_launch), plan.tile[0],
                    plan.tile[1], plan.threads, _cuda.stream(x))

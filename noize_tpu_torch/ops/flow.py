@@ -19,15 +19,14 @@ WATER_INIT = 1e-4  # FlowMapStage.cs:129
 
 
 def shift_clamped(a, dz: int, dx: int):
-    """out[z, x] = a[clamp(z + dz), clamp(x + dx)] — edge-replicated shift."""
-    if dz > 0:
-        a = torch.cat([a[dz:, :], a[-1:, :].expand(dz, a.shape[1])], dim=0)
-    elif dz < 0:
-        a = torch.cat([a[:1, :].expand(-dz, a.shape[1]), a[:dz, :]], dim=0)
-    if dx > 0:
-        a = torch.cat([a[:, dx:], a[:, -1:].expand(a.shape[0], dx)], dim=1)
-    elif dx < 0:
-        a = torch.cat([a[:, :1].expand(a.shape[0], -dx), a[:, :dx]], dim=1)
+    """out[z, x] = a[clamp(z + dz), clamp(x + dx)] — edge-replicated shift
+    on the last two axes (a stack of maps shifts map by map)."""
+    if dz:
+        n = a.shape[-2]
+        a = a.index_select(-2, (torch.arange(n, device=a.device) + dz).clamp_(0, n - 1))
+    if dx:
+        n = a.shape[-1]
+        a = a.index_select(-1, (torch.arange(n, device=a.device) + dx).clamp_(0, n - 1))
     return a
 
 
@@ -81,7 +80,8 @@ def norm_params(norm_min, norm_max):
 
 def flow_map(height, iterations: int = 5, norm_min=-0.1, norm_max=0.1):
     """FlowMapStage end to end: fill water, iterate (flow, water), return
-    the normalised velocity map (same shape as ``height``)."""
+    the normalised velocity map (same shape as ``height``: a map, or a
+    stack of maps taken map by map)."""
     water = torch.full_like(height, WATER_INIT)
     fw = fe = fs = fn = torch.zeros_like(height)
     for _ in range(iterations):

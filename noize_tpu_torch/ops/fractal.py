@@ -104,13 +104,20 @@ def fractal(
 ):
     """One fBm tile of shape ``(resolution, resolution)``, row-major
     ``[z, x]``, on ``device``; ``xpos``/``zpos`` offset the tile in the
-    global noise domain."""
+    global noise domain.  Sequences of T origins give a stack ``[T,
+    resolution, resolution]`` whose tiles equal their own calls bit for
+    bit (``jax.vmap`` of the reference over float32 origins)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("fractal(device='cuda'): no CUDA device")
     f32 = np.float32
-    xpos = float(f32(xpos))
-    zpos = float(f32(zpos))
+    xs = np.asarray(xpos, f32)
+    zs = np.asarray(zpos, f32)
+    if xs.ndim:
+        xpos = torch.from_numpy(xs.reshape(-1, 1, 1)).to(device)
+        zpos = torch.from_numpy(zs.reshape(-1, 1, 1)).to(device)
+    else:
+        xpos, zpos = float(xs), float(zs)
     inv_size = float(f32(1.0) / f32(noise_size))
     ramp = torch.arange(resolution, dtype=_F32, device=device)
     col = ramp[None, :].expand(resolution, resolution)
@@ -122,7 +129,7 @@ def fractal(
     stepdown = f32(stepdown)
     detune_rate = f32(detune_rate)
 
-    t = torch.zeros((resolution, resolution), dtype=_F32, device=device)
+    t = torch.zeros(xi.shape, dtype=_F32, device=device)
     f = f32(1.0)
     a = f32(starting_amplitude)
     detune = f32(0.0)

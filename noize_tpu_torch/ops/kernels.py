@@ -30,30 +30,32 @@ def _clamped_range(n: int, off: int, device):
 
 
 def conv_x(a, taps, factor=1.0):
-    """1-D correlation along x (columns): out[z,x] = Σ_d a[z, x+d]·taps[off+d]."""
+    """1-D correlation along x (columns): out[z,x] = Σ_d a[z, x+d]·taps[off+d].
+    The last two axes are (z, x): a stack of maps ``[T, R, C]`` takes the
+    pass map by map."""
     taps = np.asarray(taps, np.float32)
     k = len(taps)
     off = (k - 1) // 2
-    w = a.shape[1]
-    ap = a[:, _clamped_range(w, off, a.device)]
+    w = a.shape[-1]
+    ap = a[..., _clamped_range(w, off, a.device)]
     out = torch.zeros_like(a)
     for i in range(k):
-        out = out + float(taps[i]) * ap[:, i:i + w]
+        out = out + float(taps[i]) * ap[..., i:i + w]
     return out * factor
 
 
 def conv_z(a, taps, factor=1.0):
     """1-D pass along z (rows) with the reference's flipped indexing:
-    out[z,x] = Σ_d a[z+d, x]·taps[off-d]."""
+    out[z,x] = Σ_d a[z+d, x]·taps[off-d], on the last two axes."""
     taps = np.asarray(taps, np.float32)
     k = len(taps)
     off = (k - 1) // 2
-    h = a.shape[0]
-    ap = a[_clamped_range(h, off, a.device), :]
+    h = a.shape[-2]
+    ap = a[..., _clamped_range(h, off, a.device), :]
     out = torch.zeros_like(a)
     for i in range(k):
         # tap i multiplies the sample at offset d = off - i
-        out = out + float(taps[i]) * ap[2 * off - i:2 * off - i + h, :]
+        out = out + float(taps[i]) * ap[..., 2 * off - i:2 * off - i + h, :]
     return out * factor
 
 

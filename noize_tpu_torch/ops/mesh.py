@@ -151,16 +151,16 @@ def _vertex_coords(resolution: int, tile_size, device):
 
 def _tap_slices(heights, r: int, off: int):
     """(center, left, right, up, down) height taps over the (r+1)² vertex
-    grid from a pad-by-2 edge-extended input."""
-    n = heights.shape[0]
+    grid from a pad-by-2 edge-extended input (on the last two axes)."""
+    n = heights.shape[-1]
     idx = torch.arange(-2, n + 2, device=heights.device).clamp_(0, n - 1)
-    ext = heights[idx][:, idx]
+    ext = heights[..., idx, :][..., idx]
     b = off + 2
-    t = ext[b:b + r + 1, b:b + r + 1]
-    l_in = ext[b:b + r + 1, b - 1:b + r]
-    r_in = ext[b:b + r + 1, b + 1:b + r + 2]
-    u_in = ext[b - 1:b + r, b:b + r + 1]
-    d_in = ext[b + 1:b + r + 2, b:b + r + 1]
+    t = ext[..., b:b + r + 1, b:b + r + 1]
+    l_in = ext[..., b:b + r + 1, b - 1:b + r]
+    r_in = ext[..., b:b + r + 1, b + 1:b + r + 2]
+    u_in = ext[..., b - 1:b + r, b:b + r + 1]
+    d_in = ext[..., b + 1:b + r + 2, b:b + r + 1]
     return t, l_in, r_in, u_in, d_in
 
 
@@ -181,8 +181,8 @@ def _assemble(r, t, l, rgt, u, d, tile_size, height, uv_denom, device):
 
 def _assemble_planes(r, t, l, rgt, u, d, tile_size, height, uv_denom, device):
     vx_f, vz_f, step = _vertex_coords(r, tile_size, device)
-    planes = torch.stack(vertex_plane_list(t, l, rgt, u, d, vx_f, vz_f, step,
-                                           height, uv_denom), 0)
+    planes = torch.stack([p.expand(t.shape) for p in vertex_plane_list(
+        t, l, rgt, u, d, vx_f, vz_f, step, height, uv_denom)], -3)
     return MeshPlanes(planes, grid_indices(r, torch.int32, device=device))
 
 
@@ -240,7 +240,9 @@ def heightmap_mesh_overshoot_planes(heights, resolution: int,
                                     input_resolution: int, height,
                                     tile_size) -> MeshPlanes:
     """``heightmap_mesh_overshoot`` in the component-major ``MeshPlanes``
-    layout (same math)."""
+    layout (same math).  A stack of heights ``[T, n, n]`` gives planes
+    ``[T, 12, r+1, r+1]``, each tile's those of its own call (the batch axis
+    in front, as ``parallel.tiled`` emits them)."""
     r = resolution
     off = (input_resolution - r) // 2
     t, l, rgt, u, d = _tap_slices(heights, r, off)

@@ -86,6 +86,17 @@ def fold_in(key, data: int) -> torch.Tensor:
     return torch.cat([b0, b1]).to(torch.uint32)
 
 
+def fold_in_stack(key, data) -> torch.Tensor:
+    """``fold_in`` of each of the T 32-bit ``data`` into ``key`` — one key,
+    or a stack (T, 2) whose i-th key takes ``data[i]`` — as ``jax.vmap`` of
+    ``fold_in`` gives them: keys (T, 2), in one hash."""
+    d = torch.tensor([int(v) & _MASK for v in data], dtype=torch.int64, device=key.device)
+    if key.dim() > 1:
+        d = d[:, None]
+    b0, b1 = threefry2x32(key, torch.zeros_like(d), d)
+    return torch.stack([b0.reshape(-1), b1.reshape(-1)], -1).to(torch.uint32)
+
+
 def random_bits(key, shape) -> torch.Tensor:
     """32 random bits a cell (int64 values in [0, 2³²)), as
     ``jax.random.bits(key, shape, uint32)``; a stack of keys (..., 2)

@@ -300,7 +300,7 @@ def main():
             # as ops/cuda/stencil.separable_chain calls it
             out, tmp = torch.empty_like(noise), torch.empty_like(noise)
             per_launch = np.asarray(plan.launches, np.int32)
-            rc = fn(noise.data_ptr(), out.data_ptr(), tmp.data_ptr(), res, res,
+            rc = fn(noise.data_ptr(), out.data_ptr(), tmp.data_ptr(), res, res, 1,
                     taps.ctypes.data, taps.ctypes.data, len(taps), 1.0,
                     per_launch.ctypes.data, len(per_launch),
                     plan.tile[0], plan.tile[1], plan.threads, stream)
@@ -347,7 +347,7 @@ def main():
                          if n > 1 else None)
                 per_launch = np.asarray(plan.launches, np.int32)
                 rc = fn(blurred.data_ptr(), out.data_ptr(),
-                        None if carry is None else carry.data_ptr(), res,
+                        None if carry is None else carry.data_ptr(), res, 1,
                         per_launch.ctypes.data, n, region, float(lo), float(rng), stream)
                 if rc:
                     raise RuntimeError(f"noize_flow_map: CUDA error {rc}")

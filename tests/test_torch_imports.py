@@ -37,6 +37,15 @@ def test_slice_modules_are_listed():
         assert f"noize_tpu_torch.{m}" in mods, m
 
 
+def test_serving_slice_modules_are_listed():
+    """The tile-serving and app slice is among the modules imported
+    below."""
+    mods = set(_modules())
+    for m in ("parallel.tiled", "app.server", "app.cli", "app.tile_generator", "app.visualize",
+              "app.bakery", "app.drawers", "utils.tracking", "utils.stats", "utils.helpers"):
+        assert f"noize_tpu_torch.{m}" in mods, m
+
+
 def test_port_imports_no_jax():
     code = (
         "import importlib, sys\n"

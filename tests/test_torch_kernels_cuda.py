@@ -500,3 +500,80 @@ def test_preset_fuse_equals_run_on_card(cuda, name):
     torch.cuda.synchronize()
     assert fused.device.type == "cuda"
     _equal(fused, run)
+
+
+# --- K1 and K2 on a stack of maps [T, R, C]: the batch is blockIdx.z --------
+
+def _stack(shape, t, seed):
+    """T maps of very different content (each its own banded noise, scaled
+    and offset by its index), so a block that read a neighbour map's rows
+    or columns would show."""
+    return np.stack([_map(shape, seed + i) * np.float32(1 + 7 * i) + np.float32(50 * i)
+                     for i in range(t)]).astype(np.float32)
+
+
+@pytest.mark.parametrize("t", [1, 3, 16])
+@pytest.mark.parametrize("shape", [(64, 64), (65, 65), (37, 100), (300, 257)])
+def test_k1_stack_matches_2d_and_plain(cuda, t, shape):
+    x = torch.from_numpy(_stack(shape, t, t + shape[0])).to(cuda)
+    taps = gaussian_taps(1.0, 5)
+    before = separable_chain.launches
+    got = separable_chain(x, taps, 17)
+    assert separable_chain.launches == before + 1
+    want = separable_chain_plain(x, taps, 17)
+    torch.cuda.synchronize()
+    _equal(got, want)
+    for i in range(t):
+        _equal(got[i], separable_chain(x[i].contiguous(), taps, 17))
+
+
+@pytest.mark.parametrize("name", ["Sobel3Horizontal", "Prewitt3Vertical"])
+def test_k1_stack_filter_taps_match_plain(cuda, name):
+    tx, tz, factor = FILTER_TAPS[name]
+    x = torch.from_numpy(_stack((130, 97), 3, 4)).to(cuda)
+    got = separable_chain(x, tx, 3, taps_z=tz, factor=factor)
+    want = separable_chain_plain(x, tx, 3, taps_z=tz, factor=factor)
+    torch.cuda.synchronize()
+    _equal(got, want)
+
+
+@pytest.mark.parametrize("t", [1, 3, 16])
+@pytest.mark.parametrize("res,iters", [(64, 8), (65, 9), (300, 8), (97, 0)])
+def test_k2_stack_matches_2d_and_plain(cuda, t, res, iters):
+    """8 iterations are two launches (one carry set), 9 three (the carry
+    ping-pongs), 0 one launch of 0."""
+    h = torch.from_numpy(_stack((res, res), t, t + res)).to(cuda)
+    before = flow_map_fused.launches
+    got = flow_map_fused(h, iters)
+    assert flow_map_fused.launches == before + 1
+    want = FL.flow_map(h, iters)
+    torch.cuda.synchronize()
+    _equal(got, want)
+    for i in range(t):
+        _equal(got[i], flow_map_fused(h[i].contiguous(), iters))
+
+
+def test_stack_wrappers_refuse_bad_input(cuda):
+    with pytest.raises(ValueError, match="stack"):
+        separable_chain(torch.zeros((2, 2, 8, 8), device=cuda), gaussian_taps(1.0, 5), 1)
+    with pytest.raises(ValueError, match="stack"):
+        separable_chain(torch.zeros((0, 8, 8), device=cuda), gaussian_taps(1.0, 5), 1)
+    with pytest.raises(ValueError, match="square"):
+        flow_map_fused(torch.zeros((3, 8, 9), device=cuda), 2)
+    with pytest.raises(ValueError, match="2-D"):
+        thermal_erosion_fused(torch.zeros((3, 8, 8), device=cuda), 45.0, 0.5, 1.0)
+
+
+def test_job_handler_tracks_card_work(cuda):
+    """``utils.tracking.StandAloneJobHandler`` on CUDA tensors: an event on
+    the current stream; complete once the card has passed it."""
+    from noize_tpu_torch.utils.tracking import StandAloneJobHandler
+
+    x = torch.from_numpy(_map((1024, 1024), 1)).to(cuda)
+    h = StandAloneJobHandler()
+    state = {"y": gauss_chain(x, 5, 1.0, 17)}
+    assert h.track_job(state) and h.is_running
+    assert h.wait() is state and not h.is_running
+    h.track_job(state)
+    torch.cuda.synchronize()
+    assert h.job_complete() and h.close_job() and not h.is_running

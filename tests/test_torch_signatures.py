@@ -33,12 +33,12 @@ HOOKS = {
 NOT_PORTED = {
     ("erosion.pool", "pool_automata_quad"): "the TPU quadrant layout of pool_automata",
     ("erosion.sediment", "exact_pile_deposit"): "EXACT_PILES, ROADMAP queue 1",
-    ("erosion.sim", "ErosionSim.trigger"): "continuous mode, ROADMAP queue 1",
-    ("erosion.sim", "ErosionSim.update"): "continuous mode, ROADMAP queue 1",
     ("ops.mesh", "MeshArrays.tree_flatten"): "JAX pytree protocol",
     ("ops.mesh", "MeshArrays.tree_unflatten"): "JAX pytree protocol",
     ("ops.mesh", "MeshPlanes.tree_flatten"): "JAX pytree protocol",
     ("ops.mesh", "MeshPlanes.tree_unflatten"): "JAX pytree protocol",
+    ("utils.helpers", "match_vma"): "casts shard_map varying axes: no meaning without "
+                                    "JAX's manual mesh",
 }
 
 
@@ -107,7 +107,9 @@ def _pairs(rel):
 def test_modules_found():
     assert {"ops.noise", "ops.kernels", "ops.filters", "ops.edge", "ops.mesh",
             "pipeline.compose", "pipeline.stages", "app.presets", "core.store",
-            "utils.anim_curve", "erosion.sim"} <= set(MODULES)
+            "utils.anim_curve", "erosion.sim", "parallel.tiled", "app.server", "app.cli",
+            "app.tile_generator", "utils.tracking", "utils.stats", "utils.helpers",
+            "app.visualize", "app.bakery", "app.drawers"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("rel", MODULES)
