@@ -7,7 +7,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. device: requires CUDA; prints the card's name and
    ``nvidia-smi --query-gpu=name,power.limit``;
-2. build: compiles the CUDA kernels K1-K5 from ``noize_tpu_torch/csrc``;
+2. build: compiles the CUDA kernels K1-K6 from ``noize_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the flagship's shapes (2048², and 2049² for K5), with CUDA-event times
    of both, the card's least time for the same work (``bound_ms``) and,
@@ -55,13 +55,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``TileDrawer.draw`` from a fresh store, ``MeshBakery`` of the 4 meshes;
 16. continuous sim: ``ErosionSim`` at 2048² driven by ``update()`` until
    "completed";
-17. profile: one more Quickstart ``ErosionSim.step()`` under
+17. vegetation: the Quickstart ``ErosionSim`` at 2048² with
+   ``VEGETATION_FRICTION = 5`` on the density of 65,536 rooted plants after
+   one growth cycle, one ``step()``; the same at 256² on the card and the
+   CPU (1e-4 relative);
+18. exact piles: K6 against its plain version at 256² with overlapping and
+   border piles, radius 4 and 15 (tolerance 0); K6 at 2048² with 64 of 100
+   tied piles (the kernels line's row); a 2048² ``step()`` with
+   ``EXACT_PILES`` (K6 one launch a cycle);
+19. native IO: the Quickstart state checkpointed synchronously and queued
+   (``async_``, ``flush``), restored equal, a corrupted payload refused;
+20. sharded: a one-rank NCCL group, ``spatial_mesh`` and ``batch_mesh`` of
+   1, the five sharded field ops at 2048² equal to the local ops, and
+   ``tile_batch(mesh=)`` of 4 of config 5's tiles equal to ``tile_batch``;
+21. profile: one more Quickstart ``ErosionSim.step()`` under
    ``torch.profiler`` (device busy time, idle share), after every timed
    phase;
-18. pool trace: one wet K4 call and one wet K5 call at 2048² under
+22. pool trace: one wet K4 call and one wet K5 call at 2048² under
    ``torch.profiler``; each must run ``1 + WATER_STEPS`` device kernels
    (the init kernel and one fused launch per water step);
-19. plan trace: one K1 call (Gauss-5 ×17), one K2 call (flow ×8) and one
+23. plan trace: one K1 call (Gauss-5 ×17), one K2 call (flow ×8) and one
    K3 call (the sim's thermal, one iteration) at 2048², one K3 call at
    1025², and K1 and K2 on the config-5 stack, under ``torch.profiler``;
    each must run the device kernels its plan gives (one a launch, whatever
@@ -150,6 +163,7 @@ def _bound(nbytes, ops):
 
 def _counters():
     """Every kernel wrapper and entry with a launch count, by row key."""
+    from noize_tpu_torch.erosion import pile_cuda as PL
     from noize_tpu_torch.erosion import pool_cuda as PC
     from noize_tpu_torch.ops.cuda import flow as FC
     from noize_tpu_torch.ops.cuda import stencil as SC
@@ -158,7 +172,7 @@ def _counters():
     return {
         "K1": SC.separable_chain, "K2": FC.flow_map_fused,
         "K3": TC.thermal_erosion_fused, "K4": PC.pool_automata_cuda,
-        "K5": PC.pool_automata_full_cuda,
+        "K5": PC.pool_automata_full_cuda, "K6": PL.exact_piles,
         "#1": SC.fused_separable_chain, "#2": SC.fused_separable_chain_rows,
         "#3": FC.flow_map_pallas, "#6": PC.pool_automata_pallas,
         "#7": PC.pool_automata_pallas_pair, "#8": PC.pool_automata_pallas_quad,
@@ -197,13 +211,21 @@ def device_phase():
 
 
 def build_phase():
-    from noize_tpu_torch import _cuda
+    """The CUDA kernels (one nvcc a source) and, beside them, the native IO
+    runtime (g++), so no timed phase pays for a first-use build."""
+    import concurrent.futures
+
+    from noize_tpu_torch import _cuda, native
 
     t0 = time.perf_counter()
-    path = _cuda.build()
-    _cuda.library()
-    print(f"build: {path.relative_to(HERE)} in {time.perf_counter() - t0:.1f} s "
-          f"({len(list(_cuda.CSRC.glob('*.cu')))} sources in parallel)")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host = pool.submit(native.available)
+        path = _cuda.build()
+        _cuda.library()
+        _check(host.result(), "the native IO runtime did not load")
+    print(f"build: {path.relative_to(HERE)} ({len(list(_cuda.CSRC.glob('*.cu')))} sources in "
+          f"parallel) and {native.library_path().relative_to(HERE)} in "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def _conv_chain(taps, iterations, taps_z=None, factor=1.0):
@@ -235,8 +257,9 @@ def _conv_chain(taps, iterations, taps_z=None, factor=1.0):
 
 class Rows:
     """The kernels JSON line: one row per TPU kernel, K5 at 2049², K5 and
-    K3 at 1025² (odd sizes), K1 with each filter's taps, and K1 and K2 on
-    the config-5 stack, filled as the phases run."""
+    K3 at 1025² (odd sizes), K1 with each filter's taps, K1 and K2 on the
+    config-5 stack, and K6 (the exact pile solver, no TPU kernel's port),
+    filled as the phases run."""
 
     def __init__(self):
         self.rows = {}
@@ -276,7 +299,7 @@ class Rows:
 
     def line(self):
         order = ["#1", "#2", "#3", "#4", "#5", "#6", "#7", "#8", "#9", "#10", "K5", "K5@1025",
-                 "K3@1025"] + [f"K1:{f}" for f in FILTERS] + ["K1@stack", "K2@stack"]
+                 "K3@1025"] + [f"K1:{f}" for f in FILTERS] + ["K1@stack", "K2@stack", "K6"]
         _check(set(self.rows) == set(order), f"rows {sorted(self.rows)}")
         for k in order:
             _check(self.launches.get(k, 0) > 0, f"{k} was launched on no path")
@@ -309,7 +332,7 @@ FILTERS = ("Smooth3", "Sobel3Horizontal", "Sobel3Vertical", "Sobel3_2D",
 SRC = {
     "K1": "noize_tpu_torch/csrc/stencil.cu", "K2": "noize_tpu_torch/csrc/flow.cu",
     "K3": "noize_tpu_torch/csrc/thermal.cu", "K4": "noize_tpu_torch/csrc/pool.cu",
-    "K5": "noize_tpu_torch/csrc/pool.cu",
+    "K5": "noize_tpu_torch/csrc/pool.cu", "K6": "noize_tpu_torch/csrc/piles.cu",
 }
 TPU = "noize_tpu/ops/pallas/"
 POOL_TPU = "noize_tpu/erosion/pool_pallas.py"
@@ -940,6 +963,274 @@ def continuous_phase():
           f"trigger returned); launches {counts}")
 
 
+def _quickstart_heights():
+    """The Quickstart pipeline's output at 2048² (no store): what its
+    ``ErosionSim`` starts from."""
+    from noize_tpu_torch.core.stageio import GeneratorData
+    from noize_tpu_torch.pipeline.driver import Pipeline
+    from noize_tpu_torch.pipeline.stages import FlowMapStage, NoiseStage, StageGaussianBlur
+
+    pipe = Pipeline([NoiseStage(noiseType="Simplex", hurst=0.4, octaves=13, noiseSize=1700),
+                     StageGaussianBlur(sigma="s1d00", width=5, iterations=17),
+                     FlowMapStage(iterations=8)])
+    return pipe.run(GeneratorData(uuid="t00", resolution=2048, xpos=0, zpos=0)).data
+
+
+def _plant_world(sim, n, key):
+    """Root ``n`` plants on ``sim``'s world, one growth cycle, and their
+    density as the sim's plant map.  ``PlantType()`` caps the 4-cross
+    normal's y at 1, but at the Quickstart's patch_res of 1 it is 2·1² = 2
+    everywhere, so nothing would root: the phase takes max_angle 2.
+    Returns (plants, ms to root, ms to grow, ms to splat)."""
+    from noize_tpu_torch.erosion import vegetation as V
+    from noize_tpu_torch.prng import split
+
+    ptype = V.PlantType(max_angle=2.0)
+    world = sim.state.world
+    hs, pr = float(sim.meta.height), sim.meta.patch_res
+    k_root, k_grow = split(key)
+    plants, root_ms = _timed(lambda: V.root_plants(k_root, ptype, world, n, hs, pr))
+    plants, grow_ms = _timed(lambda: V.grow_cycle(k_grow, plants, world, ptype, hs, pr))
+    dens, splat_ms = _timed(lambda: V.density_map(tuple(world.height.shape), plants, ptype))
+    world.plants = dens
+    return plants, root_ms, grow_ms, splat_ms
+
+
+def vegetation_phase():
+    """The Quickstart 2048² ``ErosionSim`` with ``VEGETATION_FRICTION = 5``
+    on a plant map from 65,536 rooted plants and one growth cycle, then one
+    ``step()`` (3 cycles); then the same at 256² on the card and on the CPU
+    (1e-4 relative, the descent's card-vs-CPU bar)."""
+    import torch
+
+    from noize_tpu_torch.erosion.params import ErosionSettings
+    from noize_tpu_torch.erosion.sim import ErosionSim
+    from noize_tpu_torch.prng import PRNGKey
+
+    settings = ErosionSettings(VEGETATION_FRICTION=5.0)
+    h = _quickstart_heights()
+    sim = ErosionSim(h, settings=settings)
+    plants, root_ms, grow_ms, splat_ms = _plant_world(sim, 65536, PRNGKey(7, device="cuda"))
+    alive = int(plants.alive.sum())
+    _check(alive > 0 and float(sim.plant_map.max()) > 0, f"{alive} plants alive")
+    _reset_counts()
+    _, step_ms = _timed(sim.step)
+    counts = _read_counts()
+    for k, v in (("height", sim.height_map), ("pool", sim.pool_map), ("stream", sim.stream_map)):
+        _check(bool(torch.isfinite(v).all()), f"vegetation sim {k} not finite")
+    _check(counts["K3"] > 0 and counts["K4"] > 0, f"vegetation sim launches {counts}")
+    small = h[::8, ::8].contiguous()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = ErosionSim(small.to(dev), settings=settings, device=dev)
+        _plant_world(s, 4096, PRNGKey(7, device=dev))
+        s.step()
+        out[dev] = [m.cpu().double() for m in (s.height_map, s.pool_map, s.stream_map,
+                                               s.plant_map)]
+    for name, a, b in zip(("height", "pool", "stream", "plants"), out["cuda"], out["cpu"]):
+        gap = float((a - b).abs().max())
+        _check(gap <= CROSS_DEVICE_RTOL * max(float(b.abs().max()), 1e-30),
+               f"vegetation 256² card vs CPU {name}: {gap}")
+    print(f"vegetation 2048²: root 65536 plants {root_ms:.3f} ms ({alive} alive after a grow "
+          f"cycle), grow {grow_ms:.3f} ms, density {splat_ms:.3f} ms; ErosionSim.step() with "
+          f"VEGETATION_FRICTION=5 {step_ms:.3f} ms, {len(sim.syncs)} host syncs; 256² card "
+          f"vs CPU within {CROSS_DEVICE_RTOL}")
+
+
+def _pile_case(res, radius, seed, n_cand=None):
+    """(height, pile map) on the card: smooth terrain, and either 8
+    overlapping and border piles of up to 0.5 (``n_cand`` None), or
+    ``n_cand`` piles in 4 tied volume levels."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    h = rng.uniform(0.2, 0.8, (res, res)).astype(np.float32)
+    piles = np.zeros((res, res), np.float32)
+    if n_cand is None:
+        c = res // 2
+        cells = [(c, c), (c + 1, c + 3), (c + 4, c - 2), (c - 1, c + 6), (0, 7),
+                 (res - 1, res - 1), (c // 2, 0), (c + radius, c + radius)]
+        for (r, q), v in zip(cells, (0.05, 0.3, 0.02, 0.12, 0.04, 0.2, 0.08, 0.5)):
+            piles[r, q] = v
+    else:
+        flat = rng.choice(res * res, n_cand, replace=False)
+        piles.reshape(-1)[flat] = np.float32(0.01) * rng.integers(1, 5, n_cand)
+    return torch.from_numpy(h).cuda(), torch.from_numpy(piles).cuda()
+
+
+def exact_piles_phase(rows):
+    """K6 against its plain version (bit-equal) at 256² with overlapping
+    and border piles, radius 4 and 15; K6 alone at 2048² with 64 of 100
+    tied candidates (timed, the kernels line's row); then a 2048² sim step
+    with ``EXACT_PILES`` (K6 one launch a cycle)."""
+    import torch
+
+    from noize_tpu_torch.erosion import pile_cuda as PL
+    from noize_tpu_torch.erosion import sediment as SE
+    from noize_tpu_torch.erosion.params import ErosionSettings
+    from noize_tpu_torch.erosion.sim import ErosionSim
+
+    inc = SE.pile_increment(ErosionSettings().as_parameters(), 1000.0)
+    for radius in (4, 15):
+        h, piles = _pile_case(256, radius, radius)
+        got = PL.exact_piles(h, piles, inc, radius)
+        want = SE.exact_pile_deposit_plain(h, piles, inc, radius)
+        torch.cuda.synchronize()
+        _check(torch.equal(got, want), f"K6 disagrees with its plain version at radius {radius}")
+        _check(not torch.equal(got, h), "K6 deposited nothing")
+    res, radius = 2048, 15
+    h, piles = _pile_case(res, radius, 3, n_cand=100)
+    got = PL.exact_piles(h, piles, inc, radius)
+    slots = len(SE._pile_tables(radius)["off_r"])
+    visits = int(SE._pile_tables(radius)["ends"].sum())
+    rows.compare(
+        "K6", f"K6 exact PileSolver, 64 of 100 piles (4 tied levels), radius {radius} "
+        f"({res}²)", SRC["K6"],
+        "none: noize_tpu/erosion/sediment.py:178 (_solve_pile, an XLA while_loop of scans; "
+        "no Pallas kernel)",
+        (got,), lambda: PL.exact_piles(h, piles, inc, radius),
+        lambda: (SE.exact_pile_deposit_plain(h, piles, inc, radius),), "K6", 20,
+        # the height read and written and the pile map read; at least one
+        # sweep of ~8 operations a visit for each of the 64 piles
+        12 * res * res, 8 * visits * 64)
+    print(f"K6 tables at radius {radius}: {slots} slots, {visits} visits a sweep")
+    settings = ErosionSettings(EXACT_PILES=True)
+    sim = ErosionSim(_quickstart_heights(), settings=settings)
+    _reset_counts()
+    _, step_ms = _timed(sim.step)
+    counts = _read_counts()
+    _check(counts["K6"] > 0, f"K6 was not launched by the EXACT_PILES step: {counts}")
+    _check(counts["K6"] <= settings.CYCLES, f"K6 launched {counts['K6']} times in a step")
+    _check(bool(torch.isfinite(sim.height_map).all()), "EXACT_PILES heights not finite")
+    rows.set_launches({"K6": counts["K6"]})
+    print(f"EXACT_PILES ErosionSim.step() 2048²: {step_ms:.3f} ms, launches {counts}, "
+          f"{len(sim.syncs)} host syncs")
+
+
+def native_io_phase(sim):
+    """The Quickstart state at 2048² checkpointed through the native IO
+    runtime: synchronously, then queued (``async_``) and flushed; restored
+    equal in a fresh store; a corrupted payload byte refused; the
+    Quickstart's mesh through the native OBJ writer."""
+    import torch
+
+    from noize_tpu_torch.app import mesh_export as ME
+    from noize_tpu_torch.core.store import PipelineStateManager
+    from noize_tpu_torch.ops.mesh import heightmap_mesh_overshoot
+
+    maps = {"height": sim.height_map, "pool": sim.pool_map, "stream": sim.stream_map,
+            "drain": sim.state.drain_water}
+    with tempfile.TemporaryDirectory() as d:
+        sm = PipelineStateManager(d, "world", "v1")
+        for k, v in maps.items():
+            sm.set_buffer(k, v)
+        fails, sync_ms = _timed(lambda: sm.save_all(async_=False))
+        _check(fails == {}, f"sync save failed: {fails}")
+        t0 = time.perf_counter()
+        for k in maps:
+            sm.save_buffer_to_disk(k, async_=True)
+        queue_ms = (time.perf_counter() - t0) * 1e3
+        sm.serde.flush()
+        async_ms = (time.perf_counter() - t0) * 1e3
+        fresh = PipelineStateManager(d, "world", "v1")
+        for k, v in maps.items():
+            _check(torch.equal(fresh.get_buffer(k), v), f"restored {k} differs")
+        _check(not [n for _, _, ns in os.walk(d) for n in ns if n.endswith(".tmp")],
+               "a .tmp file was left behind")
+        path = fresh.serde._path_for("height")
+        at = os.path.getsize(path) // 2  # a payload byte
+        with open(path, "r+b") as fh:
+            fh.seek(at)
+            b = fh.read(1)
+            fh.seek(at)
+            fh.write(bytes([b[0] ^ 0x10]))
+        try:
+            PipelineStateManager(d, "world", "v1").get_buffer("height")
+            refused = False
+        except OSError as e:
+            refused = "checksum" in str(e)
+        _check(refused, "a corrupted checkpoint was read")
+        # the OBJ writer on the Quickstart's mesh, and byte-identical to the
+        # NumPy writer on a 256² tile of it
+        mesh = heightmap_mesh_overshoot(sim.height_map, 2016, 2048, 1000.0, 2016.0)
+        obj = os.path.join(d, "tile.obj")
+        _, obj_ms = _timed(lambda: ME.to_obj(obj, mesh))
+        obj_mb = os.path.getsize(obj) / 1e6
+        small = heightmap_mesh_overshoot(sim.height_map[:264, :264].contiguous(), 256, 264,
+                                         1000.0, 256.0)
+        ME.to_obj(os.path.join(d, "a.obj"), small)
+        ME.to_obj_numpy(os.path.join(d, "b.obj"), small)
+        with open(os.path.join(d, "a.obj"), "rb") as fa, open(os.path.join(d, "b.obj"),
+                                                              "rb") as fb:
+            _check(fa.read() == fb.read(), "the native OBJ differs from the NumPy writer's")
+    mb = sum(v.numel() * 4 for v in maps.values()) / 1e6
+    print(f"native IO 2048² ({len(maps)} maps, {mb:.1f} MB): save_all sync {sync_ms:.3f} ms; "
+          f"async {queue_ms:.3f} ms to queue, {async_ms:.3f} ms with flush; restored equal, "
+          f"corrupted payload refused; OBJ of {mesh.positions.shape[0]} vertices "
+          f"({obj_mb:.1f} MB) {obj_ms:.1f} ms, 256² byte-identical to the NumPy writer's")
+
+
+def sharded_phase():
+    """The field-level parallel layer on one card: a one-rank NCCL group,
+    ``spatial_mesh`` and ``batch_mesh`` of 1, the five sharded field ops
+    at 2048² against the local ops (bit-equal), and ``tile_batch(mesh=)``
+    of 4 of config 5's tiles against ``tile_batch``."""
+    import torch
+    import torch.distributed as dist
+
+    from noize_tpu_torch.ops.cuda.flow import flow_map_fused
+    from noize_tpu_torch.ops.cuda.stencil import gauss_chain
+    from noize_tpu_torch.ops.cuda.thermal import thermal_erosion_fused
+    from noize_tpu_torch.ops.fractal import fractal
+    from noize_tpu_torch.ops.kernels import kernel_filter
+    from noize_tpu_torch.parallel import device_mesh as DM
+    from noize_tpu_torch.parallel import distributed as D
+    from noize_tpu_torch.parallel import sharded_ops as SO
+    from noize_tpu_torch.parallel import tiled as TL
+
+    noise, blurred, _ = _inputs(2048)
+    fr = dict(noise_type="Simplex", hurst=0.4, octaves=13, noise_size=1700.0)
+    with tempfile.TemporaryDirectory() as d:
+        _check(D.initialize(f"file://{d}/init", 1, 0), "initialize returned False")
+        try:
+            sp, bm = DM.spatial_mesh(), DM.batch_mesh()
+            _check(tuple(sp.shape) == (1, 1) and tuple(bm.shape) == (1,),
+                   f"meshes {sp.shape} {bm.shape}")
+            ops = {
+                "fractal": (lambda: SO.sharded_fractal(sp, 2048, 0.0, 0.0, **fr),
+                            lambda: fractal(2048, 0.0, 0.0, device="cuda", **fr)),
+                "gauss_blur": (lambda: SO.sharded_gauss_blur(sp, noise, 5, 1.0, 17),
+                               lambda: gauss_chain(noise, 5, 1.0, 17)),
+                "kernel_filter": (lambda: SO.sharded_kernel_filter(sp, blurred, "Sobel3_2D"),
+                                  lambda: kernel_filter(blurred, "Sobel3_2D")),
+                "thermal": (lambda: SO.sharded_thermal_erosion(sp, blurred, 45.0, 0.5, 1.0),
+                            lambda: thermal_erosion_fused(blurred, 45.0, 0.5, 1.0)),
+                "flow_map": (lambda: SO.sharded_flow_map(sp, blurred, 8),
+                             lambda: flow_map_fused(blurred, 8)),
+            }
+            _reset_counts()
+            got = {k: _timed(f) for k, (f, _) in ops.items()}  # the first calls
+            counts = _read_counts()
+            for k, (sharded, local) in ops.items():
+                _, warm_ms = _timed(sharded)
+                want, local_ms = _timed(local)
+                _check(torch.equal(got[k][0].full_tensor(), want),
+                       f"sharded {k} differs from the local op")
+                print(f"sharded {k} 2048² on a 1×1 mesh: first call {got[k][1]:.3f} ms, then "
+                      f"{warm_ms:.3f} ms (local {local_ms:.3f} ms), equal")
+            for key, n in (("K1", 3), ("K2", 1), ("K3", 1)):
+                _check(counts[key] == n, f"sharded ops launched {key} {counts[key]} times")
+            cfg, origins = config5()
+            tiles, mesh_ms = _timed(lambda: TL.tile_batch(cfg, origins[:4], mesh=bm))
+            want, local_ms = _timed(lambda: TL.tile_batch(cfg, origins[:4]))
+            _check(torch.equal(tiles.full_tensor(), want), "tile_batch(mesh=) differs")
+        finally:
+            dist.destroy_process_group()
+    print(f"sharded launches {counts}; tile_batch(mesh=batch_mesh of 1) of 4 config-5 tiles "
+          f"{mesh_ms:.1f} ms (without mesh {local_ms:.1f} ms), equal")
+
+
 def profile_step(sim):
     """One more ``ErosionSim.step()`` under ``torch.profiler``: device busy
     time, idle share of the wall clock and the kernels that take it."""
@@ -1298,6 +1589,10 @@ def main():
     cli_phase()
     generator_phase()
     continuous_phase()
+    vegetation_phase()
+    exact_piles_phase(rows)
+    native_io_phase(sim)
+    sharded_phase()
     profile_step(sim)  # last: no timed phase runs after the profiler
     pool_trace_phase()
     plan_trace_phase(rows)

@@ -47,17 +47,23 @@ SIGNATURES = {
     # launches, tile rows, tile cols, threads, stream
     "noize_separable_chain": (_P, _P, _P, _I, _I, _I, _P, _P, _I, _F, _P, _I, _I, _I, _I,
                               _P),
-    # height, out, carry (2 x 5 stacks), res, maps in the stack, iterations
-    # per launch (host i32[launches]), launches, window side, norm_min,
-    # rng, stream
-    "noize_flow_map": (_P, _P, _P, _I, _I, _P, _I, _I, _F, _F, _P),
-    # in, out, tmp, res, iterations per launch (host i32[launches]),
+    # height, out, carry (2 x 5 stacks), rows, cols, maps in the stack,
+    # iterations per launch (host i32[launches]), launches, window side,
+    # norm_min, rng, stream
+    "noize_flow_map": (_P, _P, _P, _I, _I, _I, _P, _I, _I, _F, _F, _P),
+    # in, out, tmp, rows, cols, the map's origin row and column on the
+    # grid, grid side, iterations per launch (host i32[launches]),
     # launches, tile rows, tile cols, threads, max_diff, increment, stream
-    "noize_thermal_erosion": (_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _F, _P),
+    "noize_thermal_erosion": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _F, _F,
+                              _P),
     # height, pool_in, pool_out, drains, flag, pool_tmp, res, iterations,
     # drain_particles, stream (K4: even res; K5: any res)
     "noize_pool_automata": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "noize_pool_automata_full": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # height (in place), volumes, flat cell indices (i64), piles, rows,
+    # cols, slot row and column offsets, round ends, radius, slots,
+    # increment, stream (K6)
+    "noize_exact_piles": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _F, _P),
 }
 
 _LIB = None

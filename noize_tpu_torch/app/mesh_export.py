@@ -2,15 +2,20 @@
 (+ raw NPZ) writers for the emitted vertex/index streams.
 
 OBJ carries positions, normals and uvs (tangents have no OBJ slot; NPZ
-keeps all five streams).  ``to_obj`` writes through NumPy's ``savetxt``,
-text-identical to the reference's NumPy route.  Works with both emission
-layouts (``MeshArrays`` and ``MeshPlanes``).
+keeps all five streams).  ``to_obj`` writes through the native IO
+runtime's buffered writer (``native.obj_write``), byte-identical to the
+NumPy ``savetxt`` writer kept beside it as its plain version
+(``to_obj_numpy``), and so to the reference's ``to_obj`` on either of its
+routes.  Works with both emission layouts (``MeshArrays`` and
+``MeshPlanes``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .. import native
 
 
 def _np(t) -> np.ndarray:
@@ -29,7 +34,14 @@ def _streams(mesh):
 def to_obj(path: str, mesh, name: str = "noize_tile") -> None:
     """Write a Wavefront OBJ with v/vt/vn streams and f v/vt/vn faces,
     winding as emitted (SquareGridHeightMap.cs:96-103), 1-based indices,
-    one shared index per vertex."""
+    one shared index per vertex; atomically, through the native writer."""
+    pos, nrm, uv, idx = _streams(mesh)
+    native.obj_write(path, name, pos, nrm, uv, idx)
+
+
+def to_obj_numpy(path: str, mesh, name: str = "noize_tile") -> None:
+    """``to_obj`` through NumPy's ``savetxt``: the plain version the tests
+    hold the native writer to, byte for byte."""
     pos, nrm, uv, idx = _streams(mesh)
     faces = idx + 1
     with open(path, "w") as fh:

@@ -11,8 +11,8 @@ exception to every order of the batch; ``drain`` waits on the queue's
 unfinished-task count, which drops only after an order's batch and
 callback are done.
 
-Single-process, one-device serving; the sharded batch (``mesh=``) waits
-for the port of ``parallel/``.
+Single-process, one-device serving; the sharded server (``mesh=``)
+waits for ROADMAP queue 1's last item, with the sharded erosion cycle.
 """
 
 from __future__ import annotations
@@ -29,6 +29,11 @@ import torch
 
 from ..core.tiles import TileRequest
 from ..parallel import tiled as TL
+
+
+NO_MESH = ("TileServer(mesh=...): the sharded server waits for ROADMAP queue 1's last "
+           "item (the sharded erosion cycle, the sharded mesh and checkpoint, and "
+           "TileServer(mesh=))")
 
 log = logging.getLogger(__name__)
 
@@ -61,7 +66,7 @@ class TileServer:
         device="cuda",
     ):
         if mesh is not None:
-            raise NotImplementedError(TL.NO_MESH)
+            raise NotImplementedError(NO_MESH)
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():

@@ -2,7 +2,7 @@
 
 The system has no weights; what crosses is the erosion state — the five
 ``WorldState`` maps, the queued drain water and the threefry key (uint32[2]
-in both packages) — particle buffers, the
+in both packages) — particle buffers, plant sets, the
 configuration dataclasses and the buffer store's save directories.
 Arrays travel as numpy: float32 stays float32, int32 stays int32, bool
 stays bool.  The JAX dataclasses travel as plain dicts
@@ -20,6 +20,7 @@ from .core.tiles import TileSetMeta
 from .erosion.params import ErosionMode, ErosionSettings
 from .erosion.particles import Particles
 from .erosion.sim import SimState
+from .erosion.vegetation import Plants, PlantType
 from .erosion.world import WorldState
 from .prng import PRNGKey
 
@@ -74,6 +75,19 @@ def particles_from_numpy(parts: dict, device="cuda") -> Particles:
 
 def particles_to_numpy(p: Particles) -> dict:
     return {k: getattr(p, k).cpu().numpy() for k in Particles._fields}
+
+
+def plants_from_jax(plants, device="cuda") -> Plants:
+    """The port's ``Plants`` from the reference's (a NamedTuple of arrays,
+    or any mapping of the six fields): int32, float32 and bool as they
+    are."""
+    fields = plants._asdict() if hasattr(plants, "_asdict") else plants
+    return Plants(**{k: _to_tensor(fields[k], device) for k in Plants._fields})
+
+
+def plant_type_from_jax(ptype: dict) -> PlantType:
+    """The port's ``PlantType`` from ``asdict`` of the reference's."""
+    return PlantType(**ptype)
 
 
 def meta_from_jax(meta: dict) -> TileSetMeta:

@@ -1,19 +1,18 @@
-"""Buffer store disk serialization — port of ``noize_tpu.core.serde``
-(the NumPy route; no native library, so ``save(async_=True)`` writes at
-once and ``flush`` has nothing to wait for).
+"""Buffer store disk serialization — port of ``noize_tpu.core.serde``, on
+the port's native IO runtime (``noize_tpu_torch.native``).
 
 Layout (PipelineSerialization.cs:15-236): a save root
-``save__{name}_{version}/`` holding ``data/{buffer}.data`` raw
-little-endian dumps and a ``files.json`` manifest mapping buffer name →
-file, element count, dtype and shape.  Files and manifest are
-byte-identical to what ``noize_tpu``'s NumPy route writes, so a checkpoint
-written by either package restores in the other.
-
-The reader also takes the reference's native format (32-byte header:
-u64 magic 'NZTFU', u32 version, u32 reserved, u64 payload bytes, u64
-FNV-1a checksum, then the payload), which ``noize_tpu`` writes where its
-C++ library is built, and verifies the checksum: a corrupt checkpoint
-raises.
+``save__{name}_{version}/`` holding ``data/{buffer}.data`` files and a
+``files.json`` manifest mapping buffer name → file, element count, dtype
+and shape.  Every file is written in the native format, as ``noize_tpu``
+writes it where its C++ library is built: a 32-byte header (u64 magic
+'NZTFU', u32 version, u32 reserved, u64 payload bytes, u64 FNV-1a
+checksum), then the raw little-endian payload; atomically (a temporary
+file, then a rename), at once or queued on the library's write pool
+(``save(async_=True)``, barrier ``flush()``).  Reads verify the checksum —
+a corrupt checkpoint raises — and take the legacy raw dumps that
+``noize_tpu``'s NumPy route writes, so a checkpoint written by either
+package restores in the other.
 """
 
 from __future__ import annotations
@@ -25,38 +24,21 @@ from typing import Dict, Optional
 
 import numpy as np
 
-MANIFEST = "files.json"
+from .. import native
 
-_NATIVE_MAGIC = (0x4E5A544655).to_bytes(8, "little")
-_NATIVE_HEADER_BYTES = 32
+MANIFEST = "files.json"
 
 
 def _fnv1a(data: bytes) -> int:
-    """FNV-1a 64 over the payload (serde_native.cpp::fnv1a).  The chain is
-    sequential per byte; about 1-2 s per 16 MB map."""
+    """FNV-1a 64 over the payload, in Python (serde_native.cpp::fnv1a):
+    the native format's checksum, for tools that check a file without the
+    library."""
     h = 1469598103934665603
     prime = 1099511628211
     mask = (1 << 64) - 1
     for b in memoryview(data):
         h = ((h ^ b) * prime) & mask
     return h
-
-
-def _read(path: str, dtype) -> np.ndarray:
-    """Read a raw dump or a native-format file (checksum verified)."""
-    with open(path, "rb") as fh:
-        head = fh.read(_NATIVE_HEADER_BYTES)
-        if len(head) == _NATIVE_HEADER_BYTES and head[:8] == _NATIVE_MAGIC:
-            nbytes = int.from_bytes(head[16:24], "little")
-            checksum = int.from_bytes(head[24:32], "little")
-            payload = fh.read(nbytes)
-            if len(payload) != nbytes:
-                raise IOError(f"truncated native checkpoint: {path}")
-            if _fnv1a(payload) != checksum:
-                raise IOError(f"checksum mismatch in checkpoint: {path}")
-            return np.frombuffer(payload, dtype=np.dtype(dtype))
-        fh.seek(0)
-        return np.fromfile(fh, dtype=np.dtype(dtype))
 
 
 @dataclass
@@ -125,21 +107,25 @@ class SerdeManager:
         return os.path.join(self.data_dir, f"{safe}.data")
 
     def save(self, name: str, array: np.ndarray, async_: bool = False):
-        """Dump one buffer and rewrite the manifest.  The write is always
-        made at once: ``async_`` (the reference's native write pool, not
-        ported) changes nothing, as it does in the reference without its
-        native library."""
+        """Dump one host buffer (NZTFU, atomic) and rewrite the manifest.
+        ``async_`` queues the write on the native pool, which copies the
+        bytes before returning; ``flush()`` waits for it."""
         os.makedirs(self.data_dir, exist_ok=True)
         arr = np.ascontiguousarray(array)
         path = self._path_for(name)
-        arr.tofile(path)
+        if async_:
+            native.write_file_async(path, arr)
+        else:
+            native.write_file(path, arr)
         self.directory.entries[name] = FileObject(
             os.path.basename(path), arr.size, str(arr.dtype), arr.shape)
         self.directory.flush()
 
     def flush(self):
-        """Barrier for ``async_`` saves: a no-op, every save is already
-        on disk."""
+        """Barrier for ``async_`` saves: every queued write is on disk
+        (and renamed into place) when this returns; raises if one
+        failed."""
+        native.wait(0)
 
     def exists(self, name: str) -> bool:
         return name in self.directory and os.path.exists(self._path_for(name))
@@ -149,7 +135,7 @@ class SerdeManager:
         if not self.exists(name):
             return None
         fo = self.directory.entries[name]
-        flat = _read(self._path_for(name), fo.dtype)
+        flat = native.read_file(self._path_for(name), fo.dtype)
         if flat.size != fo.count:
             raise IOError(
                 f"corrupt checkpoint for {name!r}: {flat.size} != {fo.count}")

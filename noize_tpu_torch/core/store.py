@@ -23,6 +23,8 @@ log = logging.getLogger(__name__)
 
 
 def _host(value) -> np.ndarray:
+    # a blocking copy: an async save hands the bytes to the native write
+    # pool at once, so they must have landed
     if isinstance(value, torch.Tensor):
         return value.detach().cpu().numpy()
     return np.asarray(value)

@@ -38,7 +38,9 @@
 // water and flows to device memory for the next (two sets of five maps,
 // ping-ponged).  Every op rounds on its own, in the reference's order.
 //
-// A stack of `batch` maps (parallel/tiled's [T, R, R] tiles) runs in the
+// Maps need not be square (parallel/sharded_ops runs K2 on a shard's block
+// extended toward its neighbours).  A stack of `batch` maps
+// (parallel/tiled's [T, R, R] tiles) runs in the
 // same launches as one map: the map index is blockIdx.z, every device
 // index is offset to its map (the carry holds a set of five maps per map),
 // and the window clamps to the map's own cells, so no block reads another
@@ -77,7 +79,7 @@ struct State {
 // m iterations on one tile (W = x-1, E = x+1, S = z-1, N = z+1).
 __global__ void __launch_bounds__(kThreads)
 flow_tile(const float* __restrict__ height, State in, State carry, float* __restrict__ out,
-          int res, int m, int first, int last, float norm_min, float rng) {
+          int rows, int cols, int m, int first, int last, float norm_min, float rng) {
   extern __shared__ float planes[];
   float* tot = planes;  // height + water
   float* pw = planes + kCells;
@@ -88,11 +90,11 @@ flow_tile(const float* __restrict__ height, State in, State carry, float* __rest
   const int tile = kRegion - 2 * halo;
   const int z0 = blockIdx.y * tile - halo, x0 = blockIdx.x * tile - halo;
   // the window's cells on the grid, in window coordinates
-  const int zl = max(0, z0) - z0, zh = min(res - 1, z0 + kRegion - 1) - z0;
-  const int xl = max(0, x0) - x0, xh = min(res - 1, x0 + kRegion - 1) - x0;
+  const int zl = max(0, z0) - z0, zh = min(rows - 1, z0 + kRegion - 1) - z0;
+  const int xl = max(0, x0) - x0, xh = min(cols - 1, x0 + kRegion - 1) - x0;
   const int tx = threadIdx.x, r0 = threadIdx.y * kSlotsZ;
   constexpr int kLast = kSlotsZ - 1;
-  const size_t base = (size_t)blockIdx.z * res * res;  // this block's map of the stack
+  const size_t base = (size_t)blockIdx.z * rows * cols;  // this block's map of the stack
 
   float h[kSlotsZ][kSlotsX], w[kSlotsZ][kSlotsX];
   float fw[kSlotsZ][kSlotsX], fe[kSlotsZ][kSlotsX], fs[kSlotsZ][kSlotsX],
@@ -104,7 +106,7 @@ flow_tile(const float* __restrict__ height, State in, State carry, float* __rest
       const int r = r0 + a, c = tx + 32 * b, i = r * kRegion + c;
       h[a][b] = w[a][b] = fw[a][b] = fe[a][b] = fs[a][b] = fn[a][b] = 0.0f;
       if (r < zl || r > zh || c < xl || c > xh) continue;
-      const size_t g = base + (size_t)(z0 + r) * res + (x0 + c);
+      const size_t g = base + (size_t)(z0 + r) * cols + (x0 + c);
       h[a][b] = height[g];
       if (first) {
         w[a][b] = kWaterInit;
@@ -191,7 +193,7 @@ flow_tile(const float* __restrict__ height, State in, State carry, float* __rest
       const int r = r0 + a, c = tx + 32 * b, i = r * kRegion + c;
       if (r < halo || r >= halo + tile || c < halo || c >= halo + tile) continue;
       if (r < zl || r > zh || c < xl || c > xh) continue;
-      const size_t g = base + (size_t)(z0 + r) * res + (x0 + c);
+      const size_t g = base + (size_t)(z0 + r) * cols + (x0 + c);
       if (!last) {
         carry.w[g] = w[a][b];
         carry.fw[g] = fw[a][b];
@@ -238,33 +240,33 @@ State state_set(float* carry, int set, size_t n) {
 
 }  // namespace
 
-// height, out: `batch` res^2 maps each, one after another.  per_launch
+// height, out: `batch` rows x cols maps each, one after another.  per_launch
 // (host int[launches]): iterations of each launch, in order (a call of 0
 // iterations is one launch of 0).  carry: two sets of five stacks of
-// `batch` res^2 maps (water, W, E, S, N flows), read and written only when
+// `batch` rows x cols maps (water, W, E, S, N flows), read and written only when
 // launches > 1.  region: the window side the caller planned with; it must
 // be kRegion.
-extern "C" int noize_flow_map(const float* height, float* out, float* carry, int res,
-                              int batch, const int* per_launch, int launches, int region,
-                              float norm_min, float rng, void* stream_ptr) {
+extern "C" int noize_flow_map(const float* height, float* out, float* carry, int rows,
+                              int cols, int batch, const int* per_launch, int launches,
+                              int region, float norm_min, float rng, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (res < 1 || batch < 1 || batch > 65535 || launches < 1 || region != kRegion ||
+  if (rows < 1 || cols < 1 || batch < 1 || batch > 65535 || launches < 1 || region != kRegion ||
       (launches > 1 && carry == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = configure();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t n = (size_t)batch * res * res;
+  const size_t n = (size_t)batch * rows * cols;
   for (int i = 0; i < launches; ++i) {
     const int m = per_launch[i];
     const int last = i == launches - 1;
     const int tile = kRegion - 4 * m;
     if (m < 0 || tile < 1 || (m == 0 && !last)) return static_cast<int>(cudaErrorInvalidValue);
-    const int tiles = (res + tile - 1) / tile;
+    const dim3 grid((cols + tile - 1) / tile, (rows + tile - 1) / tile, batch);
     const State in = i > 0 ? state_set(carry, (i - 1) % 2, n) : State{};
     const State next = last ? State{} : state_set(carry, i % 2, n);
-    flow_tile<<<dim3(tiles, tiles, batch), dim3(32, kRows), kSharedBytes, stream>>>(
-        height, in, next, out, res, m, i == 0, last, norm_min, rng);
+    flow_tile<<<grid, dim3(32, kRows), kSharedBytes, stream>>>(
+        height, in, next, out, rows, cols, m, i == 0, last, norm_min, rng);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

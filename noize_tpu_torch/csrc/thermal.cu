@@ -81,12 +81,18 @@ struct Layout {
 // First value >= v of the parity of p.
 __device__ __forceinline__ int from_parity(int v, int p) { return v + ((v - p) & 1); }
 
-__global__ void thermal_tile(const float* __restrict__ in, float* __restrict__ out, int res,
-                             int m, int tile_z, int tile_x, float max_diff, float inc) {
+// The map is rows x cols cells of a res^2 grid, its cell (0, 0) at grid
+// cell (org_z, org_x); tiles start at the even grid coordinates (tz0, tx0)
+// at or before the origin.
+__global__ void thermal_tile(const float* __restrict__ in, float* __restrict__ out, int rows,
+                             int cols, int org_z, int org_x, int res, int m, int tile_z,
+                             int tile_x, float max_diff, float inc) {
   extern __shared__ float window[];
   const Layout lay(m, tile_z, tile_x);
   const int hz = 2 * m, hx = 4 * m - 1;
-  const int gz = blockIdx.y * tile_z, gx = blockIdx.x * tile_x;  // the tile's origin
+  const int gz = (org_z & ~1) + blockIdx.y * tile_z;  // the tile's origin
+  const int gx = (org_x & ~1) + blockIdx.x * tile_x;
+  const int z_end = org_z + rows - 1, x_end = org_x + cols - 1;  // the map's last cells
   const int oz = gz - hz;      // grid row of window row 0
   const int ox = gx - hx - 1;  // grid column of plane word 0 (even)
   // word of grid cell (z, x)
@@ -96,14 +102,15 @@ __global__ void thermal_tile(const float* __restrict__ in, float* __restrict__ o
   };
 
   // the region still exact, inclusive, on grid coordinates: at first the
-  // window's cells on the grid
-  int zl = max(0, oz), zh = min(res - 1, gz + tile_z - 1 + hz);
-  int xl = max(0, gx - hx), xh = min(res - 1, gx + tile_x - 1 + hx);
+  // window's cells on the map
+  int zl = max(org_z, oz), zh = min(z_end, gz + tile_z - 1 + hz);
+  int xl = max(org_x, gx - hx), xh = min(x_end, gx + tile_x - 1 + hx);
   {
     const int nx = xh - xl + 1, nz = zh - zl + 1;
     for (Items it(nx); it.chunk < nz; it.next()) {
       const int z = zl + it.chunk, x = xl + it.line;
-      noize::copy_async(window + word(z, x), in + (size_t)z * res + x, true);
+      noize::copy_async(window + word(z, x), in + (size_t)(z - org_z) * cols + (x - org_x),
+                        true);
     }
   }
   noize::copy_async_wait();
@@ -145,11 +152,13 @@ __global__ void thermal_tile(const float* __restrict__ in, float* __restrict__ o
     __syncthreads();
   }
 
-  // the tile (inside the region: the halo covers what it lost)
-  const int nx = min(tile_x, res - gx), nz = min(tile_z, res - gz);
+  // the tile's cells on the map (inside the region where the map's edge is
+  // the grid's: the halo covers what it lost)
+  const int z0 = max(gz, org_z), x0 = max(gx, org_x);
+  const int nx = min(gx + tile_x - 1, x_end) - x0 + 1, nz = min(gz + tile_z - 1, z_end) - z0 + 1;
   for (Items it(nx); it.chunk < nz; it.next()) {
-    const int z = gz + it.chunk, x = gx + it.line;
-    out[(size_t)z * res + x] = window[word(z, x)];
+    const int z = z0 + it.chunk, x = x0 + it.line;
+    out[(size_t)(z - org_z) * cols + (x - org_x)] = window[word(z, x)];
   }
 }
 
@@ -177,35 +186,43 @@ cudaError_t configure(int* optin) {
 
 }  // namespace
 
-// per_launch (host int[launches]): iterations of each launch, in order; a
-// call of 0 launches copies in to out.  tmp: a second map, read only when
-// launches > 1.  tile_z, tile_x: even output tile sides.
-extern "C" int noize_thermal_erosion(const float* in, float* out, float* tmp, int res,
+// in, out: rows x cols maps, cell (0, 0) at grid cell (org_z, org_x) of a
+// res^2 grid (the whole grid: rows = cols = res, origin 0).  Parity, the
+// anchors' coverage and the border are the grid's; near an edge of the map
+// that is not the grid's edge the cells come out stale (the sharded thermal
+// erosion crops them).  per_launch (host int[launches]): iterations of each
+// launch, in order; a call of 0 launches copies in to out.  tmp: a second
+// map, read only when launches > 1.  tile_z, tile_x: even output tile sides.
+extern "C" int noize_thermal_erosion(const float* in, float* out, float* tmp, int rows,
+                                     int cols, int org_z, int org_x, int res,
                                      const int* per_launch, int launches, int tile_z,
                                      int tile_x, int threads, float max_diff, float increment,
                                      void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (res < 1 || launches < 0 || tile_z < 2 || tile_x < 2 || tile_z % 2 || tile_x % 2 ||
-      threads < 32 || threads > 1024 || threads % 32 || (launches > 1 && tmp == nullptr)) {
+  if (rows < 1 || cols < 1 || org_z < 0 || org_x < 0 || org_z + rows > res ||
+      org_x + cols > res || launches < 0 || tile_z < 2 || tile_x < 2 || tile_z % 2 ||
+      tile_x % 2 || threads < 32 || threads > 1024 || threads % 32 ||
+      (launches > 1 && tmp == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (launches == 0) {
-    cudaMemcpyAsync(out, in, sizeof(float) * (size_t)res * res, cudaMemcpyDeviceToDevice,
+    cudaMemcpyAsync(out, in, sizeof(float) * (size_t)rows * cols, cudaMemcpyDeviceToDevice,
                     stream);
     return static_cast<int>(cudaGetLastError());
   }
   int optin = 0;
   cudaError_t err = configure(&optin);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((res + tile_x - 1) / tile_x, (res + tile_z - 1) / tile_z);
+  const dim3 grid((org_x + cols - (org_x & ~1) + tile_x - 1) / tile_x,
+                  (org_z + rows - (org_z & ~1) + tile_z - 1) / tile_z);
   const float* src = in;
   for (int i = 0; i < launches; ++i) {
     const int m = per_launch[i];
     const size_t bytes = Layout(m, tile_z, tile_x).bytes();
     if (m < 1 || bytes > (size_t)optin) return static_cast<int>(cudaErrorInvalidValue);
     float* dst = ((launches - 1 - i) % 2 == 0) ? out : tmp;
-    thermal_tile<<<grid, threads, bytes, stream>>>(src, dst, res, m, tile_z, tile_x, max_diff,
-                                                   increment);
+    thermal_tile<<<grid, threads, bytes, stream>>>(src, dst, rows, cols, org_z, org_x, res, m,
+                                                   tile_z, tile_x, max_diff, increment);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     src = dst;

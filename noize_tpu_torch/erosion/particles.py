@@ -98,18 +98,28 @@ def _velocity_term(v_diff, eff_friction, gravity, patch_res, sign):
     return sqrt(2.0 * torch.abs(accel) * (v_diff / torch.sin(theta)))
 
 
+def _with_plants(params) -> bool:
+    """The vegetation friction extension is on."""
+    return getattr(params, "VEGETATION_FRICTION", 0.0) > 0.0
+
+
 def step_maps(state: WorldState, params, height_scale):
     """The descent's read-only lookup table: [wih, all_heights, flow]
-    flattened and concatenated (the reference's ``"waf"`` layout)."""
+    flattened and concatenated (the reference's ``"waf"`` layout), with
+    the plant density map as a fourth part when ``VEGETATION_FRICTION``
+    is on."""
     wih_map = height_scale * (state.height + state.pool)
     all_h = wih_map + params.FLOW_HEIGHT_CONTRIBUTION * state.flow
-    return torch.cat([wih_map.reshape(-1), all_h.reshape(-1),
-                      state.flow.reshape(-1)])
+    pieces = [wih_map.reshape(-1), all_h.reshape(-1), state.flow.reshape(-1)]
+    if _with_plants(params):
+        pieces.append(state.plants.reshape(-1))
+    return torch.cat(pieces)
 
 
-def _gather_step_values(combo, row_i, col_i, res):
+def _gather_step_values(combo, row_i, col_i, res, with_plants=False):
     """All of a step's map lookups: 8 quantised all-heights neighbours,
-    the WIH and the flow at the particle."""
+    the WIH and the flow at the particle, and the plant density there
+    when ``with_plants`` (else None)."""
     n = row_i.shape[0]
     sz = res * res
     dr = torch.tensor(_NB_DR, dtype=row_i.dtype, device=row_i.device)
@@ -117,10 +127,13 @@ def _gather_step_values(combo, row_i, col_i, res):
     r = torch.clamp(row_i[:, None] + dr[None, :], 0, res - 1)
     c = torch.clamp(col_i[:, None] + dc[None, :], 0, res - 1)
     center = row_i * res + col_i
-    idx = torch.cat([(r * res + c).reshape(-1) + sz, center, center + 2 * sz])
-    vals = combo[idx.long()]
+    parts = [(r * res + c).reshape(-1) + sz, center, center + 2 * sz]
+    if with_plants:
+        parts.append(center + 3 * sz)
+    vals = combo[torch.cat(parts).long()]
     nb = _quantize(vals[:8 * n].reshape(n, 8))
-    return nb, vals[8 * n:9 * n], vals[9 * n:10 * n]
+    plants_here = vals[10 * n:] if with_plants else None
+    return nb, vals[8 * n:9 * n], vals[9 * n:10 * n], plants_here
 
 
 def descend_step(p: Particles, state: WorldState, params, height_scale,
@@ -137,9 +150,6 @@ def descend_step(p: Particles, state: WorldState, params, height_scale,
             "descend_step: patch prefetch and windowed tables are not ported")
     if table_layout not in ("waf", "wf"):
         raise ValueError(f"unknown table_layout {table_layout!r}")
-    if getattr(params, "VEGETATION_FRICTION", 0.0) > 0.0:
-        raise NotImplementedError(
-            "VEGETATION_FRICTION > 0 is not ported to noize_tpu_torch yet")
     inv_hs = recip(height_scale)
     row_i = torch.clamp(torch.round(p.row).to(torch.int32), 0, res - 1)
     col_i = torch.clamp(torch.round(p.col).to(torch.int32), 0, res - 1)
@@ -155,8 +165,10 @@ def descend_step(p: Particles, state: WorldState, params, height_scale,
 
     active = was_alive & ~dehydrated & ~too_old
 
+    with_plants = _with_plants(params)
     combo = maps if maps is not None else step_maps(state, params, height_scale)
-    nb, current_h, flow_here = _gather_step_values(combo, row_i, col_i, res)
+    nb, current_h, flow_here, plants_here = _gather_step_values(
+        combo, row_i, col_i, res, with_plants=with_plants)
 
     # natural drain: argmin (first-wins) over nb, direction via WTORDER
     drain_nb_idx = torch.argmin(nb, dim=-1).to(torch.int32)
@@ -168,6 +180,11 @@ def descend_step(p: Particles, state: WorldState, params, height_scale,
     flow_pos = torch.clamp_min(flow_here, 0.0)
     eff_drag = params.DRAG * (1.0 - flow_pos)
     eff_friction = params.FRICTION * (1.0 - flow_pos)
+    if with_plants:
+        # the reference's extension: plant density scales friction,
+        # capped at 2 stacked canopies
+        eff_friction = eff_friction * (
+            1.0 + params.VEGETATION_FRICTION * torch.clamp_max(plants_here, 2.0))
 
     # constrained steering; RING_TO_NB: nb = ring//2 + 4·(ring&1)
     left = (heading + 7) % 8

@@ -7,7 +7,8 @@ The plain version is ``ops.flow.flow_map``.
 
 K2 keeps the state on chip for several iterations: :func:`flow_plan` splits
 the iterations into launches, each of which runs its iterations on a tile
-and its halo in shared memory and registers.  A stack of maps ``[T, R, R]``
+and its halo in shared memory and registers.  Maps need not be square (the
+sharded flow map runs on extended shard blocks).  A stack of maps ``[T, R, C]``
 (``parallel.tiled``'s tiles) runs in the same launches as one map, each
 map clamped at its own edges.
 
@@ -65,29 +66,29 @@ def flow_plan(iterations: int, per_launch: int = PER_LAUNCH,
 
 def flow_map_fused(height, iterations: int = 5, norm_min=-0.1, norm_max=0.1,
                    block: int = None):
-    """``flow_map`` on K2, of a map ``[R, R]`` or each map of a stack
-    ``[T, R, R]``.  A CPU tensor takes the plain version; a CUDA tensor
+    """``flow_map`` on K2, of a map ``[R, C]`` or each map of a stack
+    ``[T, R, C]``.  A CPU tensor takes the plain version; a CUDA tensor
     launches K2 or raises.  ``block`` (the TPU's row block) does not change
     the result and is ignored."""
     if height.device.type == "cpu":
         return _flow.flow_map(height, iterations, norm_min, norm_max)
-    _cuda.check_map(height, "flow_map_fused", stack=True)
+    _cuda.check_map(height, "flow_map_fused", square=False, stack=True)
     if iterations < 0:
         raise ValueError(f"flow_map_fused: iterations must be ≥ 0, got {iterations}")
     plan = flow_plan(int(iterations))
-    res = height.shape[-1]
+    rows, cols = height.shape[-2:]
     batch = height.shape[0] if height.dim() == 3 else 1
     out = torch.empty_like(height)
     n = len(plan.launches)
     # water and four flows of every map carried between launches,
     # ping-ponged from the third launch on
-    carry = (torch.empty((min(2, n - 1), 5, batch, res, res), dtype=height.dtype,
+    carry = (torch.empty((min(2, n - 1), 5, batch, rows, cols), dtype=height.dtype,
                          device=height.device) if n > 1 else None)
     per_launch = np.asarray(plan.launches, np.int32)
     lo, rng = _flow.norm_params(norm_min, norm_max)
     with torch.cuda.device(height.device):
         _cuda.call("noize_flow_map", height.data_ptr(), out.data_ptr(),
-                   None if carry is None else carry.data_ptr(), res, batch,
+                   None if carry is None else carry.data_ptr(), rows, cols, batch,
                    per_launch.ctypes.data, n, REGION, float(lo), float(rng),
                    _cuda.stream(height))
     flow_map_fused.launches += 1

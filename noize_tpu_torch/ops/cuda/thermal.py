@@ -64,6 +64,26 @@ def _max_diff(talus: float, height_width_ratio: float, res: int) -> float:
     return _thermal.max_diff_value(talus, height_width_ratio, res)
 
 
+def _launch(data, iterations: int, max_diff: float, increment, origin, res: int):
+    """K3 on ``data``, a window of a ``res``² grid whose cell (0, 0) is the
+    grid's ``origin``; counted in ``thermal_erosion_fused.launches``."""
+    if iterations < 0:
+        raise ValueError(f"thermal_erosion: iterations must be ≥ 0, got {iterations}")
+    plan = thermal_plan(int(iterations))
+    rows, cols = data.shape
+    out = torch.empty_like(data)
+    tmp = torch.empty_like(data) if len(plan.launches) > 1 else None
+    per_launch = np.asarray(plan.launches, np.int32)
+    with torch.cuda.device(data.device):
+        _cuda.call("noize_thermal_erosion", data.data_ptr(), out.data_ptr(),
+                   None if tmp is None else tmp.data_ptr(), rows, cols, int(origin[0]),
+                   int(origin[1]), int(res), per_launch.ctypes.data, len(per_launch),
+                   plan.tile[0], plan.tile[1], plan.threads, max_diff,
+                   float(increment), _cuda.stream(data))
+    thermal_erosion_fused.launches += 1
+    return out
+
+
 def thermal_erosion_fused(data, talus, increment_ratio, height_width_ratio,
                           iterations: int = 1, block: int = None,
                           unroll: bool = True):
@@ -75,21 +95,30 @@ def thermal_erosion_fused(data, talus, increment_ratio, height_width_ratio,
         return _thermal.thermal_erosion(data, talus, increment_ratio,
                                         height_width_ratio, iterations)
     _cuda.check_map(data, "thermal_erosion_fused")
-    if iterations < 0:
-        raise ValueError(f"thermal_erosion_fused: iterations must be ≥ 0, got {iterations}")
-    plan = thermal_plan(int(iterations))
     res = data.shape[0]
-    out = torch.empty_like(data)
-    tmp = torch.empty_like(data) if len(plan.launches) > 1 else None
-    per_launch = np.asarray(plan.launches, np.int32)
-    max_diff = _max_diff(float(talus), float(height_width_ratio), res)
-    with torch.cuda.device(data.device):
-        _cuda.call("noize_thermal_erosion", data.data_ptr(), out.data_ptr(),
-                   None if tmp is None else tmp.data_ptr(), res, per_launch.ctypes.data,
-                   len(per_launch), plan.tile[0], plan.tile[1], plan.threads, max_diff,
-                   float(increment_ratio), _cuda.stream(data))
-    thermal_erosion_fused.launches += 1
-    return out
+    return _launch(data, iterations, _max_diff(float(talus), float(height_width_ratio), res),
+                   increment_ratio, (0, 0), res)
 
 
 thermal_erosion_fused.launches = 0
+
+
+def thermal_erosion_window(data, talus, increment_ratio, height_width_ratio,
+                           iterations: int, origin, res: int):
+    """``thermal_erosion`` of a ``res``² grid on a window of it: ``data``
+    (rows × cols) holds the grid's cells from ``origin`` = (row, col) on.
+    Parity, coverage, border and ``max_diff`` are the grid's.  Cells within
+    2 a phase of a window edge that is not the grid's edge are not exact
+    (the sharded thermal erosion extends its blocks by that much and crops
+    it).  A CPU tensor takes the plain version; a CUDA tensor launches K3
+    (counted in ``thermal_erosion_fused.launches``) or raises."""
+    if data.device.type == "cpu":
+        return _thermal.thermal_erosion_window(data, talus, increment_ratio,
+                                               height_width_ratio, iterations, origin, res)
+    _cuda.check_map(data, "thermal_erosion_window", square=False)
+    if origin[0] < 0 or origin[1] < 0 or origin[0] + data.shape[0] > res \
+            or origin[1] + data.shape[1] > res:
+        raise ValueError(f"thermal_erosion_window: a {tuple(data.shape)} window at {origin} "
+                         f"leaves the {res}² grid")
+    return _launch(data, iterations, _max_diff(float(talus), float(height_width_ratio), res),
+                   increment_ratio, origin, res)

@@ -107,6 +107,20 @@ def fractal(
     global noise domain.  Sequences of T origins give a stack ``[T,
     resolution, resolution]`` whose tiles equal their own calls bit for
     bit (``jax.vmap`` of the reference over float32 origins)."""
+    return fractal_window(0, 0, resolution, resolution, xpos, zpos, noise_type=noise_type,
+                          hurst=hurst, octaves=octaves, stepdown=stepdown,
+                          detune_rate=detune_rate, noise_size=noise_size,
+                          starting_amplitude=starting_amplitude, device=device)
+
+
+def fractal_window(row0: int, col0: int, rows: int, cols: int, xpos, zpos, *,
+                   noise_type: str = "Perlin", hurst=0.0, octaves: int = 1, stepdown=2.0,
+                   detune_rate=0.0, noise_size=1000.0, starting_amplitude=1.0,
+                   device="cuda"):
+    """Rows ``row0 .. row0 + rows`` and columns ``col0 .. col0 + cols`` of
+    the ``fractal`` tile at (``xpos``, ``zpos``), bit-equal to that slice of
+    the whole tile (a shard's block, ``parallel.sharded_ops``): the grid
+    coordinates are exact float32 integers either way."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("fractal(device='cuda'): no CUDA device")
@@ -119,9 +133,8 @@ def fractal(
     else:
         xpos, zpos = float(xs), float(zs)
     inv_size = float(f32(1.0) / f32(noise_size))
-    ramp = torch.arange(resolution, dtype=_F32, device=device)
-    col = ramp[None, :].expand(resolution, resolution)
-    row = ramp[:, None].expand(resolution, resolution)
+    col = torch.arange(col0, col0 + cols, dtype=_F32, device=device)[None, :].expand(rows, cols)
+    row = torch.arange(row0, row0 + rows, dtype=_F32, device=device)[:, None].expand(rows, cols)
     xi = (col + xpos) * inv_size
     zi = (row + zpos) * inv_size
 

@@ -81,15 +81,24 @@ def max_diff_value(talus, height_width_ratio, res: int) -> float:
     return float(md)
 
 
+def thermal_erosion_window(data, talus, increment_ratio, height_width_ratio,
+                           iterations: int, origin, res: int):
+    """``thermal_erosion`` of a ``res``² grid on the window ``data`` whose
+    cell (0, 0) is the grid's ``origin`` = (row, col): the phases' parity,
+    coverage and ``max_diff`` are the grid's (the plain version of
+    ``ops.cuda.thermal.thermal_erosion_window``)."""
+    max_diff = max_diff_value(talus, height_width_ratio, res)
+    for _ in range(iterations):
+        for x0, z0 in _PHASE_OFFSETS:
+            data = thermal_phase_masked(data, x0, z0, int(origin[0]), int(origin[1]), res,
+                                        max_diff, increment_ratio)
+    return data
+
+
 def thermal_erosion(data, talus, increment_ratio, height_width_ratio,
                     iterations: int = 1):
     """ThermalErosionFilter.Schedule: ``talus`` in degrees,
     ``increment_ratio`` = THERMAL_STEP, ``height_width_ratio`` =
     TILE_SIZE / HEIGHT."""
-    res = data.shape[0]
-    max_diff = max_diff_value(talus, height_width_ratio, res)
-    for _ in range(iterations):
-        for x0, z0 in _PHASE_OFFSETS:
-            data = thermal_phase_masked(data, x0, z0, 0, 0, res, max_diff,
-                                        increment_ratio)
-    return data
+    return thermal_erosion_window(data, talus, increment_ratio, height_width_ratio,
+                                  iterations, (0, 0), data.shape[0])

@@ -13,11 +13,13 @@ a function of world position.  ``tile_batch`` runs a stack of T tiles:
   * the mesh planes run on the stack.
 
 A tile is a pure function of (origin, seed): its particle key is
-``fold_in(fold_in(PRNGKey(seed), xpos), zpos)``, whatever batch or slot it
-lands in.
+``fold_in(fold_in(PRNGKey(seed), xpos), zpos)``, whatever batch, slot or
+rank it lands in.
 
-The sharded path (``mesh=``, whole tiles per device of a ``batch`` mesh
-axis) waits for the port of ``parallel/`` (ROADMAP queue 1).
+The sharded batch (``mesh=``): whole tiles per rank of the mesh's
+``batch`` axis, each rank running its share through the one-device path
+above, no communication; the stack comes back as a ``DTensor`` sharded on
+the tile axis (``.full_tensor()`` gathers it on every rank).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..core.tiles import TileSetMeta
 from ..erosion.params import ErosionSettings
@@ -36,10 +39,8 @@ from ..ops.cuda.flow import flow_map_fused
 from ..ops.cuda.stencil import gauss_chain
 from ..ops.fractal import fractal
 from ..prng import PRNGKey, fold_in_stack
-
-NO_MESH = ("tile_batch(mesh=...): the sharded batch waits for the port of parallel/ "
-           "(ROADMAP queue 1, item 4, 'The rest of parallel/': device_mesh and "
-           "tile_batch(mesh=))")
+from .device_mesh import tile_batch_sharding
+from .halo import _mesh_device
 
 
 @dataclass(frozen=True)
@@ -129,20 +130,55 @@ def tile_batch(cfg: TilePipelineConfig, origins: np.ndarray, mesh=None, seed: in
     f32[T, R, R] heightmaps, or (with ``cfg.emit_mesh``) a dict
     {"height": f32[T, R, R], "mesh_planes": f32[T, 12, tr+1, tr+1]}.
     Per-tile keys come from the tile's world position, so a tile is a pure
-    function of (origin, seed).  ``mesh`` (the sharded batch) raises
-    ``NotImplementedError`` until ``parallel/`` is ported."""
+    function of (origin, seed).
+
+    ``mesh``: a ``DeviceMesh`` with a ``batch`` axis (``device_mesh.
+    batch_mesh``), on which every rank calls this with the same origins; T
+    must divide evenly over the axis.  Each rank runs its T / n tiles on
+    the mesh's device (``device`` is not read) and the result is a
+    ``DTensor`` of the same shape placed
+    ``device_mesh.tile_batch_sharding(mesh)`` (a dict of them with
+    ``cfg.emit_mesh``)."""
+    origins = np.asarray(origins)
     if mesh is not None:
-        raise NotImplementedError(NO_MESH)
+        return _sharded_batch(cfg, origins, mesh, seed)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("tile_batch(device='cuda'): no CUDA device")
-    origins = np.asarray(origins)
+    return _local_batch(cfg, *_tile_inputs(origins, seed, device))
+
+
+def _tile_inputs(origins, seed: int, device):
+    """(float32 x origins, z origins, per-tile keys from world positions)."""
     keys = fold_in_stack(fold_in_stack(PRNGKey(seed, device=device), origins[:, 0]),
                          origins[:, 1])
     # float32 origins, as the reference vmaps over them
-    xs = origins[:, 0].astype(np.float32)
-    zs = origins[:, 1].astype(np.float32)
-    return _local_batch(cfg, xs, zs, keys)
+    return origins[:, 0].astype(np.float32), origins[:, 1].astype(np.float32), keys
+
+
+def _sharded_batch(cfg: TilePipelineConfig, origins, mesh, seed: int):
+    """Whole tiles per rank of the ``batch`` axis (the reference's
+    ``P('batch')`` sharding): this rank's contiguous share of the origins
+    through the one-device path, returned as its shard."""
+    nb = mesh.size(mesh.mesh_dim_names.index("batch"))
+    if len(origins) % nb != 0:
+        raise ValueError(
+            f"tile_batch: {len(origins)} tiles do not divide over the "
+            f"{nb}-device 'batch' mesh axis — pad the request to a "
+            f"multiple of {nb} (whole tiles per device)")
+    per = len(origins) // nb
+    b = mesh.get_local_rank("batch")
+    mine = origins[b * per:(b + 1) * per]
+    out = _local_batch(cfg, *_tile_inputs(mine, seed, _mesh_device(mesh)))
+    placements = tile_batch_sharding(mesh)
+
+    def shard(t):
+        shape = (len(origins), *t.shape[1:])
+        stride = tuple(int(np.prod(shape[i + 1:])) for i in range(len(shape)))
+        return DTensor.from_local(t.contiguous(), mesh, placements, run_check=False,
+                                  shape=torch.Size(shape), stride=stride)
+
+    return {k: shard(v) for k, v in out.items()} if isinstance(out, dict) else shard(out)
 
 
 def grid_origins(meta: TileSetMeta, nx: int, nz: int) -> np.ndarray:

@@ -161,10 +161,19 @@ def test_write_sediment_map_matches(with_piles):
 
 
 def test_exact_piles_not_ported():
-    params = ErosionSettings(EXACT_PILES=True).as_parameters()
-    z = torch.zeros((8, 8))
-    with pytest.raises(NotImplementedError, match="EXACT_PILES"):
-        TSe.write_sediment_map(z, z, params, 1000.0)
+    """``EXACT_PILES`` (once refused here) runs the exact pile solver, equal
+    to the compiled reference (tests/test_torch_piles.py holds it against
+    eager JAX too)."""
+    params = ErosionSettings(EXACT_PILES=True, PILING_RADIUS=3).as_parameters()
+    h = np.full((8, 8), 0.5, np.float32)
+    sed = np.zeros((8, 8), np.float32)
+    sed[3, 4] = 0.005
+    sed[0, 0] = 0.003
+    want = jax.jit(lambda a, b: JSe.write_sediment_map(a, b, params, 1000.0))(
+        jnp.asarray(h), jnp.asarray(sed))
+    got = TSe.write_sediment_map(torch.from_numpy(h), torch.from_numpy(sed), params, 1000.0)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert float(got.max()) > 0.5
 
 
 def test_update_flow_from_track_bit_exact():

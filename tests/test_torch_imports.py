@@ -46,6 +46,16 @@ def test_serving_slice_modules_are_listed():
         assert f"noize_tpu_torch.{m}" in mods, m
 
 
+def test_last_single_device_and_parallel_modules_are_listed():
+    """Vegetation, the exact pile kernel's wrapper, the native IO runtime and
+    the field-level parallel layer are among the modules imported below."""
+    mods = set(_modules())
+    for m in ("erosion.vegetation", "erosion.pile_cuda", "native", "parallel",
+              "parallel.device_mesh", "parallel.distributed", "parallel.halo",
+              "parallel.sharded_ops"):
+        assert f"noize_tpu_torch.{m}" in mods, m
+
+
 def test_port_imports_no_jax():
     code = (
         "import importlib, sys\n"

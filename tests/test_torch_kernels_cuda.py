@@ -1,4 +1,4 @@
-"""noize_tpu_torch CUDA kernels K1-K5 and the JAX-signature entries on
+"""noize_tpu_torch CUDA kernels K1-K6 and the JAX-signature entries on
 them against their plain PyTorch versions on the card.
 
 Every test here needs an NVIDIA GPU (and nvcc to build the kernels); on a
@@ -558,8 +558,8 @@ def test_stack_wrappers_refuse_bad_input(cuda):
         separable_chain(torch.zeros((2, 2, 8, 8), device=cuda), gaussian_taps(1.0, 5), 1)
     with pytest.raises(ValueError, match="stack"):
         separable_chain(torch.zeros((0, 8, 8), device=cuda), gaussian_taps(1.0, 5), 1)
-    with pytest.raises(ValueError, match="square"):
-        flow_map_fused(torch.zeros((3, 8, 9), device=cuda), 2)
+    with pytest.raises(ValueError, match="stack"):
+        flow_map_fused(torch.zeros((2, 3, 8, 9), device=cuda), 2)
     with pytest.raises(ValueError, match="2-D"):
         thermal_erosion_fused(torch.zeros((3, 8, 8), device=cuda), 45.0, 0.5, 1.0)
 
@@ -577,3 +577,120 @@ def test_job_handler_tracks_card_work(cuda):
     h.track_job(state)
     torch.cuda.synchronize()
     assert h.job_complete() and h.close_job() and not h.is_running
+
+
+@pytest.mark.parametrize("shape,t,iters", [((37, 100), 1, 8), ((300, 257), 3, 9),
+                                           ((1, 64), 1, 2), ((96, 33), 2, 0)])
+def test_k2_non_square_matches_plain(cuda, shape, t, iters):
+    """K2 on rows != cols (the sharded flow map's extended blocks)."""
+    h = torch.from_numpy(_stack(shape, t, 7)).to(cuda)
+    h = h[0].contiguous() if t == 1 else h
+    got = flow_map_fused(h, iters)
+    want = FL.flow_map(h, iters)
+    torch.cuda.synchronize()
+    _equal(got, want)
+
+
+def _windows(res, nx, ny, halo):
+    """The blocks of an nx × ny split of a res² grid, each extended by
+    ``halo`` toward its neighbours only: (window slices, core slices within
+    the window, block slices)."""
+    lr, lc = res // nx, res // ny
+    out = []
+    for i in range(nx):
+        for j in range(ny):
+            r0, c0 = i * lr, j * lc
+            er0, ec0 = max(0, r0 - halo), max(0, c0 - halo)
+            er1, ec1 = min(res, r0 + lr + halo), min(res, c0 + lc + halo)
+            out.append(((slice(er0, er1), slice(ec0, ec1)),
+                        (slice(r0 - er0, r0 - er0 + lr), slice(c0 - ec0, c0 - ec0 + lc)),
+                        (slice(r0, r0 + lr), slice(c0, c0 + lc))))
+    return out
+
+
+@pytest.mark.parametrize("res,nx,ny,iters", [(64, 2, 2, 1), (64, 4, 1, 2), (130, 2, 5, 1),
+                                             (2048, 2, 2, 1), (96, 3, 2, 5)])
+def test_k3_windows_stitch_to_full_grid(cuda, res, nx, ny, iters):
+    """K3 on each block of a split, extended 8 cells an iteration toward its
+    neighbours with the grid's origin, cropped and stitched: the full-grid
+    K3 call, bit for bit (the sharded thermal erosion's scheme); windows at
+    the grid's edges equal the plain window version."""
+    h = torch.from_numpy(_field(np.random.default_rng(res + nx), res)).to(cuda)
+    want = thermal_erosion_fused(h, 55.0, 0.6, 1.0, iters)
+    got = torch.empty_like(h)
+    before = TC.thermal_erosion_fused.launches
+    for win, core, block in _windows(res, nx, ny, 8 * iters):
+        ext = h[win].contiguous()
+        origin = (win[0].start, win[1].start)
+        out = TC.thermal_erosion_window(ext, 55.0, 0.6, 1.0, iters, origin, res)
+        got[block] = out[core]
+    assert TC.thermal_erosion_fused.launches == before + nx * ny
+    torch.cuda.synchronize()
+    _equal(got, want)
+    whole = TC.thermal_erosion_window(h, 55.0, 0.6, 1.0, iters, (0, 0), res)
+    _equal(whole, TH.thermal_erosion_window(h, 55.0, 0.6, 1.0, iters, (0, 0), res))
+
+
+def _piles_case(res, cells, vols, seed):
+    rng = np.random.default_rng(seed)
+    h = rng.uniform(0.2, 0.8, (res, res)).astype(np.float32)
+    piles = np.zeros((res, res), np.float32)
+    for (r, c), v in zip(cells, vols):
+        piles[r, c] = v
+    return h, piles
+
+
+@pytest.mark.parametrize("radius", [4, 15])
+@pytest.mark.parametrize("res", [256, 255])
+def test_k6_exact_piles_matches_plain(cuda, radius, res):
+    """Overlapping piles and piles at the border, several sweeps each;
+    one launch a call."""
+    from noize_tpu_torch.erosion import pile_cuda as PL
+    from noize_tpu_torch.erosion import sediment as SE
+
+    cells = [(100, 100), (101, 103), (104, 98), (99, 106), (0, 7), (res - 1, res - 1),
+             (50, 0), (200, 201)]
+    vols = [0.05, 0.3, 0.02, 0.12, 0.04, 0.2, 0.08, 0.5]
+    h, piles = _piles_case(res, cells, vols, radius)
+    hd, pd = torch.from_numpy(h).to(cuda), torch.from_numpy(piles).to(cuda)
+    before = PL.exact_piles.launches
+    got = PL.exact_piles(hd, pd, 1e-3, radius)
+    assert PL.exact_piles.launches == before + 1
+    want = SE.exact_pile_deposit_plain(hd, pd, 1e-3, radius)
+    torch.cuda.synchronize()
+    _equal(got, want)
+    _equal(got.cpu(), SE.exact_pile_deposit_plain(torch.from_numpy(h), torch.from_numpy(piles),
+                                                  1e-3, radius))
+    assert not torch.equal(got, hd)
+
+
+def test_k6_more_piles_than_kept_with_ties(cuda):
+    """150 candidate piles in 4 tied volume levels: the 64 largest, ties to
+    the lower cell index, in cell order."""
+    from noize_tpu_torch.erosion import pile_cuda as PL
+    from noize_tpu_torch.erosion import sediment as SE
+
+    rng = np.random.default_rng(9)
+    flat = rng.choice(512 * 512, 150, replace=False)
+    cells = [(int(f) // 512, int(f) % 512) for f in flat]
+    vols = list(np.float32(0.01) * rng.integers(1, 5, 150).astype(np.float32))
+    h, piles = _piles_case(512, cells, vols, 3)
+    hd, pd = torch.from_numpy(h).to(cuda), torch.from_numpy(piles).to(cuda)
+    got = PL.exact_piles(hd, pd, 1e-3, 15)
+    want = SE.exact_pile_deposit_plain(hd, pd, 1e-3, 15)
+    torch.cuda.synchronize()
+    _equal(got, want)
+    vols_d, idxs_d = SE.select_piles(pd)
+    vols_c, idxs_c = SE.select_piles(torch.from_numpy(piles))
+    assert torch.equal(idxs_d.cpu(), idxs_c) and torch.equal(vols_d.cpu(), vols_c)
+
+
+def test_k6_no_piles_and_refusals(cuda):
+    from noize_tpu_torch.erosion import pile_cuda as PL
+
+    h = torch.rand((64, 64), device=cuda)
+    _equal(PL.exact_piles(h, torch.zeros_like(h), 1e-3, 15), h)
+    with pytest.raises(ValueError, match="radius"):
+        PL.exact_piles(h, torch.zeros_like(h), 1e-3, PL.MAX_RADIUS + 1)
+    with pytest.raises(ValueError, match="increment"):
+        PL.exact_piles(h, torch.zeros_like(h), 0.0, 4)

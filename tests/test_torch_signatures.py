@@ -21,18 +21,21 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 
 #: keyword-only parameters the port adds beyond ``device``: ``fresh``
 #: replaces a cycle's spawn with given particles (a test hook), ``syncs``
-#: records the host syncs of an eager step (PERF.md's counter)
+#: records the host syncs of an eager step (PERF.md's counter), and the
+#: halo functions that communicate take their ``DeviceMesh`` as ``mesh``
+#: (the reference finds its mesh in the enclosing ``shard_map``)
 HOOKS = {
     ("erosion.sim", "erosion_cycle"): ("fresh", "syncs"),
     ("erosion.sim", "ErosionSim.step"): ("fresh",),
     ("erosion.particles", "descend_all"): ("syncs",),
     ("erosion.sediment", "write_sediment_map"): ("syncs",),
+    **{("parallel.halo", name): ("mesh",)
+       for name in ("exchange_axis", "exchange_2d", "fold_axis", "fold_2d")},
 }
 
 #: reference callables the port does not have yet, and why
 NOT_PORTED = {
     ("erosion.pool", "pool_automata_quad"): "the TPU quadrant layout of pool_automata",
-    ("erosion.sediment", "exact_pile_deposit"): "EXACT_PILES, ROADMAP queue 1",
     ("ops.mesh", "MeshArrays.tree_flatten"): "JAX pytree protocol",
     ("ops.mesh", "MeshArrays.tree_unflatten"): "JAX pytree protocol",
     ("ops.mesh", "MeshPlanes.tree_flatten"): "JAX pytree protocol",
@@ -109,7 +112,9 @@ def test_modules_found():
             "pipeline.compose", "pipeline.stages", "app.presets", "core.store",
             "utils.anim_curve", "erosion.sim", "parallel.tiled", "app.server", "app.cli",
             "app.tile_generator", "utils.tracking", "utils.stats", "utils.helpers",
-            "app.visualize", "app.bakery", "app.drawers"} <= set(MODULES)
+            "app.visualize", "app.bakery", "app.drawers", "erosion.vegetation", "native",
+            "parallel.device_mesh", "parallel.distributed", "parallel.halo",
+            "parallel.sharded_ops"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("rel", MODULES)

@@ -1,7 +1,8 @@
 """The port's buffer store and serde (``noize_tpu_torch.core``) against
 ``noize_tpu.core``: a save written by either package restores in the
-other, with identical file bytes and manifest; the reference's native
-(NZTFU) format is read and its checksum enforced.
+other, with an identical manifest and payload bytes (the port writes the
+native NZTFU format, the reference's NumPy route raw dumps); the native
+format is read and its checksum enforced.
 
 Tolerance: exact — checkpoints are raw float32 bytes.
 """
@@ -56,12 +57,20 @@ def test_jax_save_restores_in_port_and_bytes_match(tmp_path, numpy_route):
         back = port.get_buffer(k)
         assert isinstance(back, torch.Tensor) and back.shape == v.shape
         np.testing.assert_array_equal(back.numpy(), v)
-    # the port writes the same bytes and manifest
+    # the port writes the same manifest, and the same payload bytes behind
+    # the native format's 32-byte header
     ts = PipelineStateManager(str(tmp_path / "port"), "world", "v1", device="cpu")
     for k, v in bufs.items():
         ts.set_buffer(k, torch.from_numpy(v))
         assert ts.save_buffer_to_disk(k)
-    assert _files(tmp_path / "port") == _files(tmp_path / "jax")
+    port, ref = _files(tmp_path / "port"), _files(tmp_path / "jax")
+    assert sorted(port) == sorted(ref)
+    for name, raw in ref.items():
+        if name.endswith(".data"):
+            assert port[name][:8] == (0x4E5A544655).to_bytes(8, "little")
+            assert port[name][32:] == raw
+        else:
+            assert port[name] == raw
 
 
 def test_port_save_restores_in_jax(tmp_path, numpy_route):

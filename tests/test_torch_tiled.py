@@ -216,12 +216,26 @@ def test_plain_kernels_on_a_stack_equal_each_map(t):
                            TM.heightmap_mesh_overshoot_planes(one, 24, 32, 100.0, 24.0).planes)
 
 
-def test_grid_origins_and_refusals():
+def test_grid_origins_and_refusals(tmp_path):
+    """Origins as the reference's; ``mesh=`` (once refused here) runs the
+    sharded batch: on a one-rank gloo ``batch`` mesh, a ``DTensor`` equal
+    to the unsharded batch (tests/test_torch_distributed.py runs 2 ranks)."""
+    from torch.distributed.tensor import DTensor
+
+    from noize_tpu_torch.parallel import device_mesh as DM
+
     _, tcfg = configs()
     np.testing.assert_array_equal(TT.grid_origins(tcfg.meta, 3, 2),
                                   JT.grid_origins(META, 3, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.tile_batch(tcfg, TT.grid_origins(tcfg.meta, 2, 1), mesh=object(), device="cpu")
+    origins = TT.grid_origins(tcfg.meta, 2, 1)
+    torch.distributed.init_process_group("gloo", init_method=f"file://{tmp_path / 'init'}",
+                                         world_size=1, rank=0)
+    try:
+        got = TT.tile_batch(tcfg, origins, mesh=DM.batch_mesh(device="cpu"))
+        assert isinstance(got, DTensor) and tuple(got.shape) == (2, 32, 32)
+        assert torch.equal(got.full_tensor(), TT.tile_batch(tcfg, origins, device="cpu"))
+    finally:
+        torch.distributed.destroy_process_group()
     neg = np.asarray([[-32, -16], [16, -48]], np.int32)
     assert bool(torch.isfinite(TT.tile_batch(tcfg, neg, seed=3, device="cpu")).all())
     if not torch.cuda.is_available():
