@@ -68,6 +68,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 20. sharded: a one-rank NCCL group, ``spatial_mesh`` and ``batch_mesh`` of
    1, the five sharded field ops at 2048² equal to the local ops, and
    ``tile_batch(mesh=)`` of 4 of config 5's tiles equal to ``tile_batch``;
+   then the sharded erosion path on that group: ``ShardedErosionSim`` on
+   the Quickstart's 2048² height for 3 cycles against ``ErosionSim`` from
+   the same state and key, one ``EXACT_PILES`` sharded cycle against
+   ``erosion_cycle``, ``make_sharded_tile_step`` at the flagship's 2048²
+   defaults against ``make_tile_step``, the sharded mesh of the Quickstart
+   tile against ``heightmap_mesh_overshoot``, a ``ShardedCheckpoint`` of the
+   six maps saved, flushed and loaded, a ``TileServer(mesh=batch_mesh())``
+   wave of config 5's 16 tiles at batch 4 against the server without a
+   mesh (each equal; each path with its launch counts), and
+   ``dryrun_multichip(1)``; then K5 on windows (2×2 and 4×1 splits of a
+   wet 2048² pool, 3×3 of 2049², one launch a water step a window, the
+   drains carried in), stitched and bit-equal to K5 on the whole grid, and
+   K6 on the pile table of 64 of 100 tied piles at radius 15, bit-equal to
+   its plain version and, committed, to K6 on the map (the kernels line's
+   rows K5@window and K6@table);
 21. profile: one more Quickstart ``ErosionSim.step()`` under
    ``torch.profiler`` (device busy time, idle share), after every timed
    phase;
@@ -173,6 +188,7 @@ def _counters():
         "K1": SC.separable_chain, "K2": FC.flow_map_fused,
         "K3": TC.thermal_erosion_fused, "K4": PC.pool_automata_cuda,
         "K5": PC.pool_automata_full_cuda, "K6": PL.exact_piles,
+        "K5@window": PC.pool_automata_window, "K6@table": PL.solve_pile_table,
         "#1": SC.fused_separable_chain, "#2": SC.fused_separable_chain_rows,
         "#3": FC.flow_map_pallas, "#6": PC.pool_automata_pallas,
         "#7": PC.pool_automata_pallas_pair, "#8": PC.pool_automata_pallas_quad,
@@ -187,6 +203,7 @@ def _reset_counts():
         w.launches = 0
     PC.pool_automata_cuda.wet_calls = None
     PC.pool_automata_full_cuda.wet_calls = None
+    PC.pool_automata_window.wet_calls = None
 
 
 def _read_counts():
@@ -258,8 +275,9 @@ def _conv_chain(taps, iterations, taps_z=None, factor=1.0):
 class Rows:
     """The kernels JSON line: one row per TPU kernel, K5 at 2049², K5 and
     K3 at 1025² (odd sizes), K1 with each filter's taps, K1 and K2 on the
-    config-5 stack, and K6 (the exact pile solver, no TPU kernel's port),
-    filled as the phases run."""
+    config-5 stack, K6 (the exact pile solver, no TPU kernel's port), and
+    K5 on a window and K6 on a pile table (the sharded cycle's), filled as
+    the phases run."""
 
     def __init__(self):
         self.rows = {}
@@ -299,7 +317,8 @@ class Rows:
 
     def line(self):
         order = ["#1", "#2", "#3", "#4", "#5", "#6", "#7", "#8", "#9", "#10", "K5", "K5@1025",
-                 "K3@1025"] + [f"K1:{f}" for f in FILTERS] + ["K1@stack", "K2@stack", "K6"]
+                 "K3@1025"] + [f"K1:{f}" for f in FILTERS] + ["K1@stack", "K2@stack", "K6", "K5@window",
+                                            "K6@table"]
         _check(set(self.rows) == set(order), f"rows {sorted(self.rows)}")
         for k in order:
             _check(self.launches.get(k, 0) > 0, f"{k} was launched on no path")
@@ -1171,7 +1190,7 @@ def native_io_phase(sim):
           f"({obj_mb:.1f} MB) {obj_ms:.1f} ms, 256² byte-identical to the NumPy writer's")
 
 
-def sharded_phase():
+def sharded_phase(rows):
     """The field-level parallel layer on one card: a one-rank NCCL group,
     ``spatial_mesh`` and ``batch_mesh`` of 1, the five sharded field ops
     at 2048² against the local ops (bit-equal), and ``tile_batch(mesh=)``
@@ -1225,10 +1244,285 @@ def sharded_phase():
             tiles, mesh_ms = _timed(lambda: TL.tile_batch(cfg, origins[:4], mesh=bm))
             want, local_ms = _timed(lambda: TL.tile_batch(cfg, origins[:4]))
             _check(torch.equal(tiles.full_tensor(), want), "tile_batch(mesh=) differs")
+            print(f"sharded launches {counts}; tile_batch(mesh=batch_mesh of 1) of 4 config-5 "
+                  f"tiles {mesh_ms:.1f} ms (without mesh {local_ms:.1f} ms), equal")
+            del tiles, want
+            sharded_erosion_phase(sp, bm, rows)
         finally:
             dist.destroy_process_group()
-    print(f"sharded launches {counts}; tile_batch(mesh=batch_mesh of 1) of 4 config-5 tiles "
-          f"{mesh_ms:.1f} ms (without mesh {local_ms:.1f} ms), equal")
+
+
+def _equal_maps(what, got, want):
+    """Check that the sharded state ``got`` equals ``want``; returns the
+    largest gap (0.0)."""
+    import torch
+
+    gaps = {}
+    for k in ("height", "pool", "flow", "track", "plants"):
+        a, b = getattr(got.world, k).full_tensor(), getattr(want.world, k)
+        gaps[k] = _max_abs(a, b)
+        _check(torch.equal(a, b), f"{what}: {k} differs (gaps {gaps})")
+    _check(torch.equal(got.drain_water.full_tensor(), want.drain_water), f"{what}: drains differ")
+    _check(torch.equal(got.key, want.key), f"{what}: keys differ")
+    return max(gaps.values())
+
+
+def sharded_erosion_phase(sp, bm, rows):
+    """The sharded erosion path on the one-rank group (``sp``: the 1×1
+    spatial mesh, ``bm``: the batch mesh of 1), each piece against its
+    single-device counterpart, bit-equal: sim steps, an ``EXACT_PILES``
+    cycle, the flagship step, the mesh, the checkpoint, a server wave and
+    the dry run.  Each path resets the launch counts just before it."""
+    import dataclasses
+
+    import torch
+
+    from noize_tpu_torch.app.dryrun import dryrun_multichip
+    from noize_tpu_torch.app.flagship import default_meta, make_tile_step
+    from noize_tpu_torch.app.server import TileServer
+    from noize_tpu_torch.erosion.params import ErosionSettings
+    from noize_tpu_torch.erosion.sim import ErosionSim, erosion_cycle, init_state
+    from noize_tpu_torch.ops.mesh import heightmap_mesh_overshoot
+    from noize_tpu_torch.parallel import sharded_erosion as SE
+    from noize_tpu_torch.parallel import sharded_mesh as SM
+    from noize_tpu_torch.parallel.sharded_checkpoint import ShardedCheckpoint
+    from noize_tpu_torch.prng import PRNGKey
+
+    h = _quickstart_heights()
+    # ShardedErosionSim against ErosionSim, defaults, 3 cycles a step, in
+    # turns: single, sharded (checked equal), sharded, single
+    single, sharded = ErosionSim(h), SE.ShardedErosionSim(sp, h)
+    _, single_ms = _timed(single.step)
+    _reset_counts()
+    _, sharded_ms = _timed(sharded.step)
+    counts = _read_counts()
+    _equal_maps("ShardedErosionSim.step", sharded.state, single.state)
+    _check(counts["K3"] == 3 and counts["K5@window"] == 3 * sharded.settings.WATER_STEPS
+           and counts["K4"] == 0, f"sharded sim launches {counts}")
+    rows.set_launches({"K5@window": counts["K5@window"]})
+    _, sharded_ms2 = _timed(sharded.step)
+    _, single_ms2 = _timed(single.step)
+    print(f"ShardedErosionSim.step() 2048² (1×1 mesh, 3 cycles): {sharded_ms:.3f} and "
+          f"{sharded_ms2:.3f} ms; ErosionSim.step() {single_ms:.3f} and {single_ms2:.3f} ms; "
+          f"equal after the first step; launches {counts}")
+
+    # one EXACT_PILES cycle on the same height
+    settings = dataclasses.replace(ErosionSettings(), EXACT_PILES=True)
+    meta = sharded.meta
+    want, single_ex_ms = _timed(lambda: erosion_cycle(init_state(h, PRNGKey(0, device="cuda")),
+                                                      settings, meta))
+    start = init_state(SE.ShardedErosionSim(sp, h).original_height, PRNGKey(0, device="cuda"))
+    _reset_counts()
+    got, sharded_ex_ms = _timed(lambda: SE.sharded_erosion_cycle(sp, start, settings, meta))
+    counts = _read_counts()
+    _equal_maps("EXACT_PILES sharded cycle", got, want)
+    _check(counts["K6@table"] == 1, f"EXACT_PILES sharded cycle launches {counts}")
+    rows.set_launches({"K6@table": counts["K6@table"]})
+    print(f"EXACT_PILES sharded_erosion_cycle 2048²: {sharded_ex_ms:.3f} ms (erosion_cycle "
+          f"{single_ex_ms:.3f} ms), equal; launches {counts}")
+    del want, got, start
+
+    # the flagship step, sharded, at its 2048² defaults (one erosion cycle)
+    fmeta = default_meta()
+    step, _, _ = SE.make_sharded_tile_step(sp, fmeta, erosion_cycles=1)
+    ref_step, _, _ = make_tile_step(fmeta, emit_mesh=False, device="cuda")
+    want, ref_ms = _timed(lambda: ref_step(0.0, 0.0, PRNGKey(0, device="cuda")))
+    _reset_counts()
+    (state, flow_v), step_ms = _timed(lambda: step(0.0, 0.0, PRNGKey(0, device="cuda")))
+    counts = _read_counts()
+    for k, got in (("height", state.world.height), ("flow_velocity", flow_v),
+                   ("pool", state.world.pool), ("stream", state.world.flow)):
+        _check(torch.equal(got.full_tensor(), want[k]), f"sharded tile step: {k} differs")
+    for k in ("K1", "K2", "K3", "K5@window"):
+        _check(counts[k] > 0, f"{k} not launched by the sharded tile step: {counts}")
+    print(f"make_sharded_tile_step 2048² (1 cycle): {step_ms:.3f} ms (make_tile_step "
+          f"{ref_ms:.3f} ms), equal; launches {counts}")
+    del want, state, flow_v
+
+    # the sharded mesh of the Quickstart tile (a 16-cell margin)
+    height = sharded.state.world.height
+    res = height.shape[0]
+    tile = res - 32
+    fields, mesh_ms = _timed(lambda: SM.sharded_heightmap_mesh(sp, height, tile, res, 1000.0,
+                                                               float(tile)))
+    got = SM.mesh_arrays_from_fields(fields, tile, res, (1, 1))
+    want, ref_mesh_ms = _timed(lambda: heightmap_mesh_overshoot(height.full_tensor(), tile,
+                                                                res, 1000.0, float(tile)))
+    for f in ("positions", "normals", "tangents", "uvs", "indices"):
+        _check(torch.equal(getattr(got, f), getattr(want, f)), f"sharded mesh: {f} differs")
+    print(f"sharded_heightmap_mesh of the Quickstart tile ({tile + 1}² vertices): {mesh_ms:.3f} "
+          f"ms (heightmap_mesh_overshoot {ref_mesh_ms:.3f} ms), equal")
+    del fields, got, want
+
+    # the six maps through a ShardedCheckpoint
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = ShardedCheckpoint(d)
+        arrays = [(sharded._buffer_name(a), arr) for a, _, arr in sharded._state_arrays()]
+
+        def save():
+            for name, arr in arrays:
+                ckpt.save(name, arr, async_=True)
+            ckpt.flush()
+        _, save_ms = _timed(save)
+        back, load_ms = _timed(lambda: [ShardedCheckpoint(d).load(n, sp) for n, _ in arrays])
+        for (name, arr), b in zip(arrays, back):
+            _check(torch.equal(b.full_tensor(), arr.full_tensor()), f"checkpoint {name} differs")
+    mb = sum(arr.numel() * 4 for _, arr in arrays) / 1e6
+    print(f"ShardedCheckpoint of the six maps ({mb:.1f} MB): save (queued) and flush "
+          f"{save_ms:.3f} ms, load {load_ms:.3f} ms, equal")
+    del back
+
+    # a TileServer wave over the batch mesh against the server without one
+    cfg, origins = config5()
+    poses = [(x // cfg.meta.tile_res, z // cfg.meta.tile_res) for x, z in origins.tolist()]
+    waves = {}
+    for label, mesh in (("without mesh", None), ("mesh=batch_mesh()", bm)):
+        srv = TileServer(cfg, batch_size=4, mesh=mesh)
+        done = {}
+        if label != "without mesh":
+            _reset_counts()
+        try:
+            srv.start()
+            t0 = time.perf_counter()
+            for i, pos in enumerate(poses):
+                srv.submit(f"t{i}", pos, on_complete=lambda st: done.__setitem__(
+                    st.request.uuid, st))
+            _check(srv.drain(timeout=600), f"TileServer {label}: the wave did not drain")
+            waves[label] = ((time.perf_counter() - t0) * 1e3, srv.batches)
+        finally:
+            srv.stop()
+        _check(len(done) == len(poses) and not srv.errors, f"TileServer {label}: {srv.errors}")
+        waves[label] += ({k: st.heights for k, st in done.items()},)
+    counts = _read_counts()
+    for i in range(len(poses)):
+        _check(torch.equal(waves["mesh=batch_mesh()"][2][f"t{i}"],
+                           waves["without mesh"][2][f"t{i}"]),
+               f"TileServer(mesh=) tile {i} differs from the server without a mesh")
+    _check(counts["K1"] > 0 and counts["K3"] > 0, f"TileServer(mesh=) launches {counts}")
+    for label, (wall, batches, _) in waves.items():
+        print(f"TileServer({label}) wave: 16 config-5 tiles in {batches} batches of 4, "
+              f"{wall:.3f} ms ({wall / 16:.3f} ms/tile)")
+    del waves
+
+    _, dry_ms = _timed(lambda: dryrun_multichip(1))
+    print(f"dryrun_multichip(1): {dry_ms:.1f} ms (a child process with its own NCCL group)")
+
+
+def _pool_stitch(window_fn, h, p, nx, ny, iters):
+    """``iters`` water steps of the sharded pool's scheme on one card: each
+    block of an nx × ny split extended 8 cells toward its neighbours (an
+    exchange, emulated), one ``window_fn`` call (K5's window entry or its
+    plain version) a block a step with its drains carried in, the blocks
+    cropped and stitched."""
+    import torch
+
+    res = h.shape[0]
+    lr, lc = res // nx, res // ny
+    wins = []
+    for i in range(nx):
+        for j in range(ny):
+            r0, c0 = i * lr, j * lc
+            er0, ec0 = max(0, r0 - 8), max(0, c0 - 8)
+            er1, ec1 = min(res, r0 + lr + 8), min(res, c0 + lc + 8)
+            wins.append(((slice(er0, er1), slice(ec0, ec1)),
+                         (slice(r0 - er0, r0 - er0 + lr), slice(c0 - ec0, c0 - ec0 + lc)),
+                         (slice(r0, r0 + lr), slice(c0, c0 + lc))))
+    p, d = p.clone(), torch.zeros_like(p)
+    hw = [h[w].contiguous() for w, _, _ in wins]
+    for _ in range(iters):
+        new_p, new_d = p.clone(), d.clone()
+        for (w, core, block), hb in zip(wins, hw):
+            op, od = window_fn(hb, p[w].contiguous(), d[w].contiguous(), 1, True,
+                               (w[0].start, w[1].start), res)
+            new_p[block], new_d[block] = op[core], od[core]
+        p, d = new_p, new_d
+    return p, d
+
+
+def window_kernels_phase(rows):
+    """K5's window entry stitched over 2×2 and 4×1 splits of a wet 2048²
+    pool and a 3×3 split of 2049², against K5 on the whole grid (the
+    stitched pool and drains bit-equal), timed a water step against a
+    whole-grid step; the row K5@window: one 1032² window of the 2×2 split,
+    one water step with drains carried in, against its plain version on
+    the cells it keeps.  Then K6 on the pile table of 64 of 100 tied piles
+    at radius 15 against its plain version and, committed, against K6 on
+    the map (the row K6@table)."""
+    import torch
+
+    from noize_tpu_torch.erosion import pile_cuda as PL
+    from noize_tpu_torch.erosion import pool as PO
+    from noize_tpu_torch.erosion import pool_cuda as PC
+    from noize_tpu_torch.erosion import sediment as SE
+    from noize_tpu_torch.erosion.params import ErosionSettings
+
+    steps = ErosionSettings().WATER_STEPS
+    for size, splits in ((2048, ((2, 2), (4, 1))), (2049, ((3, 3),))):
+        _, h, p = _inputs(size)
+        res = h.shape[0]
+        want_p, want_d = PC.pool_automata_full_cuda(h, p, steps, True)
+        whole_ms = _time_ms(lambda: PC.pool_automata_full_cuda(h, p, steps, True), 10)
+        for nx, ny in splits:
+            got_p, got_d = _pool_stitch(PC.pool_automata_window, h, p, nx, ny, steps)
+            torch.cuda.synchronize()
+            _check(torch.equal(got_p, want_p) and torch.equal(got_d, want_d),
+                   f"K5 windows of a {nx}×{ny} split of {res}² differ from K5 on the grid: "
+                   f"{_max_abs(got_p, want_p)}, {_max_abs(got_d, want_d)}")
+            stitch_ms = _time_ms(lambda: _pool_stitch(PC.pool_automata_window, h, p, nx, ny,
+                                                      1), 10)
+            print(f"K5 windows, {nx}×{ny} split of a wet {res}² pool: stitched over {steps} "
+                  f"water steps, bit-equal to K5 on the grid; a stitched water step "
+                  f"({nx * ny} launches, crops and stitch) {stitch_ms:.4f} ms, a whole-grid "
+                  f"step {whole_ms / steps:.4f} ms ({whole_ms:.4f} ms a {steps}-step call)")
+        _check(not torch.equal(want_p, p), f"K5 ran no phase on the wet {res}² pool")
+    # the row: the 2×2 split's first window, one water step, drains carried in
+    _, h, p = _inputs(2048)
+    res = h.shape[0]
+    half, side = res // 2, res // 2 + 8
+    _, d0 = PC.pool_automata_full_cuda(h, p, 1, True)
+    win, core = (slice(0, side), slice(0, side)), (slice(0, half), slice(0, half))
+    hw, pw, dw = h[win].contiguous(), p[win].contiguous(), d0[win].contiguous()
+    got = PC.pool_automata_window(hw, pw, dw, 1, True, (0, 0), res)
+    _check(not torch.equal(got[1], dw), "K5's window added no drains")
+    cells = side * side
+    rows.compare("K5@window", f"K5 pool_automata_window, one water step on the {side}² window "
+                 f"of a 2×2 split of a wet {res}² pool, drains carried in (the {half}² block "
+                 "kept)", SRC["K5"], POOL_TPU + ":30", tuple(t[core] for t in got),
+                 lambda: PC.pool_automata_window(hw, pw, dw, 1, True, (0, 0), res),
+                 lambda: tuple(t[core] for t in PO._pool_automata_window(hw, pw, dw, 1, True,
+                                                                          (0, 0), res)),
+                 "window", 20, 20 * cells, POOL_OPS_PER_ITER * cells)
+    del h, p, want_p, want_d, got_p, got_d, d0, got
+
+    # K6 on the pile table
+    radius, inc = 15, SE.pile_increment(ErosionSettings().as_parameters(), 1000.0)
+    h, piles = _pile_case(2048, radius, 3, n_cand=100)
+    res = h.shape[0]
+    t = SE._pile_tables(radius)
+    vols, idxs = SE.select_piles(piles)
+    rows_ = (idxs // res)[:, None] + torch.from_numpy(t["off_r"]).to(h.device).long()[None]
+    cols_ = (idxs % res)[:, None] + torch.from_numpy(t["off_c"]).to(h.device).long()[None]
+    valid = (rows_ >= 0) & (cols_ >= 0) & (rows_ < res) & (cols_ < res)
+    cid = rows_.clamp(0, res - 1) * res + cols_.clamp(0, res - 1)
+    vals0 = h.reshape(-1)[cid]
+    got = PL.solve_pile_table(vals0, valid, vols, cid, inc, radius)
+    committed = h.clone().reshape(-1)
+    for j in range(vols.numel()):
+        committed[cid[j][got[1][j]]] = got[0][j][got[1][j]]
+    _check(torch.equal(committed.reshape(res, res), PL.exact_piles(h, piles, inc, radius)),
+           "K6's table solve, committed, differs from K6 on the map")
+    k, s = vals0.shape
+    visits = int(t["ends"].sum())
+    rows.compare(
+        "K6@table", f"K6 solve_pile_table, 64 of 100 piles (4 tied levels) at radius {radius}, "
+        f"{k} × {s} slots", SRC["K6"],
+        "none: noize_tpu/parallel/sharded_erosion.py:384 (the sharded _solve_pile fori_loop, "
+        "an XLA loop; no Pallas kernel)",
+        (got[0], got[1].float()), lambda: PL.solve_pile_table(vals0, valid, vols, cid, inc, radius),
+        lambda: tuple(a.float() for a in SE.solve_pile_table_plain(vals0, valid, vols, cid, inc,
+                                                                    radius)),
+        "table", 20, 18 * k * s + 4 * k, 8 * visits * 64)
+    print(f"K6 table: committed equal to K6 on the {res}² map")
 
 
 def profile_step(sim):
@@ -1592,7 +1886,8 @@ def main():
     vegetation_phase()
     exact_piles_phase(rows)
     native_io_phase(sim)
-    sharded_phase()
+    sharded_phase(rows)
+    window_kernels_phase(rows)
     profile_step(sim)  # last: no timed phase runs after the profiler
     pool_trace_phase()
     plan_trace_phase(rows)

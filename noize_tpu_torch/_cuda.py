@@ -60,10 +60,20 @@ SIGNATURES = {
     # drain_particles, stream (K4: even res; K5: any res)
     "noize_pool_automata": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "noize_pool_automata_full": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # height, pool_in, pool_out, drains_in, drains, flag, pool_tmp, rows,
+    # cols, the window's origin row and column on the grid, grid side,
+    # iterations, drain_particles, stream (K5 on a window)
+    "noize_pool_automata_window": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                   _P),
     # height (in place), volumes, flat cell indices (i64), piles, rows,
     # cols, slot row and column offsets, round ends, radius, slots,
     # increment, stream (K6)
     "noize_exact_piles": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _F, _P),
+    # valid (u8), volumes, cell ids (i64), work (the gathered slot values,
+    # overlaid in place), com_vals, com_eff (u8), hash keys (u64), hash
+    # slots (i32), hash capacity, piles, round ends, radius, slots,
+    # increment, stream (K6 on a pile table)
+    "noize_pile_table": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _F, _P),
 }
 
 _LIB = None

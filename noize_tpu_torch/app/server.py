@@ -11,8 +11,18 @@ exception to every order of the batch; ``drain`` waits on the queue's
 unfinished-task count, which drops only after an order's batch and
 callback are done.
 
-Single-process, one-device serving; the sharded server (``mesh=``)
-waits for ROADMAP queue 1's last item, with the sharded erosion cycle.
+With ``mesh`` (a ``DeviceMesh`` with a ``batch`` axis,
+``parallel.device_mesh.batch_mesh``) every rank of the mesh runs a server
+with the same arguments, and each batch is one ``tile_batch(mesh=)``: whole
+tiles a rank, the stack gathered with ``full_tensor()``.  The ranks must
+issue the same collectives in the same order, and a batch formed by
+timing could differ between them, so one rank decides: the controller
+(batch coordinate 0) takes the orders, forms each batch and broadcasts its
+origins on the mesh's group (a heartbeat while idle, a stop message on
+``stop()``); the other ranks follow, run the same batch, and return from
+``drain`` when the controller stops.  Only the controller takes orders and
+delivers results.  A batch size the mesh does not divide raises
+``tile_batch``'s error, delivered per order.
 """
 
 from __future__ import annotations
@@ -27,13 +37,11 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from ..core.tiles import TileRequest
 from ..parallel import tiled as TL
-
-
-NO_MESH = ("TileServer(mesh=...): the sharded server waits for ROADMAP queue 1's last "
-           "item (the sharded erosion cycle, the sharded mesh and checkpoint, and "
-           "TileServer(mesh=))")
+from ..parallel.halo import _mesh_device
 
 log = logging.getLogger(__name__)
 
@@ -66,9 +74,16 @@ class TileServer:
         device="cuda",
     ):
         if mesh is not None:
-            raise NotImplementedError(NO_MESH)
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
+            if "batch" not in (getattr(mesh, "mesh_dim_names", None) or ()):
+                raise ValueError("TileServer(mesh=...): expected a DeviceMesh with a 'batch' "
+                                 "axis (parallel.device_mesh.batch_mesh)")
+            self.device = _mesh_device(mesh)  # the mesh's device, not ``device``
+            self._group = mesh.get_group("batch")
+            self.controller = mesh.get_local_rank("batch") == 0
+        else:
+            self.device = torch.device(device)
+            self.controller = True
+        if mesh is None and self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError("TileServer(device='cuda'): no CUDA device")
             if self.device.index is None:  # the worker thread sets it by index
@@ -89,6 +104,9 @@ class TileServer:
 
     def submit(self, tile_id: str, pos: Tuple[int, int],
                on_complete: Optional[Callable[[ServedTile], None]] = None):
+        if not self.controller:
+            raise RuntimeError("TileServer(mesh=...): orders go to the controller rank "
+                               "(batch coordinate 0)")
         self.queue.put(TileOrder(TileRequest(uuid=tile_id, pos=pos), on_complete))
 
     def start(self):
@@ -109,7 +127,14 @@ class TileServer:
         Uses the queue's unfinished-task count (orders are marked done only
         after their batch completes and callbacks fire), so there is no
         window where a dequeued-but-unprocessed order looks drained.
-        Returns False on timeout or if the worker thread has died."""
+        Returns False on timeout or if the worker thread has died.  A
+        following rank of a sharded server waits for the controller to
+        stop."""
+        if not self.controller:
+            if self._thread is not None:
+                self._thread.join(timeout)
+                return not self._thread.is_alive()
+            return True
         deadline = time.time() + timeout
         while time.time() < deadline:
             if self.queue.unfinished_tasks == 0:
@@ -135,18 +160,41 @@ class TileServer:
                 time.sleep(0.0005)
         return orders
 
-    def _run_batch(self, orders: List[TileOrder]):
+    def _origins(self, orders: List[TileOrder]) -> np.ndarray:
+        return np.asarray([self.config.meta.tile_origin(o.request.pos) for o in orders],
+                          np.int32).reshape(-1, 2)
+
+    def _broadcast(self, origins: Optional[np.ndarray]) -> Optional[np.ndarray]:
+        """The controller's decision for the next batch, the same on every
+        rank: its origins (possibly none), or None to stop."""
+        msg = torch.zeros(1 + 2 * self.batch_size, dtype=torch.int64, device=self.device)
+        if self.controller:
+            if origins is None:
+                msg[0] = -1
+            else:
+                msg[0] = len(origins)
+                msg[1:1 + origins.size] = torch.from_numpy(origins.reshape(-1).astype(np.int64))
+        dist.broadcast(msg, dist.get_global_rank(self._group, 0), group=self._group)
+        n = int(msg[0])
+        if n < 0:
+            return None
+        return msg[1:1 + 2 * n].cpu().numpy().astype(np.int32).reshape(n, 2)
+
+    def _run_batch(self, origins: np.ndarray):
         """One batch: pad to ``batch_size`` with repeats of the last
         origin, run ``tile_batch``, wait for it on a CUDA event."""
-        origins = np.asarray(
-            [self.config.meta.tile_origin(o.request.pos) for o in orders], np.int32)
         pad = self.batch_size - len(origins)
         if pad > 0:
             origins = np.concatenate([origins, np.repeat(origins[-1:], pad, 0)])
         # seed is the global seed: per-tile randomness comes from the world
         # position inside tile_batch, so re-requested tiles reproduce
         # whatever batch they land in
-        tiles = TL.tile_batch(self.config, origins, seed=self.seed, device=self.device)
+        if self.mesh is not None:
+            tiles = TL.tile_batch(self.config, origins, mesh=self.mesh, seed=self.seed)
+            tiles = ({k: v.full_tensor() for k, v in tiles.items()} if isinstance(tiles, dict)
+                     else tiles.full_tensor())
+        else:
+            tiles = TL.tile_batch(self.config, origins, seed=self.seed, device=self.device)
         if self.device.type == "cuda":
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(self.device))
@@ -155,16 +203,40 @@ class TileServer:
             return tiles["height"], tiles["mesh_planes"]
         return tiles, None
 
+    def _next_batch(self):
+        """(orders, origins) of the next batch; None to stop.  Without a
+        mesh the worker forms it; with one the controller does and every
+        rank follows its broadcast."""
+        if self.mesh is None:
+            if self._stop.is_set():
+                return None
+            orders = self._collect_batch()
+            return orders, self._origins(orders)
+        if self.controller:
+            if self._stop.is_set():
+                self._broadcast(None)
+                return None
+            orders = self._collect_batch()
+            self._broadcast(self._origins(orders))
+            return orders, None
+        origins = self._broadcast(None)
+        return None if origins is None else ([], origins)
+
     def _loop(self):
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
-        while not self._stop.is_set():
-            orders = self._collect_batch()
-            if not orders:
+        while True:
+            batch = self._next_batch()
+            if batch is None:
+                return
+            orders, origins = batch
+            if origins is None:
+                origins = self._origins(orders)
+            if not len(origins):
                 continue
             try:
                 t0 = time.perf_counter()
-                heights_arr, planes_arr = self._run_batch(orders)
+                heights_arr, planes_arr = self._run_batch(origins)
                 dt = (time.perf_counter() - t0) * 1e3
                 self.batches += 1
                 for i, order in enumerate(orders):

@@ -60,11 +60,33 @@ def sim_state_from_numpy(world: dict, drain_water, device="cuda", key=None) -> S
                     key=PRNGKey(0, device) if key is None else key_from_jax(key, device))
 
 
+def sharded_state_from_numpy(world: dict, drain_water, mesh, key=None) -> SimState:
+    """``sim_state_from_numpy`` placed on a spatial mesh: every map a
+    ``DTensor`` placed ``Shard(0)``, ``Shard(1)`` (this rank's block of the
+    whole grid given on every rank), the key replicated, all on the mesh's
+    device — the state ``parallel.sharded_erosion`` takes."""
+    from .parallel.halo import _as_field, _local_block, _mesh_device
+
+    def field(a):
+        block, shape = _local_block(_to_tensor(a, "cpu"), mesh)
+        return _as_field(block, mesh, shape)
+
+    device = _mesh_device(mesh)
+    return SimState(world=WorldState(**{k: field(world[k]) for k in WORLD_MAPS}),
+                    drain_water=field(drain_water),
+                    key=PRNGKey(0, device) if key is None else key_from_jax(key, device))
+
+
+def _host(t):
+    return (t.full_tensor() if hasattr(t, "full_tensor") else t).cpu().numpy()
+
+
 def sim_state_to_numpy(state: SimState):
-    """(world dict, drain_water) as numpy arrays; the key is
-    ``state.key.cpu().numpy()``, the reference's uint32[2]."""
-    world = {k: getattr(state.world, k).cpu().numpy() for k in WORLD_MAPS}
-    return world, state.drain_water.cpu().numpy()
+    """(world dict, drain_water) as numpy arrays (a sharded state's maps
+    gathered: every rank calls it); the key is ``state.key.cpu().numpy()``,
+    the reference's uint32[2]."""
+    world = {k: _host(getattr(state.world, k)) for k in WORLD_MAPS}
+    return world, _host(state.drain_water)
 
 
 def particles_from_numpy(parts: dict, device="cuda") -> Particles:

@@ -12,7 +12,11 @@
 // K5 (noize_pool_automata_full, any grid, odd included) replaces
 // pool_pallas.py:_phase_call (entry pool_automata_pallas): the full-grid
 // masked phases of pool.py:_pool_automata_fullgrid / _spread_phase, which
-// the reference runs at odd sizes (Unity's 2^n + 1 heightmaps).  The two
+// the reference runs at odd sizes (Unity's 2^n + 1 heightmaps).  Its window
+// entry (noize_pool_automata_window) runs the same phases on a window of a
+// grid: the sharded pool's extended block, a water step a call between halo
+// exchanges (parallel/sharded_erosion._sharded_pool_automata, after
+// noize_tpu/parallel/sharded_erosion.py:446-522).  The two
 // share one kernel, templated on the add order in which a phase's transfers
 // land: _spread_phase scatters direction by direction (up, right, down, left),
 // each as the neighbour's transfer then the cell's own border self-return,
@@ -66,11 +70,22 @@
 // 16-cell halo) were slower, as were other tile sides and block sizes
 // (PERF.md section 6; scripts/pool_tile_sweep.py times the latter).
 //
+// A window: the map is rows x cols cells of a res^2 grid, its cell (0, 0)
+// at the grid's (org_z, org_x), and lies in the grid.  Tiles start at the
+// even grid coordinate at or before the origin, so local and global lattice
+// parities agree for any origin; global coordinates still decide the grid's
+// edge, and cells beyond the window (but on the grid) load as zeros, so the
+// cells within 2 a phase of a window edge that is not the grid's edge are
+// stale and the caller crops them.  The window's drains come in as the
+// starting sum: each phase's drains add onto them in phase order, as the
+// sharded pool adds each phase's cropped drain map onto its running sum.
+//
 // The wetness gate (pool.MIN_WATER) never syncs the host: the init launch
-// copies the pool, zeroes the drains and raises a device flag if any cell
-// holds >= MIN_WATER; every later launch returns at once when the flag is
-// 0.  A grid below the gate is a bit-exact fixed point of the automata.
-// A call is 1 + iterations kernels.
+// copies the pool, copies the drains in (or zeroes them) and raises a
+// device flag if any cell holds >= MIN_WATER; every later launch returns at
+// once when the flag is 0.  A map below the gate is a bit-exact fixed point
+// of the automata (a window's cells that are not stale depend on the
+// window alone).  A call is 1 + iterations kernels.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -80,9 +95,9 @@ namespace {
 constexpr float kMinWater = 1e-3f;  // erosion/pool.py MIN_WATER
 constexpr int kTile = 64;           // output tile side
 constexpr int kThreads = 512;       // threads per block
-// an even window origin and an even half-origin keep local and global
-// lattice parities equal
-static_assert(kTile % 4 == 0, "tile must be a multiple of 4");
+// tiles of even side from an even origin keep local and global lattice
+// parities equal
+static_assert(kTile % 2 == 0, "tile side must be even");
 
 using noize::add;
 using noize::copy_async;
@@ -91,12 +106,13 @@ using noize::mul;
 using noize::sub;
 
 __global__ void pool_init(const float* __restrict__ pool_in, float* __restrict__ pool,
-                          float* __restrict__ drains, int* flag, int n) {
+                          const float* __restrict__ drains_in, float* __restrict__ drains,
+                          int* flag, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float p = pool_in[i];
   pool[i] = p;
-  drains[i] = 0.0f;
+  drains[i] = drains_in != nullptr ? drains_in[i] : 0.0f;
   if (p >= kMinWater) *flag = 1;
 }
 
@@ -195,6 +211,19 @@ __device__ __forceinline__ float take(bool row, float v, float first, float seco
   return v;
 }
 
+// Where a launch's map lies on the grid: rows x cols cells from (org_z,
+// org_x) of a res^2 grid; tiles start at (tz, tx), the even coordinates at
+// or before the origin.
+struct Map {
+  int rows, cols, org_z, org_x, res, tz, tx;
+  __device__ bool holds(int z, int x) const {
+    return z >= org_z && z < org_z + rows && x >= org_x && x < org_x + cols;
+  }
+  __device__ size_t at(int z, int x) const {
+    return (size_t)(z - org_z) * cols + (x - org_x);
+  }
+};
+
 // Shared memory of a launch: the window (side W, origin (z0, x0) = tile
 // origin - halo) holds height and pool; the compact lattice planes (side
 // W / 2) hold each active cell's four transfers, its drain and the
@@ -213,7 +242,7 @@ struct Window {
 template <Order kOrder>
 __global__ void __launch_bounds__(kThreads) pool_step(
     const float* __restrict__ height, const float* __restrict__ src, float* __restrict__ dst,
-    float* __restrict__ drains, const int* __restrict__ flag, int res, int drain_particles) {
+    float* __restrict__ drains, const int* __restrict__ flag, Map map, int drain_particles) {
   if (*flag == 0) return;
   constexpr int W = Window::kSide, H = Window::kHalf, R = Window::kHalo, L = Window::kLattice;
   extern __shared__ float smem[];
@@ -223,25 +252,26 @@ __global__ void __launch_bounds__(kThreads) pool_step(
   float* damt = xfer + 4 * L;         // drain, H x H
   float* dsum = damt + L;             // the tile's drains, kTile x kTile
   unsigned char* dto = reinterpret_cast<unsigned char*>(dsum + kTile * kTile);
-  const int z0 = blockIdx.y * kTile - R;
-  const int x0 = blockIdx.x * kTile - R;
+  const int res = map.res;
+  const int z0 = map.tz + blockIdx.y * kTile - R;
+  const int x0 = map.tx + blockIdx.x * kTile - R;
   const int tid = threadIdx.x;
   const bool drain = drain_particles != 0;
 
   // the window's height and pool and the tile's drains, all in flight at
-  // once (cp.async, zero-filled beyond the grid)
+  // once (cp.async, zero-filled beyond the map)
   for (int i = tid; i < Window::kCells; i += kThreads) {
     const int z = z0 + i / W, x = x0 + i % W;
-    const bool in = z >= 0 && z < res && x >= 0 && x < res;
-    const size_t g = in ? (size_t)z * res + x : 0;
+    const bool in = map.holds(z, x);
+    const size_t g = in ? map.at(z, x) : 0;
     copy_async(hs + i, height + g, in);
     copy_async(ps + i, src + g, in);
   }
   if (drain) {
     for (int i = tid; i < kTile * kTile; i += kThreads) {
       const int z = z0 + R + i / kTile, x = x0 + R + i % kTile;
-      const bool in = z < res && x < res;
-      copy_async(dsum + i, drains + (in ? (size_t)z * res + x : 0), in);
+      const bool in = map.holds(z, x);
+      copy_async(dsum + i, drains + (in ? map.at(z, x) : 0), in);
     }
   }
   copy_async_wait();
@@ -388,8 +418,8 @@ __global__ void __launch_bounds__(kThreads) pool_step(
   for (int i = tid; i < kTile * kTile; i += kThreads) {
     const int lz = R + i / kTile, lx = R + i % kTile;
     const int z = z0 + lz, x = x0 + lx;
-    if (z >= res || x >= res) continue;
-    const size_t g = (size_t)z * res + x;
+    if (!map.holds(z, x)) continue;
+    const size_t g = map.at(z, x);
     dst[g] = ps[lz * W + lx];
     if (drain) drains[g] = dsum[i];
   }
@@ -413,22 +443,26 @@ cudaError_t configure() {
 }
 
 // iterations water steps, one launch each; the pool ping-pongs so that the
-// last launch writes pool_out.
+// last launch writes pool_out.  drains_in: the starting sum (null: zeros).
 template <Order kOrder>
-int run_automata(const float* height, const float* pool_in, float* pool_out, float* drains,
-                 int* flag, float* pool_tmp, int res, int iterations, int drain_particles,
-                 cudaStream_t stream) {
+int run_automata(const float* height, const float* pool_in, float* pool_out,
+                 const float* drains_in, float* drains, int* flag, float* pool_tmp, Map map,
+                 int iterations, int drain_particles, cudaStream_t stream) {
   cudaError_t err = configure<kOrder>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n = res * res;
+  const int n = map.rows * map.cols;
+  map.tz = map.org_z & ~1;
+  map.tx = map.org_x & ~1;
   cudaMemsetAsync(flag, 0, sizeof(int), stream);
-  pool_init<<<(n + 255) / 256, 256, 0, stream>>>(pool_in, pool_out, drains, flag, n);
-  const int tiles = (res + kTile - 1) / kTile;
+  pool_init<<<(n + 255) / 256, 256, 0, stream>>>(pool_in, pool_out, drains_in, drains, flag,
+                                                 n);
+  const dim3 tiles((map.org_x + map.cols - map.tx + kTile - 1) / kTile,
+                   (map.org_z + map.rows - map.tz + kTile - 1) / kTile);
   const float* src = pool_in;
   for (int k = 0; k < iterations; ++k) {
     float* dst = ((iterations - 1 - k) % 2 == 0) ? pool_out : pool_tmp;
-    pool_step<kOrder><<<dim3(tiles, tiles), kThreads, Window::kBytes, stream>>>(
-        height, src, dst, drains, flag, res, drain_particles);
+    pool_step<kOrder><<<tiles, kThreads, Window::kBytes, stream>>>(
+        height, src, dst, drains, flag, map, drain_particles);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     src = dst;
@@ -443,8 +477,8 @@ extern "C" int noize_pool_automata(const float* height, const float* pool_in, fl
                                    float* drains, int* flag, float* pool_tmp, int res,
                                    int iterations, int drain_particles, void* stream_ptr) {
   if (res < 2 || res % 2 || iterations < 0) return static_cast<int>(cudaErrorInvalidValue);
-  return run_automata<Order::kPair>(height, pool_in, pool_out, drains, flag, pool_tmp, res,
-                                    iterations, drain_particles,
+  return run_automata<Order::kPair>(height, pool_in, pool_out, nullptr, drains, flag, pool_tmp,
+                                    Map{res, res, 0, 0, res, 0, 0}, iterations, drain_particles,
                                     static_cast<cudaStream_t>(stream_ptr));
 }
 
@@ -453,7 +487,25 @@ extern "C" int noize_pool_automata_full(const float* height, const float* pool_i
                                         float* pool_tmp, int res, int iterations,
                                         int drain_particles, void* stream_ptr) {
   if (res < 1 || iterations < 0) return static_cast<int>(cudaErrorInvalidValue);
-  return run_automata<Order::kFull>(height, pool_in, pool_out, drains, flag, pool_tmp, res,
+  return run_automata<Order::kFull>(height, pool_in, pool_out, nullptr, drains, flag, pool_tmp,
+                                    Map{res, res, 0, 0, res, 0, 0}, iterations, drain_particles,
+                                    static_cast<cudaStream_t>(stream_ptr));
+}
+
+// K5 on a window: height, pool_in, pool_out, drains_in, drains and pool_tmp
+// are rows x cols cells of a res^2 grid from (org_z, org_x) on, in the grid.
+extern "C" int noize_pool_automata_window(const float* height, const float* pool_in,
+                                          float* pool_out, const float* drains_in,
+                                          float* drains, int* flag, float* pool_tmp, int rows,
+                                          int cols, int org_z, int org_x, int res,
+                                          int iterations, int drain_particles,
+                                          void* stream_ptr) {
+  if (rows < 1 || cols < 1 || org_z < 0 || org_x < 0 || org_z + rows > res ||
+      org_x + cols > res || iterations < 0 || drains_in == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return run_automata<Order::kFull>(height, pool_in, pool_out, drains_in, drains, flag,
+                                    pool_tmp, Map{rows, cols, org_z, org_x, res, 0, 0},
                                     iterations, drain_particles,
                                     static_cast<cudaStream_t>(stream_ptr));
 }

@@ -116,18 +116,37 @@ def step_maps(state: WorldState, params, height_scale):
     return torch.cat(pieces)
 
 
-def _gather_step_values(combo, row_i, col_i, res, with_plants=False):
+def _gather_step_values(combo, row_i, col_i, res, with_plants=False,
+                        origin=None, shape=None):
     """All of a step's map lookups: 8 quantised all-heights neighbours,
     the WIH and the flow at the particle, and the plant density there
-    when ``with_plants`` (else None)."""
+    when ``with_plants`` (else None).
+
+    ``origin``/``shape``: when ``combo`` holds a window of the grid (the
+    sharded descent's extended block), the global (row, col) of its cell
+    (0, 0) and its (rows, cols).  Coordinates stay global, and so does the
+    edge clamp; only the flat index changes.  A particle whose
+    neighbourhood leaves the window (one another rank owns) reads the
+    window's nearest cells: the reference's gather fills those reads, and
+    its owner mask drops what they give."""
     n = row_i.shape[0]
-    sz = res * res
+    if shape is None:
+        o_r = o_c = 0
+        rows_w, cols_w = res, res
+    else:
+        o_r, o_c = (int(v) for v in origin)
+        rows_w, cols_w = (int(v) for v in shape)
+    sz = rows_w * cols_w
     dr = torch.tensor(_NB_DR, dtype=row_i.dtype, device=row_i.device)
     dc = torch.tensor(_NB_DC, dtype=col_i.dtype, device=col_i.device)
-    r = torch.clamp(row_i[:, None] + dr[None, :], 0, res - 1)
-    c = torch.clamp(col_i[:, None] + dc[None, :], 0, res - 1)
-    center = row_i * res + col_i
-    parts = [(r * res + c).reshape(-1) + sz, center, center + 2 * sz]
+    r = torch.clamp(row_i[:, None] + dr[None, :], 0, res - 1) - o_r
+    c = torch.clamp(col_i[:, None] + dc[None, :], 0, res - 1) - o_c
+    rc, cc = row_i - o_r, col_i - o_c
+    if shape is not None:
+        r, c = torch.clamp(r, 0, rows_w - 1), torch.clamp(c, 0, cols_w - 1)
+        rc, cc = torch.clamp(rc, 0, rows_w - 1), torch.clamp(cc, 0, cols_w - 1)
+    center = rc * cols_w + cc
+    parts = [(r * cols_w + c).reshape(-1) + sz, center, center + 2 * sz]
     if with_plants:
         parts.append(center + 3 * sz)
     vals = combo[torch.cat(parts).long()]
@@ -142,12 +161,19 @@ def descend_step(p: Particles, state: WorldState, params, height_scale,
     """One DescendSimultaneous step for every particle.  Returns
     (new_particles, events) with per-particle deltas and the cell
     (row_i, col_i) they land on.  ``table_layout`` chose the reference's
-    gather table on the TPU and gives the same result either way; the
-    patch-prefetch and windowed-table paths (``patch_ctx``,
-    ``window_origin``, ``window_shape``) are not ported and raise."""
-    if patch_ctx is not None or window_origin is not None or window_shape is not None:
-        raise NotImplementedError(
-            "descend_step: patch prefetch and windowed tables are not ported")
+    gather table on the TPU and gives the same result either way.
+
+    ``maps``: a precomputed table (``step_maps``).  ``window_origin`` and
+    ``window_shape``: ``maps`` is built from a window of the grid (its
+    cell (0, 0) at the global ``window_origin``), as the sharded descent
+    builds it from a rank's extended block; see ``_gather_step_values``.
+    The patch prefetch (``patch_ctx``) is a TPU workaround and raises."""
+    if patch_ctx is not None:
+        raise NotImplementedError("descend_step: the TPU patch prefetch is not ported")
+    if (window_origin is None) != (window_shape is None):
+        raise ValueError("descend_step: window_origin and window_shape go together")
+    if window_shape is not None and maps is None:
+        raise ValueError("descend_step: a windowed table needs maps=")
     if table_layout not in ("waf", "wf"):
         raise ValueError(f"unknown table_layout {table_layout!r}")
     inv_hs = recip(height_scale)
@@ -168,7 +194,8 @@ def descend_step(p: Particles, state: WorldState, params, height_scale,
     with_plants = _with_plants(params)
     combo = maps if maps is not None else step_maps(state, params, height_scale)
     nb, current_h, flow_here, plants_here = _gather_step_values(
-        combo, row_i, col_i, res, with_plants=with_plants)
+        combo, row_i, col_i, res, with_plants=with_plants, origin=window_origin,
+        shape=window_shape)
 
     # natural drain: argmin (first-wins) over nb, direction via WTORDER
     drain_nb_idx = torch.argmin(nb, dim=-1).to(torch.int32)

@@ -64,3 +64,47 @@ def exact_piles(height, pile_map, increment: float, radius: int, max_piles: int 
 
 
 exact_piles.launches = 0
+
+
+def solve_pile_table(vals0, valid, vols, cid, increment: float, radius: int):
+    """The sharded ``EXACT_PILES`` solve on a pile table every rank holds
+    (K piles × S slots: ``vals0`` f32 gathered slot values, ``valid`` bool,
+    ``vols`` f32[K], ``cid`` int64 clamped cells; see
+    ``sediment.solve_pile_table_plain``, its plain version).  Returns
+    (com_vals f32[K, S], com_eff bool[K, S]).  A CPU tensor takes the
+    plain version; a CUDA tensor launches K6's table entry (one launch) or
+    raises."""
+    if vals0.device.type == "cpu":
+        return _sediment.solve_pile_table_plain(vals0, valid, vols, cid, increment, radius)
+    name = "solve_pile_table"
+    if not 1 <= radius <= MAX_RADIUS:
+        raise ValueError(f"{name}: radius must be in [1, {MAX_RADIUS}], got {radius}")
+    if not np.float32(increment) > 0.0:
+        raise ValueError(f"{name}: increment must be > 0, got {increment}")
+    off_r, _, ends = _tables(int(radius), vals0.device)
+    k, s = vals0.shape
+    if s != off_r.numel() or valid.shape != vals0.shape or cid.shape != vals0.shape \
+            or vols.shape != (k,):
+        raise ValueError(f"{name}: expected [K, {off_r.numel()}] tables and K volumes, got "
+                         f"{tuple(vals0.shape)}, {tuple(valid.shape)}, {tuple(cid.shape)}, "
+                         f"{tuple(vols.shape)}")
+    dev = vals0.device
+    work = vals0.to(torch.float32).contiguous().clone()
+    valid_u8 = valid.to(torch.uint8).contiguous()
+    vols = vols.to(torch.float32).contiguous()
+    cid = cid.to(torch.int64).contiguous()
+    com_vals = torch.empty_like(work)
+    com_eff = torch.empty((k, s), dtype=torch.bool, device=dev)
+    cap = 1 << max(6, (2 * s - 1).bit_length())
+    keys = torch.full((cap,), -1, dtype=torch.int64, device=dev)  # all bits set: empty
+    last = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _cuda.call("noize_pile_table", valid_u8.data_ptr(), vols.data_ptr(), cid.data_ptr(),
+                   work.data_ptr(), com_vals.data_ptr(), com_eff.data_ptr(), keys.data_ptr(),
+                   last.data_ptr(), cap, k, ends.data_ptr(), int(radius), s,
+                   float(np.float32(increment)), _cuda.stream(vals0))
+    solve_pile_table.launches += 1
+    return com_vals, com_eff
+
+
+solve_pile_table.launches = 0

@@ -260,25 +260,30 @@ def pool_automata(height, pool, iterations: int = 10, drain_particles: bool = Tr
 
 # --- odd grids: full-grid masked phases ------------------------------------
 
-def _phase_mask(res: int, xoff: int, zoff: int, device):
-    """Active lattice for one phase: rows z = 2·j + zoff; columns
-    x ≡ xoff + (j mod 2) (mod 2)."""
-    rows = torch.arange(res, device=device)
-    cols = torch.arange(res, device=device)
-    j = torch.div(rows - zoff, 2, rounding_mode="floor")
-    row_active = (rows % 2) == (zoff % 2)
+def _phase_mask_from_coords(grow, gcol, xoff: int, zoff: int):
+    """Active lattice of one phase, from the cells' global (row, col)
+    maps: rows z = 2·j + zoff; columns x ≡ xoff + (j mod 2) (mod 2)."""
+    j = torch.div(grow - zoff, 2, rounding_mode="floor")
+    row_active = (grow % 2) == (zoff % 2)
     col_parity = (xoff + j) % 2
-    m = (cols[None, :] % 2) == col_parity[:, None]
-    return m & row_active[:, None]
+    return ((gcol % 2) == col_parity) & row_active
 
 
-def _border_maps(shape, device):
-    grow = torch.arange(shape[0], device=device)[:, None].expand(shape)
-    gcol = torch.arange(shape[1], device=device)[None, :].expand(shape)
+def _border_maps(shape, grow=None, gcol=None, res: int = None, *, device=None):
+    """Cells on the grid's border in each direction (the neighbour there
+    is the cell itself).  Without ``grow``/``gcol`` the map is the whole
+    (rows, cols) grid; with them, the cells' global coordinates on a
+    ``res``² grid."""
+    if grow is None:
+        grow = torch.arange(shape[0], device=device)[:, None].expand(shape)
+        gcol = torch.arange(shape[1], device=device)[None, :].expand(shape)
+        res_r, res_c = shape
+    else:
+        res_r = res_c = res
     return {
-        (1, 0): grow == shape[0] - 1,
+        (1, 0): grow == res_r - 1,
         (-1, 0): grow == 0,
-        (0, 1): gcol == shape[0] - 1,
+        (0, 1): gcol == res_c - 1,
         (0, -1): gcol == 0,
     }
 
@@ -288,9 +293,11 @@ def _scatter_dir(acc, delta, dr: int, dc: int, border_map):
     return acc + torch.where(border_map, delta, 0.0)
 
 
-def _spread_phase(height, pool, mask, drain_particles: bool):
-    """One phase over the whole grid (masked)."""
-    border = _border_maps(height.shape, height.device)
+def _spread_phase(height, pool, mask, drain_particles: bool, border=None):
+    """One phase over the whole grid (masked).  ``border``: the border
+    maps of ``_border_maps`` (None: the map is the whole grid)."""
+    if border is None:
+        border = _border_maps(height.shape, device=height.device)
     n_height = [shift_clamped(height, dr, dc) for (dr, dc) in _DIRS]
     n_water = [shift_clamped(pool, dr, dc) for (dr, dc) in _DIRS]
     new_pool, deltas, drain_out = _phase_core(
@@ -306,11 +313,40 @@ def _spread_phase(height, pool, mask, drain_particles: bool):
 
 def _pool_automata_fullgrid(height, pool, iterations: int,
                             drain_particles: bool):
-    res = height.shape[0]
-    masks = [_phase_mask(res, xo, zo, height.device) for xo, zo in _PHASE_ORDER]
-    drains = torch.zeros_like(pool)
+    """The full-grid masked phases: the window that is the whole grid,
+    with no drains carried in."""
+    return _pool_automata_window(height, pool, torch.zeros_like(pool), iterations,
+                                 drain_particles, (0, 0), height.shape[0])
+
+
+def _check_window(shape, origin, res: int, name: str):
+    """Refuse a window that leaves the ``res``² grid."""
+    if origin[0] < 0 or origin[1] < 0 or origin[0] + shape[0] > res \
+            or origin[1] + shape[1] > res or min(shape) < 1:
+        raise ValueError(f"{name}: a {tuple(shape)} window at {tuple(origin)} leaves the "
+                         f"{res}² grid")
+
+
+def _pool_automata_window(height, pool, drains, iterations: int, drain_particles: bool,
+                          origin, res: int):
+    """The full-grid masked phases of a ``res``² grid on a window of it
+    (the plain version of K5's window entry, ``pool_cuda.
+    pool_automata_window``): ``height``, ``pool`` and ``drains`` are rows ×
+    cols cells from ``origin`` = (row, col) on; the phase lattice and the
+    border self-returns come from global coordinates, and each phase's
+    drain map is added onto ``drains`` in phase order, as the sharded
+    pool adds them onto a block's running sum.  Cells within 2 a phase of
+    a window edge that is not the grid's edge are not exact; the caller
+    crops them.  The window lies in the grid, so no cell is a ghost beyond
+    its border (the reference's ``reclamp_ghosts`` has nothing to do)."""
+    _check_window(height.shape, origin, res, "pool_automata_window")
+    rows, cols = height.shape
+    grow = (torch.arange(rows, device=height.device) + int(origin[0]))[:, None].expand(rows, cols)
+    gcol = (torch.arange(cols, device=height.device) + int(origin[1]))[None, :].expand(rows, cols)
+    border = _border_maps(height.shape, grow, gcol, res)
+    masks = [_phase_mask_from_coords(grow, gcol, xo, zo) for xo, zo in _PHASE_ORDER]
     for _ in range(iterations):
         for m in masks:
-            pool, dm = _spread_phase(height, pool, m, drain_particles)
+            pool, dm = _spread_phase(height, pool, m, drain_particles, border=border)
             drains = drains + dm
     return pool, drains

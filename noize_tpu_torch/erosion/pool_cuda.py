@@ -11,7 +11,9 @@ K5 (``pool_automata_full_cuda``) computes ``pool._pool_automata_fullgrid``,
 the full-grid masked phases, at any size, odd included.  It stands in for
 ``pool_pallas._phase_call``; its JAX entry ``pool_automata_pallas`` runs on
 K5 here at every size, and ``pool_automata_cuda`` hands odd grids to it, as
-``pool.pool_automata`` does.
+``pool.pool_automata`` does.  ``pool_automata_window`` runs K5 on a window of
+a grid with its drains carried in: the sharded pool's extended block, one
+water step a call between halo exchanges.
 
 The TPU blocking arguments (``block``, ``phases_per_launch``, ``unroll``)
 are accepted and ignored: they choose Mosaic layouts, not results.
@@ -56,13 +58,19 @@ def _launch(wrapper, entry: str, height, pool, iterations: int,
         _cuda.call(entry, height.data_ptr(), pool.data_ptr(), out.data_ptr(),
                    drains.data_ptr(), flag.data_ptr(), tmp.data_ptr(), res,
                    int(iterations), int(bool(drain_particles)), _cuda.stream(pool))
+    _count(wrapper, flag)
+    return out, drains
+
+
+def _count(wrapper, flag):
+    """One launch of ``wrapper``'s kernel, and its gate flag added to
+    ``wrapper.wet_calls`` on the device."""
     wrapper.launches += 1
     wet = wrapper.wet_calls
     if wet is None or wet.device != flag.device:
         wrapper.wet_calls = flag.clone()
     else:
         wet.add_(flag)
-    return out, drains
 
 
 def pool_automata_full_cuda(height, pool, iterations: int = 10,
@@ -89,7 +97,42 @@ def pool_automata_cuda(height, pool, iterations: int = 10,
                    iterations, drain_particles)
 
 
-for _w in (pool_automata_cuda, pool_automata_full_cuda):
+def pool_automata_window(height, pool, drains, iterations: int, drain_particles: bool,
+                         origin, res: int):
+    """K5 on a window of a ``res``² grid: ``height``, ``pool`` and the
+    running ``drains`` are rows × cols cells from ``origin`` = (row, col)
+    on.  Returns (pool, drains), ``drains`` with each phase's drains added
+    in phase order.  Cells within 2 a phase of a window edge that is not
+    the grid's edge are stale (``pool._pool_automata_window``, its plain
+    version, says why).  A CPU tensor takes the plain version; a CUDA
+    tensor launches K5 or raises."""
+    if height.device.type == "cpu":
+        return _pool._pool_automata_window(height, pool, drains, iterations,
+                                           drain_particles, origin, res)
+    name = "pool_automata_window"
+    for t in (height, pool, drains):
+        _cuda.check_map(t, name, square=False)
+    if pool.shape != height.shape or drains.shape != height.shape \
+            or pool.device != height.device or drains.device != height.device:
+        raise ValueError(f"{name}: height, pool and drains must match in shape and device")
+    _pool._check_window(height.shape, origin, res, name)
+    if iterations < 0:
+        raise ValueError(f"{name}: iterations must be ≥ 0, got {iterations}")
+    rows, cols = height.shape
+    out = torch.empty_like(pool)
+    drains_out = torch.empty_like(pool)
+    flag = torch.empty((1,), dtype=torch.int32, device=pool.device)
+    tmp = torch.empty_like(pool)
+    with torch.cuda.device(pool.device):
+        _cuda.call("noize_pool_automata_window", height.data_ptr(), pool.data_ptr(),
+                   out.data_ptr(), drains.data_ptr(), drains_out.data_ptr(), flag.data_ptr(),
+                   tmp.data_ptr(), rows, cols, int(origin[0]), int(origin[1]), int(res),
+                   int(iterations), int(bool(drain_particles)), _cuda.stream(pool))
+    _count(pool_automata_window, flag)
+    return out, drains_out
+
+
+for _w in (pool_automata_cuda, pool_automata_full_cuda, pool_automata_window):
     _w.launches = 0
     _w.wet_calls = None
 

@@ -102,12 +102,21 @@ def _pile_tables(radius: int):
                 off_c.append(dist * ac + i * (bc - ac))
                 dist_l.append(dist)
     dist_l = np.asarray(dist_l, np.int32)
+    off_r, off_c = np.asarray(off_r, np.int32), np.asarray(off_c, np.int32)
+    # a slot's occurrence rank among the slots on its cell; dup_higher[k, k']:
+    # slot k' is on k's cell with a higher rank, so its commit overrides k's
+    seen, rank = {}, np.zeros(len(off_r), np.int32)
+    for k, cell in enumerate(zip(off_r.tolist(), off_c.tolist())):
+        rank[k] = seen.get(cell, 0)
+        seen[cell] = rank[k] + 1
+    same = (off_r[:, None] == off_r[None, :]) & (off_c[:, None] == off_c[None, :])
     ends = np.asarray([int((dist_l < rnd).sum()) for rnd in range(1, radius + 1)], np.int32)
     visit_slot = np.concatenate([np.arange(e, dtype=np.int32) for e in ends])
     visit_round = np.concatenate([np.full(e, rnd, np.float32)
                                   for rnd, e in zip(range(1, radius + 1), ends)])
-    tables = dict(off_r=np.asarray(off_r, np.int32), off_c=np.asarray(off_c, np.int32),
-                  ends=ends, visit_slot=visit_slot, visit_round=visit_round)
+    tables = dict(off_r=off_r, off_c=off_c, ends=ends, visit_slot=visit_slot,
+                  visit_round=visit_round, rank=rank,
+                  dup_higher=same & (rank[None, :] > rank[:, None]))
     _PILE_TABLES[radius] = tables
     return tables
 
@@ -174,6 +183,40 @@ def _handle_pile(height, r0, c0, amount, increment, radius: int):
     idx = torch.from_numpy((rows[keep] * res_c + cols[keep]).astype(np.int64))
     flat[idx.to(height.device)] = torch.from_numpy(vals[keep]).to(height.device)
     return height
+
+
+def solve_pile_table_plain(vals0, valid, vols, cid, increment, radius: int):
+    """The plain version of K6's table entry (``pile_cuda.solve_pile_table``):
+    the sharded ``EXACT_PILES`` solve on a table of K piles × S slots that
+    every rank holds — ``vals0`` (f32[K, S]) the slot values gathered from
+    the map, ``valid`` (bool) the in-grid slots, ``vols`` (f32[K]) the
+    volumes in processing order, ``cid`` (int64) the clamped cell each slot
+    reads.  Pile j runs ``_solve_pile`` on its row; its effective writes
+    (modified, in grid, and the last slot on their cell: ``dup_higher``)
+    then overlay every later pile's slots on the same cells, as the
+    reference's ``fori_loop`` does (its sum over the matching slots has one
+    term: a pile writes a cell once).  Returns (com_vals f32[K, S], com_eff
+    bool[K, S]) on ``vals0``'s device."""
+    dup = _pile_tables(radius)["dup_higher"]
+    cur = vals0.detach().cpu().numpy().astype(np.float32, copy=True)
+    valid_h = valid.detach().cpu().numpy().astype(bool)
+    vols_h = vols.detach().cpu().numpy().astype(np.float32)
+    cid_h = cid.detach().cpu().numpy()
+    com_vals = np.zeros_like(cur)
+    com_eff = np.zeros(cur.shape, bool)
+    for j in range(cur.shape[0]):
+        vals, modified = _solve_pile(cur[j], valid_h[j], vols_h[j], increment, radius)
+        write = modified & valid_h[j]
+        eff = write & ~np.any(dup & write[None, :], axis=1)
+        com_vals[j], com_eff[j] = vals, eff
+        # only the later piles that read a written cell can change
+        near = j + 1 + np.nonzero(np.isin(cid_h[j + 1:], cid_h[j][eff]).any(1))[0]
+        if near.size:
+            m = eff[None, None, :] & (cid_h[near][:, :, None] == cid_h[j][None, None, :])
+            newv = np.where(m, vals[None, None, :], np.float32(0.0)).sum(-1, dtype=np.float32)
+            cur[near] = np.where(m.any(-1), newv, cur[near])
+    dev = vals0.device
+    return torch.from_numpy(com_vals).to(dev), torch.from_numpy(com_eff).to(dev)
 
 
 def select_piles(pile_map, max_piles: int = 64):

@@ -367,7 +367,7 @@ def test_server_delivers_errors_per_order():
 
 
 def test_server_refusals_and_idle_drain():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="'batch' axis"):
         TSV.TileServer(_cfg(), mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -56,6 +56,15 @@ def test_last_single_device_and_parallel_modules_are_listed():
         assert f"noize_tpu_torch.{m}" in mods, m
 
 
+def test_sharded_slice_modules_are_listed():
+    """The sharded erosion cycle, the sharded mesh and checkpoint and the
+    multi-device dry run are among the modules imported below."""
+    mods = set(_modules())
+    for m in ("parallel.sharded_erosion", "parallel.sharded_mesh",
+              "parallel.sharded_checkpoint", "app.dryrun"):
+        assert f"noize_tpu_torch.{m}" in mods, m
+
+
 def test_port_imports_no_jax():
     code = (
         "import importlib, sys\n"

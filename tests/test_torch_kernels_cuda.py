@@ -694,3 +694,122 @@ def test_k6_no_piles_and_refusals(cuda):
         PL.exact_piles(h, torch.zeros_like(h), 1e-3, PL.MAX_RADIUS + 1)
     with pytest.raises(ValueError, match="increment"):
         PL.exact_piles(h, torch.zeros_like(h), 0.0, 4)
+
+
+def _k5_stitch(window_fn, h, p, res, nx, ny, iters, drain=True):
+    """A water step a call of ``window_fn`` (K5's window entry or its plain
+    version) on each block of an nx × ny split extended 8 cells toward its
+    neighbours, the drains carried in, the blocks stitched after each
+    step: the sharded pool's scheme on one device."""
+    got_p, got_d = p.clone(), torch.zeros_like(p)
+    for _ in range(iters):
+        new_p, new_d = got_p.clone(), got_d.clone()
+        for win, core, block in _windows(res, nx, ny, 8):
+            op, od = window_fn(h[win].contiguous(), got_p[win].contiguous(),
+                               got_d[win].contiguous(), 1, drain,
+                               (win[0].start, win[1].start), res)
+            new_p[block], new_d[block] = op[core], od[core]
+        got_p, got_d = new_p, new_d
+    return got_p, got_d
+
+
+@pytest.mark.parametrize("res,nx,ny", [(64, 2, 2), (64, 4, 1), (66, 3, 2), (99, 3, 3),
+                                       (2048, 2, 2), (2048, 4, 1), (2049, 3, 3)])
+def test_k5_window_stitches_to_full_grid(cuda, res, nx, ny):
+    """K5 on the blocks of a split (odd window origins at 66 = 3 × 2 and
+    99 = 3 × 3, non-square windows), one launch a water step with the
+    drains carried in: the full-grid K5 call and the plain windows, bit
+    for bit."""
+    rng = np.random.default_rng(res + nx)
+    h = torch.from_numpy(_field(rng, res)).to(cuda)
+    p = torch.from_numpy(rng.uniform(-0.3, 0.1, (res, res)).clip(0).astype(np.float32)).to(cuda)
+    want_p, want_d = pool_automata_full_cuda(h, p, 3, True)
+    before = PC.pool_automata_window.launches
+    got_p, got_d = _k5_stitch(PC.pool_automata_window, h, p, res, nx, ny, 3)
+    assert PC.pool_automata_window.launches == before + 3 * nx * ny
+    plain_p, plain_d = _k5_stitch(PO._pool_automata_window, h, p, res, nx, ny, 3)
+    torch.cuda.synchronize()
+    assert not torch.equal(want_p, p)
+    for got, want in ((got_p, want_p), (got_d, want_d), (plain_p, want_p), (plain_d, want_d)):
+        _equal(got, want)
+
+
+@pytest.mark.parametrize("origin,shape,iters", [((0, 0), (130, 130), 3), ((7, 33), (90, 61), 2),
+                                                ((1, 0), (129, 130), 1)])
+def test_k5_window_matches_plain_with_drains_carried_in(cuda, origin, shape, iters):
+    """One call of several water steps on a window of a 130² grid, with
+    nonzero drains coming in: equal to the plain window on every cell that
+    is not within 8 a step of an inner window edge (the whole window when
+    it is the grid)."""
+    res = 130
+    rng = np.random.default_rng(sum(origin) + iters)
+    rows, cols = shape
+    h = torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32)).to(cuda)
+    p = torch.from_numpy(rng.uniform(-0.3, 0.1, shape).clip(0).astype(np.float32)).to(cuda)
+    d = torch.from_numpy(rng.uniform(0, 0.01, shape).astype(np.float32)).to(cuda)
+    got = PC.pool_automata_window(h, p, d, iters, True, origin, res)
+    want = PO._pool_automata_window(h, p, d, iters, True, origin, res)
+    torch.cuda.synchronize()
+    m = 8 * iters
+    r0 = 0 if origin[0] == 0 else m
+    c0 = 0 if origin[1] == 0 else m
+    r1 = rows if origin[0] + rows == res else rows - m
+    c1 = cols if origin[1] + cols == res else cols - m
+    for g, w in zip(got, want):
+        _equal(g[r0:r1, c0:c1], w[r0:r1, c0:c1])
+    assert not torch.equal(got[1], d)  # drains were added onto the carried sum
+    with pytest.raises(ValueError, match="leaves"):
+        PC.pool_automata_window(h, p, d, 1, True, (res - rows + 1, 0), res)
+
+
+def _pile_table(h, pile_map, radius, max_piles=64):
+    """The sharded EXACT_PILES table at world size 1: the piles, each
+    slot's clamped cell and its value on ``h``."""
+    from noize_tpu_torch.erosion import sediment as SE
+
+    res_r, res_c = h.shape
+    t = SE._pile_tables(radius)
+    vols, idxs = SE.select_piles(pile_map, max_piles)
+    rows = (idxs // res_c)[:, None] + torch.from_numpy(t["off_r"]).to(h.device).long()[None]
+    cols = (idxs % res_c)[:, None] + torch.from_numpy(t["off_c"]).to(h.device).long()[None]
+    valid = (rows >= 0) & (cols >= 0) & (rows < res_r) & (cols < res_c)
+    cid = rows.clamp(0, res_r - 1) * res_c + cols.clamp(0, res_c - 1)
+    return h.reshape(-1)[cid], valid, vols, cid
+
+
+def _commit(h, com_vals, com_eff, cid):
+    out = h.clone().reshape(-1)
+    for j in range(com_vals.shape[0]):
+        out[cid[j][com_eff[j]]] = com_vals[j][com_eff[j]]
+    return out.reshape(h.shape)
+
+
+@pytest.mark.parametrize("radius,n_cand", [(4, None), (15, None), (15, 100)])
+def test_k6_table_matches_plain_and_full_map(cuda, radius, n_cand):
+    """K6's table entry (one launch) against its plain version, bit-equal,
+    and its commits against K6 on the map: overlapping and border piles,
+    and 64 of 100 tied piles."""
+    from noize_tpu_torch.erosion import pile_cuda as PL
+    from noize_tpu_torch.erosion import sediment as SE
+
+    res = 256 if n_cand is None else 512
+    if n_cand is None:
+        cells = [(100, 100), (101, 103), (104, 98), (99, 106), (0, 7), (res - 1, res - 1),
+                 (50, 0), (200, 201)]
+        h, piles = _piles_case(res, cells, [0.05, 0.3, 0.02, 0.12, 0.04, 0.2, 0.08, 0.5],
+                               radius)
+    else:
+        rng = np.random.default_rng(9)
+        flat = rng.choice(res * res, n_cand, replace=False)
+        h, piles = _piles_case(res, [(int(f) // res, int(f) % res) for f in flat],
+                               list(np.float32(0.01) * rng.integers(1, 5, n_cand)), 3)
+    hd, pd = torch.from_numpy(h).to(cuda), torch.from_numpy(piles).to(cuda)
+    vals0, valid, vols, cid = _pile_table(hd, pd, radius)
+    before = PL.solve_pile_table.launches
+    got = PL.solve_pile_table(vals0, valid, vols, cid, 1e-3, radius)
+    assert PL.solve_pile_table.launches == before + 1
+    want = SE.solve_pile_table_plain(vals0, valid, vols, cid, 1e-3, radius)
+    torch.cuda.synchronize()
+    _equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    _equal(_commit(hd, *got, cid), PL.exact_piles(hd, pd, 1e-3, radius))

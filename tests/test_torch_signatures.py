@@ -114,7 +114,8 @@ def test_modules_found():
             "app.tile_generator", "utils.tracking", "utils.stats", "utils.helpers",
             "app.visualize", "app.bakery", "app.drawers", "erosion.vegetation", "native",
             "parallel.device_mesh", "parallel.distributed", "parallel.halo",
-            "parallel.sharded_ops"} <= set(MODULES)
+            "parallel.sharded_ops", "parallel.sharded_erosion", "parallel.sharded_mesh",
+            "parallel.sharded_checkpoint"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("rel", MODULES)
@@ -164,3 +165,14 @@ def test_flagship_step_signature():
     assert got[3:] == [("fresh", inspect.Parameter.KEYWORD_ONLY)]
     jstep, _, _ = JF.make_tile_step()
     assert list(inspect.signature(jstep).parameters) == ["xpos", "zpos", "key"]
+
+
+def test_dryrun_multichip_signature():
+    """``app.dryrun.dryrun_multichip`` takes ``__graft_entry__``'s
+    (n_devices) and a trailing keyword-only ``device``."""
+    import __graft_entry__ as GE
+    from noize_tpu_torch.app import dryrun as DR
+
+    got = _params(DR.dryrun_multichip)
+    assert got[-1][0] == "device" and got[-1][2] is inspect.Parameter.KEYWORD_ONLY
+    assert [(n, d) for n, d, _ in got[:-1]] == [(n, d) for n, d, _ in _params(GE.dryrun_multichip)]

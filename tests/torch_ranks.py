@@ -168,6 +168,227 @@ def _batch(out: dict):
         out["refusal"] = np.asarray([str(e)])
 
 
+# --- the sharded erosion cycle (tests/test_torch_sharded_erosion.py) --------
+
+#: the small cycle of tests/test_parallel.py's sharded-erosion tests
+EROSION_SETTINGS = dict(PARTICLES_PER_CYCLE=48, MAXAGE=12, WATER_STEPS=3, CYCLES=1,
+                        PILING_RADIUS=4)
+SIM_SETTINGS = dict(PARTICLES_PER_CYCLE=16, MAXAGE=4, WATER_STEPS=2, CYCLES=1,
+                    PILING_RADIUS=4)
+EXACT_CASES = ("scattered", "chained", "border_clip", "overflow")
+#: (case, seed, cycles) of the cycle comparisons
+CYCLE_CASES = (("cycle1", 6, 1), ("cycle2", 13, 2))
+
+
+def erosion_height(seed: int, res: int = 32) -> np.ndarray:
+    return np.random.default_rng(seed).uniform(0.2, 0.8, (res, res)).astype(np.float32)
+
+
+def erosion_meta(res: int = 32):
+    from noize_tpu_torch.core.tiles import TileSetMeta
+
+    return TileSetMeta(tile_res=res, tile_size=res, generator_res=res, height=500, margin=0)
+
+
+def spawn_drains(res: int = 32) -> np.ndarray:
+    """A drain map with 80 wet cells in 4 tied levels (more than the 48
+    particle slots) and one cell on each block corner of the meshes."""
+    rng = np.random.default_rng(5)
+    d = np.zeros((res, res), np.float32)
+    d.reshape(-1)[rng.choice(res * res, 80, replace=False)] = \
+        np.float32(0.01) * rng.integers(1, 5, 80).astype(np.float32)
+    for r, c in ((7, 7), (8, 8), (15, 16), (16, 15), (23, 24)):
+        d[r, c] = np.float32(0.04)
+    return d
+
+
+def pool_inputs(res: int = 32):
+    rng = np.random.default_rng(17)
+    h = rng.uniform(0, 1, (res, res)).astype(np.float32)
+    p = rng.uniform(-0.3, 0.1, (res, res)).clip(0).astype(np.float32)
+    return h, p
+
+
+def sediment_inputs(case: str, res: int = 32):
+    """(height, sediment) of tests/test_parallel.py's sediment cases."""
+    rng = np.random.default_rng(19 if case == "tent" else 43)
+    h = rng.uniform(0.3, 0.7, (res, res)).astype(np.float32)
+    sed = rng.uniform(-0.01, 0.012, (res, res)).astype(np.float32)
+    if case in ("tent", "scattered"):
+        sed[5, 7] = 0.5
+        sed[20, 25] = 0.4
+    elif case == "chained":  # supports overlap in a chain across block borders
+        sed[14, 14], sed[17, 17], sed[20, 14], sed[15, 18] = 0.6, 0.5, 0.45, 0.3
+    elif case == "border_clip":
+        sed[0, 0], sed[2, 31], sed[31, 16] = 0.5, 0.4, 0.35
+    else:  # more piles than the 64 solved
+        rr = np.random.default_rng(7)
+        cells = rr.choice(res * res, size=100, replace=False)
+        sed.reshape(-1)[cells] = rr.uniform(0.2, 0.9, 100).astype(np.float32)
+    return h, sed
+
+
+def _state(seed: int, key_seed: int = 9):
+    from noize_tpu_torch.erosion.sim import init_state
+    from noize_tpu_torch.prng import PRNGKey
+
+    return init_state(torch.from_numpy(erosion_height(seed)), PRNGKey(key_seed, device="cpu"))
+
+
+def _put(a, mesh):
+    block, shape = HA._local_block(torch.from_numpy(np.asarray(a)), mesh)
+    return HA._as_field(block, mesh, shape)
+
+
+def _world_out(out, prefix, state):
+    for k in ("height", "pool", "flow", "track", "plants"):
+        out[f"{prefix}/{k}"] = getattr(state.world, k).full_tensor().numpy()
+    out[f"{prefix}/drain"] = state.drain_water.full_tensor().numpy()
+    out[f"{prefix}/key"] = state.key.numpy()
+
+
+def _erosion(rank: int, out: dict, out_dir: str):
+    from dataclasses import replace
+
+    from noize_tpu_torch.convert import sharded_state_from_numpy, sim_state_to_numpy
+    from noize_tpu_torch.core.store import PipelineStateManager
+    from noize_tpu_torch.erosion.params import ErosionSettings
+    from noize_tpu_torch.parallel import sharded_erosion as SE
+    from noize_tpu_torch.parallel.sharded_checkpoint import ShardedCheckpoint
+    from noize_tpu_torch.prng import PRNGKey
+
+    meshes = {m: init_device_mesh("cpu", shape, mesh_dim_names=("x", "y"))
+              for m, shape in MESHES.items()}
+    settings = ErosionSettings(**EROSION_SETTINGS)
+    meta = erosion_meta()
+    for mname, mesh in meshes.items():
+        def sharded(state):  # the JAX tests' numpy state, placed on the mesh
+            world, drain = sim_state_to_numpy(state)
+            return sharded_state_from_numpy(world, drain, mesh, key=state.key.numpy())
+
+        parts, left, key = SE._sharded_spawn(mesh, _put(spawn_drains(), mesh),
+                                             PRNGKey(3, device="cpu"), 48, 32)
+        for f in parts._fields:
+            out[f"{mname}/spawn/{f}"] = getattr(parts, f).numpy()
+        out[f"{mname}/spawn/leftover"] = left.full_tensor().numpy()
+        out[f"{mname}/spawn/key"] = key.numpy()
+        # the descent alone, on cycle1's world with 48 fresh particles
+        from noize_tpu_torch.erosion.particles import spawn
+
+        st = sharded(_state(6))
+        parts = spawn(PRNGKey(4, device="cpu"), 48, 32)
+        got = SE._sharded_descent(mesh, st.world, parts, settings.as_parameters(), 500.0, 1, 32,
+                                  chunk=4)
+        for f in got[0]._fields:
+            out[f"{mname}/descent/{f}"] = getattr(got[0], f).numpy()
+        for k, acc in zip(("track", "pool", "sed"), got[1:]):
+            out[f"{mname}/descent/{k}"] = acc.full_tensor().numpy()
+        h, p = pool_inputs()
+        for dp in (True, False):
+            gp, gd = SE._sharded_pool_automata(mesh, _put(h, mesh), _put(p, mesh), 32, 3, dp)
+            out[f"{mname}/pool/{int(dp)}/pool"] = gp.full_tensor().numpy()
+            out[f"{mname}/pool/{int(dp)}/drains"] = gd.full_tensor().numpy()
+        for case in ("tent",) + EXACT_CASES:
+            hh, sed = sediment_inputs(case)
+            params = ErosionSettings(PILING_RADIUS=4,
+                                     EXACT_PILES=case != "tent").as_parameters()
+            got = SE._sharded_write_sediment(mesh, _put(hh, mesh), _put(sed, mesh), params,
+                                             500.0)
+            out[f"{mname}/sediment/{case}"] = got.full_tensor().numpy()
+        for case, seed, cycles in CYCLE_CASES:
+            state = sharded(_state(seed))
+            for _ in range(cycles):
+                state = SE.sharded_erosion_cycle(mesh, state, settings, meta, chunk=4)
+            _world_out(out, f"{mname}/{case}", state)
+        state = sharded(_state(31))
+        _world_out(out, f"{mname}/tuned/static",
+                   SE.sharded_erosion_cycle(mesh, state, settings, meta, chunk=4))
+        _world_out(out, f"{mname}/tuned/traced",
+                   SE.sharded_erosion_cycle(mesh, state, settings.canonical(), meta, chunk=4,
+                                            tuned=settings.tunable_values()))
+        # an EXACT_PILES cycle, on the same inputs as cycle1
+        state = SE.sharded_erosion_cycle(mesh, sharded(_state(6)),
+                                         replace(settings, EXACT_PILES=True), meta, chunk=4)
+        _world_out(out, f"{mname}/exact_cycle", state)
+
+        # the sim: per-shard checkpoint, resume bit-exact
+        store = os.path.join(out_dir, f"store_{mname}")
+        sim_settings = ErosionSettings(**SIM_SETTINGS)
+        a = SE.ShardedErosionSim(mesh, erosion_height(31), settings=sim_settings, chunk=4,
+                                 state_manager=PipelineStateManager(store, device="cpu"))
+        a.step(1)
+        a.save_erosion_state()
+        key_at_save = a.state.key
+        b = SE.ShardedErosionSim(mesh, np.zeros((32, 32), np.float32), settings=sim_settings,
+                                 chunk=4, state_manager=PipelineStateManager(store, device="cpu"))
+        b.restore_erosion_state()
+        b.state = replace(b.state, key=key_at_save)
+        _world_out(out, f"{mname}/sim/saved", a.state)
+        _world_out(out, f"{mname}/sim/restored", b.state)
+        a.step(1)
+        b.step(1)
+        _world_out(out, f"{mname}/sim/a", a.state)
+        _world_out(out, f"{mname}/sim/b", b.state)
+        out[f"{mname}/sim/cycles"] = np.asarray([a.cycle_count, b.cycle_count])
+        # the inherited surface: resets, the continuous mode, curvature, maps
+        b.reset_water()
+        pool_sum = float(b.pool_map.full_tensor().sum())
+        b.reset_land()
+        land = torch.equal(b.height_map.full_tensor(), b.original_height.full_tensor())
+        states = [b.update()]
+        while states[-1] != "completed":
+            states.append(b.update(continuous=False))
+        out[f"{mname}/sim/surface"] = np.asarray(
+            [pool_sum == 0.0, land, states[0] == "triggered", b.cycle_count == 2,
+             bool(torch.isfinite(b.curvature()).all()), tuple(b.plant_map.shape) == (32, 32)])
+        files = os.listdir(os.path.join(store, "save__default_0", f"save__proc{rank}_0", "data"))
+        out[f"{mname}/sim/files"] = np.asarray([len(files)])
+        # a replicated array: one block, loaded on (mesh, placements)
+        from torch.distributed.tensor import Replicate
+
+        ck = ShardedCheckpoint(os.path.join(out_dir, f"rep_{mname}"))
+        ck.save("key", torch.arange(4, dtype=torch.int32))
+        ck.flush()
+        back = ck.load("key", (mesh, [Replicate(), Replicate()]))
+        out[f"{mname}/ckpt/replicated"] = np.asarray(
+            [ck.exists("key"), torch.equal(back.to_local(), torch.arange(4, dtype=torch.int32)),
+             ck.load("absent", mesh) is None])
+        other = meshes["4x1" if mname == "2x2" else "2x2"]
+        try:
+            ShardedCheckpoint(a.state_manager.serde.root).load(
+                a._buffer_name("TERRAIN_HEIGHT"), other)
+            out[f"{mname}/sim/mismatch"] = np.asarray(["no error"])
+        except IOError as e:
+            out[f"{mname}/sim/mismatch"] = np.asarray([str(e)])
+
+
+def _sim_one_rank(out: dict, out_dir: str):
+    """World size 1: the sim checkpoints through the store."""
+    from dataclasses import replace
+
+    from noize_tpu_torch.core.store import PipelineStateManager
+    from noize_tpu_torch.erosion.params import ErosionSettings
+    from noize_tpu_torch.parallel import sharded_erosion as SE
+
+    mesh = DM.spatial_mesh(device="cpu")
+    store = os.path.join(out_dir, "store")
+    st = ErosionSettings(**SIM_SETTINGS)
+    a = SE.ShardedErosionSim(mesh, erosion_height(31), settings=st, chunk=4,
+                             state_manager=PipelineStateManager(store, device="cpu"))
+    a.step(1)
+    a.save_erosion_state()
+    b = SE.ShardedErosionSim(mesh, np.zeros((32, 32), np.float32), settings=st, chunk=4,
+                             state_manager=PipelineStateManager(store, device="cpu"))
+    b.restore_erosion_state()
+    b.state = replace(b.state, key=a.state.key)
+    a.step(1)
+    b.step(1)
+    _world_out(out, "sim1/a", a.state)
+    _world_out(out, "sim1/b", b.state)
+    out["sim1/manifest"] = np.asarray(sorted(
+        a.state_manager.serde.directory.entries))
+
+
 def launch(suite: str, world: int, tmp_path, timeout: float = 120.0):
     """Run ``world`` ranks of ``suite``; kill every rank if any outlives
     ``timeout``; return rank 0's results."""
@@ -193,6 +414,111 @@ def launch(suite: str, world: int, tmp_path, timeout: float = 120.0):
     return dict(np.load(tmp_path / f"{suite}.npz"))
 
 
+# --- the sharded mesh (tests/test_torch_sharded_mesh.py) -------------------
+
+MESH_MARGINS = (0, 1, 8)
+MESH_VARIANTS = ("overshoot", "square")
+MESH_LAYOUTS = ("arrays", "planes")
+
+
+def mesh_height(inp: int = 64) -> np.ndarray:
+    return np.random.default_rng(3).uniform(0, 1, (inp, inp)).astype(np.float32)
+
+
+def _mesh_suite(rank: int, out: dict, out_dir: str):
+    from noize_tpu_torch.parallel import sharded_mesh as SM
+
+    inp = 64
+    a = torch.from_numpy(mesh_height(inp))
+    for mname, shape in MESHES.items():
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("x", "y"))
+        ash = _put(a.numpy(), mesh)
+        for margin in MESH_MARGINS:
+            r = inp - 2 * margin
+            for variant in MESH_VARIANTS:
+                for layout in MESH_LAYOUTS:
+                    key = f"{mname}/{margin}/{variant}/{layout}"
+                    fields = SM.sharded_heightmap_mesh(mesh, ash, r, inp, 500.0, float(r),
+                                                       variant=variant, layout=layout)
+                    if layout == "planes":
+                        got = SM.mesh_planes_from_fields(fields, r, inp, shape)
+                        out[f"{key}/planes"] = got.planes.numpy()
+                        out[f"{key}/field_shape"] = np.asarray(fields["planes"].shape)
+                    else:
+                        got = SM.mesh_arrays_from_fields(fields, r, inp, shape)
+                        for f in ("positions", "normals", "tangents", "uvs"):
+                            out[f"{key}/{f}"] = getattr(got, f).numpy()
+                        out[f"{key}/field_shape"] = np.asarray(fields["positions"].shape)
+                    out[f"{key}/indices"] = got.indices.numpy()
+        # the sim's mesh fields
+        from noize_tpu_torch.erosion.params import ErosionSettings
+        from noize_tpu_torch.parallel.sharded_erosion import ShardedErosionSim
+
+        sim = ShardedErosionSim(mesh, erosion_height(29),
+                                settings=ErosionSettings(PARTICLES_PER_CYCLE=8, MAXAGE=4,
+                                                         WATER_STEPS=1, CYCLES=1,
+                                                         PILING_RADIUS=4), chunk=4)
+        sim.step(1)
+        f = sim.mesh_fields()
+        out[f"{mname}/sim/positions"] = f["positions"].full_tensor().numpy()
+        out[f"{mname}/sim/planes"] = sim.mesh_fields(layout="planes")["planes"].full_tensor().numpy()
+        out[f"{mname}/sim/height"] = sim.height_map.full_tensor().numpy()
+
+
+# --- TileServer(mesh=) (tests/test_torch_app.py) ----------------------------
+
+SERVER_ORDERS = [(x, z) for z in range(2) for x in range(3)]
+
+
+def _server(rank: int, out: dict, out_dir: str):
+    from noize_tpu_torch.app.server import TileServer
+
+    mesh = DM.batch_mesh(device="cpu")
+    results = {}
+    for erosion in (False, True):
+        srv = TileServer(tile_config(erosion, False), batch_size=4, mesh=mesh, seed=5,
+                         max_wait_ms=50.0)
+        if srv.controller:
+            for i, pos in enumerate(SERVER_ORDERS):
+                srv.submit(f"t{i}", pos, on_complete=lambda st: results.__setitem__(
+                    (erosion, st.request.uuid), st))
+        try:
+            srv.start()
+            out[f"{int(erosion)}/drained/{rank}"] = np.asarray([srv.drain(timeout=90.0)])
+        finally:
+            srv.stop()
+        out[f"{int(erosion)}/batches/{rank}"] = np.asarray([srv.batches])
+        if srv.controller:
+            for i in range(len(SERVER_ORDERS)):
+                st = results[(erosion, f"t{i}")]
+                assert st.error is None, st.error
+                out[f"{int(erosion)}/t{i}"] = st.heights.numpy()
+            out[f"{int(erosion)}/served"] = np.asarray([srv.served])
+    flags = torch.tensor([1.0 if out[f"{e}/drained/{rank}"][0] else 0.0 for e in (0, 1)])
+    dist.all_reduce(flags)
+    out["drained"] = flags.numpy()
+    # a batch the mesh does not divide: tile_batch's error, per order
+    srv = TileServer(tile_config(False, False), batch_size=3, mesh=mesh, max_wait_ms=50.0)
+    errors = []
+    if srv.controller:
+        srv.submit("odd", (0, 0), on_complete=lambda st: errors.append(str(st.error)))
+    try:
+        srv.start()
+        srv.drain(timeout=60.0)
+    finally:
+        srv.stop()
+    if srv.controller:
+        out["uneven"] = np.asarray(errors)
+
+
+SUITES = {
+    "erosion": _erosion,
+    "sim1": lambda rank, out, out_dir: _sim_one_rank(out, out_dir),
+    "mesh": _mesh_suite,
+    "server": _server,
+}
+
+
 def main():
     suite, rank, world, init_file, out_dir = sys.argv[1:6]
     rank, world = int(rank), int(world)
@@ -200,6 +526,10 @@ def main():
     if suite == "batch":
         assert D.initialize(f"file://{init_file}", world, rank, device="cpu")
         _batch(out)
+    elif suite in SUITES:
+        dist.init_process_group("gloo", init_method=f"file://{init_file}", world_size=world,
+                                rank=rank, timeout=TIMEOUT)
+        SUITES[suite](rank, out, out_dir)
     else:
         dist.init_process_group("gloo", init_method=f"file://{init_file}", world_size=world,
                                 rank=rank, timeout=TIMEOUT)
