@@ -7,7 +7,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. device: requires CUDA; prints the card's name and
    ``nvidia-smi --query-gpu=name,power.limit``;
-2. build: compiles the CUDA kernels K1-K6 from ``noize_tpu_torch/csrc``;
+2. build: compiles the CUDA kernels K1-K8 from ``noize_tpu_torch/csrc``
+   (K7 particle descent ``descent.cu``, K8 threefry ``threefry.cu``);
 3. kernels: each kernel against its plain PyTorch version on the card at
    the flagship's shapes (2048², and 2049² for K5), with CUDA-event times
    of both, the card's least time for the same work (``bound_ms``) and,
@@ -28,8 +29,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``__graft_entry__.entry()`` configuration from the same seed (the same
    threefry spawn), and the mesh export round trip (OBJ, NPZ) at that
    size;
+8b. descent: K7 (``descend_steps``: every step of the 1000 particles of
+   the Quickstart's 2048² state after its step, MAXAGE 100, spawned from the
+   sim's key; and config 5's 250 particles on a 1024² tile) against its
+   plain version, particles and events bit-equal, and ``descend_all``'s
+   sums bit-equal to the plain events' scatter (within 1e-5 of the
+   early-exit loop's, a scatter a chunk); K7@window on the four windows of
+   a 2×2 split of both, chunk of 8, owner masks, bit-equal; K8 on the
+   spawns' hashes; each timed against its plain version (rows K7,
+   K7@window, K8);
 9. prng: the threefry PRNG on the card against the CPU, 10⁶ ``randint``
-   draws (integers, exact), with the card's time for the draw;
+   draws (integers, exact), with the card's time for the draw, and K8
+   against its plain version on the card (bit-equal);
 10. kernel filters: K1 with each non-Gauss filter's taps (distinct X and
    Z taps, Smooth3's factor) and ``kernel_filter``'s Sobel3_2D at 2048²
    against the plain version (tolerance 0), with CUDA-event times, the
@@ -83,9 +94,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    K6 on the pile table of 64 of 100 tied piles at radius 15, bit-equal to
    its plain version and, committed, to K6 on the map (the kernels line's
    rows K5@window and K6@table);
-21. profile: one more Quickstart ``ErosionSim.step()`` under
-   ``torch.profiler`` (device busy time, idle share), after every timed
-   phase;
+21. profile: after every timed phase, one more run of each step path
+   under ``torch.profiler`` (device busy time, idle share): the Quickstart
+   ``ErosionSim.step()``, the flagship step, the 1025² sim step, config 5's
+   ``tile_batch``, a ``TileServer`` wave, the vegetation and
+   ``EXACT_PILES`` steps (the sharded sim step is profiled inside its
+   phase, where its process group lives);
 22. pool trace: one wet K4 call and one wet K5 call at 2048² under
    ``torch.profiler``; each must run ``1 + WATER_STEPS`` device kernels
    (the init kernel and one fused launch per water step);
@@ -97,7 +111,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    time and its host enqueue time.
 
 Each path phase resets every launch count just before it runs and fails
-if a kernel of its path was not launched.  Prints the per-kernel JSON
+if a kernel of its path was not launched: every erosion path runs K7 (the
+sharded one K7@window) and K8, and prints its step time and host syncs.  Prints the per-kernel JSON
 line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -128,6 +143,8 @@ CROSS_DEVICE_RTOL = 1e-4
 # counted below is one instruction, and the peak for them is half that.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 132 * 128 * 1.98e9
+# 32-bit integer issue rate: 64 INT32 lanes an SM (the Hopper white paper)
+PEAK_I32_OPS_PER_S = 132 * 64 * 1.98e9
 
 # Float32 operations per cell (arithmetic, compares, min/max), counted
 # from the plain versions' source:
@@ -139,9 +156,18 @@ PEAK_F32_OPS_PER_S = 132 * 128 * 1.98e9
 #       eligibility, rank, 4 sub-steps, demux, drains) plus 5 adds per
 #       cell in the apply; 4 phases per water step.  A call whose gate is
 #       closed does none of it.
+#   K7: about 200 per step of a live particle: the 8 quantised reads (24),
+#       argmin (14), the friction terms and steering (14), the velocity
+#       terms (2 x 8 and atan and sin twice, ~20 each), the velocity
+#       update and the payouts (~50); a dead particle's step writes its
+#       event and computes nothing.
+#   K8: 20 rounds of an add, a rotate (2 shifts and an or) and a xor, 5
+#       key injections of 3 adds: 115 32-bit integer ops a pair.
 K2_OPS_PER_ITER, K2_OPS_ONCE = 35, 14
 K3_OPS_PER_ITER = 48
 POOL_OPS_PER_ITER = 4 * (98 / 4 + 5)
+K7_OPS_PER_LIVE_STEP = 200
+K8_OPS_PER_PAIR = 115
 
 
 def _check(cond, msg):
@@ -169,15 +195,17 @@ def _max_abs(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
-def _bound(nbytes, ops):
+def _bound(nbytes, ops, ops_per_s=PEAK_F32_OPS_PER_S):
     """(least ms the card needs, what bounds it)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _counters():
     """Every kernel wrapper and entry with a launch count, by row key."""
+    from noize_tpu_torch import prng
+    from noize_tpu_torch.erosion import descent_cuda as DC
     from noize_tpu_torch.erosion import pile_cuda as PL
     from noize_tpu_torch.erosion import pool_cuda as PC
     from noize_tpu_torch.ops.cuda import flow as FC
@@ -189,6 +217,8 @@ def _counters():
         "K3": TC.thermal_erosion_fused, "K4": PC.pool_automata_cuda,
         "K5": PC.pool_automata_full_cuda, "K6": PL.exact_piles,
         "K5@window": PC.pool_automata_window, "K6@table": PL.solve_pile_table,
+        "K7": DC.descend_steps, "K7@window": DC.descend_steps_window,
+        "K8": prng.threefry2x32,
         "#1": SC.fused_separable_chain, "#2": SC.fused_separable_chain_rows,
         "#3": FC.flow_map_pallas, "#6": PC.pool_automata_pallas,
         "#7": PC.pool_automata_pallas_pair, "#8": PC.pool_automata_pallas_quad,
@@ -240,9 +270,11 @@ def build_phase():
         path = _cuda.build()
         _cuda.library()
         _check(host.result(), "the native IO runtime did not load")
-    print(f"build: {path.relative_to(HERE)} ({len(list(_cuda.CSRC.glob('*.cu')))} sources in "
-          f"parallel) and {native.library_path().relative_to(HERE)} in "
-          f"{time.perf_counter() - t0:.1f} s")
+    srcs = sorted(p.name for p in _cuda.CSRC.glob("*.cu"))
+    _check({"descent.cu", "threefry.cu"} <= set(srcs), f"K7 or K8 source missing: {srcs}")
+    print(f"build: {path.relative_to(HERE)} ({len(srcs)} sources in parallel: "
+          f"{', '.join(srcs)}; K7 descent.cu, K8 threefry.cu) and "
+          f"{native.library_path().relative_to(HERE)} in {time.perf_counter() - t0:.1f} s")
 
 
 def _conv_chain(taps, iterations, taps_z=None, factor=1.0):
@@ -275,9 +307,10 @@ def _conv_chain(taps, iterations, taps_z=None, factor=1.0):
 class Rows:
     """The kernels JSON line: one row per TPU kernel, K5 at 2049², K5 and
     K3 at 1025² (odd sizes), K1 with each filter's taps, K1 and K2 on the
-    config-5 stack, K6 (the exact pile solver, no TPU kernel's port), and
-    K5 on a window and K6 on a pile table (the sharded cycle's), filled as
-    the phases run."""
+    config-5 stack, K6 (the exact pile solver, no TPU kernel's port), K5 on
+    a window and K6 on a pile table (the sharded cycle's), and K7 (particle
+    descent), K7 on a window and K8 (threefry), none a TPU kernel's port,
+    filled as the phases run."""
 
     def __init__(self):
         self.rows = {}
@@ -285,7 +318,7 @@ class Rows:
         self._plain_ms = {}
 
     def compare(self, key, name, source, replaces, got, kernel, plain, plain_key,
-                reps, nbytes, ops, library=None):
+                reps, nbytes, ops, library=None, ops_per_s=PEAK_F32_OPS_PER_S):
         """Hold ``got`` (the kernel's output) against the plain version's,
         then time the kernel, the plain version (once per ``plain_key``)
         and ``library``."""
@@ -300,7 +333,7 @@ class Rows:
             self._plain_ms[plain_key] = _time_ms(plain, max(1, reps // 5), warm=False)
         plain_ms = self._plain_ms[plain_key]
         library_ms = None if library is None else _time_ms(library, reps)
-        bound_ms, bound_by = _bound(nbytes, ops)
+        bound_ms, bound_by = _bound(nbytes, ops, ops_per_s)
         print(f"{name}: max_abs_err {err!r} (tol {KERNEL_TOL}), kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
               + ("" if library_ms is None else f", library {library_ms:.4f} ms"))
@@ -316,9 +349,10 @@ class Rows:
         self.launches.update(counts)
 
     def line(self):
-        order = ["#1", "#2", "#3", "#4", "#5", "#6", "#7", "#8", "#9", "#10", "K5", "K5@1025",
-                 "K3@1025"] + [f"K1:{f}" for f in FILTERS] + ["K1@stack", "K2@stack", "K6", "K5@window",
-                                            "K6@table"]
+        order = (["#1", "#2", "#3", "#4", "#5", "#6", "#7", "#8", "#9", "#10", "K5", "K5@1025",
+                  "K3@1025"] + [f"K1:{f}" for f in FILTERS]
+                 + ["K1@stack", "K2@stack", "K6", "K5@window", "K6@table", "K7", "K7@window",
+                    "K8"])
         _check(set(self.rows) == set(order), f"rows {sorted(self.rows)}")
         for k in order:
             _check(self.launches.get(k, 0) > 0, f"{k} was launched on no path")
@@ -352,6 +386,7 @@ SRC = {
     "K1": "noize_tpu_torch/csrc/stencil.cu", "K2": "noize_tpu_torch/csrc/flow.cu",
     "K3": "noize_tpu_torch/csrc/thermal.cu", "K4": "noize_tpu_torch/csrc/pool.cu",
     "K5": "noize_tpu_torch/csrc/pool.cu", "K6": "noize_tpu_torch/csrc/piles.cu",
+    "K7": "noize_tpu_torch/csrc/descent.cu", "K8": "noize_tpu_torch/csrc/threefry.cu",
 }
 TPU = "noize_tpu/ops/pallas/"
 POOL_TPU = "noize_tpu/erosion/pool_pallas.py"
@@ -528,8 +563,12 @@ def quickstart_phase(rows):
             _check(back.device.type == "cuda" and back.dtype == torch.float32,
                    f"restored {n} on {back.device} as {back.dtype}")
             _check(torch.equal(back, sm.get_buffer(n)), f"restored {n} differs")
-    for key in ("K1", "K2", "K3", "K4"):
+    for key in ("K1", "K2", "K3", "K4", "K7", "K8"):
         _check(counts[key] > 0, f"{key} was not launched on the Quickstart path")
+    cycles = sim.settings.CYCLES
+    _check(counts["K7"] == cycles, f"K7 launched {counts['K7']} times in {cycles} cycles")
+    _check(len(sim.syncs) == 2 * cycles and "descent.alive" not in sim.syncs,
+           f"Quickstart step host syncs {sim.syncs}")
     for k, v in (("height", sim.height_map), ("pool", sim.pool_map), ("stream", sim.stream_map),
                  ("flow map", out.data)):
         _check(tuple(v.shape) == (2048, 2048), f"{k} shape {tuple(v.shape)}")
@@ -540,13 +579,190 @@ def quickstart_phase(rows):
     _check(tuple(m.indices.shape) == (6 * r * r,), "mesh indices shape")
     for f in ("positions", "normals", "tangents", "uvs"):
         _check(bool(torch.isfinite(getattr(m, f)).all()), f"mesh {f} not finite")
+    syncs = len(sim.syncs)
+    _, step2_ms = timed(sim.step)  # the first step pays the process's first uses
+    _check(len(sim.syncs) == 2 * cycles, f"second Quickstart step host syncs {sim.syncs}")
     print(f"quickstart 2048²: pipeline {pipe_ms:.3f} ms, sim step (3 cycles) {step_ms:.3f} ms, "
-          f"save {save_ms:.3f} ms, mesh {mesh_ms:.3f} ms; host syncs {len(sim.syncs)}; "
-          f"K4 gate open in {wet} of {counts['K4']} calls; checkpoint restored equal")
+          f"a second step {step2_ms:.3f} ms, save {save_ms:.3f} ms, mesh {mesh_ms:.3f} ms; "
+          f"host syncs {syncs}; K4 gate open in {wet} of {counts['K4']} calls; checkpoint "
+          "restored equal")
     print(f"quickstart launches {counts}")
     rows.set_launches({"#2": counts["K1"], "#4": counts["K2"], "#5": counts["K3"],
-                       "#10": counts["K4"]})
+                       "#10": counts["K4"], "K7": counts["K7"], "K8": counts["K8"]})
+    PROFILES.append(("Quickstart ErosionSim.step() 2048² (3 cycles)", sim.step))
     return sim
+
+
+def _raw(t):
+    """A tensor's bits: float32 as int32 (signs of zero, NaN payloads)."""
+    import torch
+
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _flat(out):
+    """K7's result (particles, cells, d_track, d_pool, d_sed) as one tuple."""
+    return tuple(out[0]) + tuple(out[1:])
+
+
+def _same_bits(what, got, want):
+    import torch
+
+    for i, (a, b) in enumerate(zip(got, want)):
+        _check(a.dtype == b.dtype and a.shape == b.shape and torch.equal(_raw(a), _raw(b)),
+               f"{what}: output {i} differs from its plain version")
+
+
+def _k7_cost(parts, out, steps, plants):
+    """(bytes, f32 ops) K7 needs for this run's data: each live step's table
+    reads (11 floats, 12 with plants) and ~200 operations, every step's
+    event written (20 bytes), the particle fields read and written."""
+    live = int((out[0].age.long() - parts.age.long()).sum()) + int(parts.alive.sum())
+    n = parts.row.numel()
+    return live * 4 * (12 if plants else 11) + steps * n * 20 + 2 * 29 * n, \
+        live * K7_OPS_PER_LIVE_STEP
+
+
+def _windows_2x2(maps, res, chunk):
+    """The four windows of a 2×2 split of the table ``maps``, each block
+    extended by ``chunk`` cells (edge-clamped outside the grid: reads clamp
+    to the grid first): (block origin, block side, window origin, window
+    shape, window table)."""
+    import torch
+
+    tiles = maps.reshape(-1, res, res)
+    half = res // 2
+    out = []
+    for r0 in (0, half):
+        for c0 in (0, half):
+            origin, shape = (r0 - chunk, c0 - chunk), (half + 2 * chunk, half + 2 * chunk)
+            r = torch.clamp(torch.arange(origin[0], origin[0] + shape[0], device=maps.device),
+                            0, res - 1)
+            c = torch.clamp(torch.arange(origin[1], origin[1] + shape[1], device=maps.device),
+                            0, res - 1)
+            table = torch.cat([t[r][:, c].reshape(-1) for t in tiles]).contiguous()
+            out.append(((r0, c0), half, origin, shape, table))
+    return out
+
+
+def descent_phase(rows, sim):
+    """K7, K7@window and K8 against their plain versions on the card
+    (bit-equal), timed: the Quickstart's 2048² state after its step with
+    the next cycle's 1000 particles spawned from the sim's key (the rows
+    K7, K7@window, K8), and config 5's tile 0 (1024², 250 particles, MAXAGE
+    32) as its erosion cycle starts."""
+    import dataclasses
+
+    import torch
+
+    from noize_tpu_torch import prng
+    from noize_tpu_torch.erosion import descent_cuda as DC
+    from noize_tpu_torch.erosion import particles as PA
+    from noize_tpu_torch.erosion import sim as SIM
+    from noize_tpu_torch.erosion.world import WorldState
+
+    cases = []
+    st, meta = sim.state, sim.meta
+    n, res = sim.settings.PARTICLES_PER_CYCLE, meta.generator_res
+    parts, left, _ = SIM._spawn_with_drains(st.key, n, res, st.drain_water)
+    world = dataclasses.replace(st.world, pool=st.world.pool + left)
+    cases.append(("Quickstart", world, parts, sim.settings.as_parameters(),
+                  float(meta.height), meta.patch_res, res, prng.split(st.key)[0]))
+    cfg, origins = config5()
+    _, blurred = _stack_inputs()
+    x, z = origins[0].tolist()
+    key5 = prng.fold_in(prng.fold_in(prng.PRNGKey(0, device="cuda"), x), z)
+    res5 = cfg.meta.generator_res
+    world5 = WorldState.create(blurred[0].contiguous())
+    del blurred
+    n5 = cfg.erosion.PARTICLES_PER_CYCLE
+    parts5, _, _ = SIM._spawn_with_drains(key5, n5, res5, torch.zeros_like(world5.height))
+    cases.append(("config 5", world5, parts5, cfg.erosion.as_parameters(),
+                  float(cfg.meta.height), cfg.meta.patch_res, res5, prng.split(key5)[0]))
+
+    for label, world, parts, params, hs, pr, res, k1 in cases:
+        n = parts.row.numel()
+        plants = PA._with_plants(params)
+        steps = 8 * -(-(params.MAXAGE + 1) // 8)
+        maps = PA.step_maps(world, params, hs)
+        args = (params, hs, pr, res)
+        got = DC.descend_steps(parts, maps, *args, steps)
+        want = PA.descend_steps_plain(parts, maps, *args, steps)
+        torch.cuda.synchronize()
+        _same_bits(f"K7 ({label})", _flat(got), _flat(want))
+        _check(not bool(got[0].alive.any()), f"K7 ({label}): particles alive after {steps} steps")
+        acc = PA.descend_all(parts, world, *args)
+        ref = PA.scatter_events(want[1], want[2:], res * res)
+        early = PA._descend_all_plain(parts, world, *args, params.MAXAGE + 1, 8)
+        torch.cuda.synchronize()
+        _same_bits(f"descend_all sums ({label})", [a.reshape(-1) for a in acc[1:]], ref)
+        _same_bits(f"descend_all particles ({label})", tuple(acc[0]), tuple(early[0]))
+        gap = max(_max_abs(a, b) / max(float(b.abs().max()), 1e-30)
+                  for a, b in zip(acc[1:], early[1:]))
+        _check(gap <= 1e-5, f"descend_all ({label}) vs the early-exit loop: {gap}")
+        _check(float(acc[1].max()) > 0, f"descend_all ({label}) left no track")
+        nbytes, ops = _k7_cost(parts, got, steps, plants)
+        # K8: the spawn's draw, randint(split(k1), (n,), 0, res): one hash
+        keys = prng.split(prng.split(k1))
+        hi, lo = prng._counters(n, "cuda")
+        k8 = prng.threefry2x32(keys, hi, lo)
+        _same_bits(f"K8 spawn hash ({label})", k8, prng._threefry2x32_plain(keys, hi, lo))
+        pairs = k8[0].numel()
+        # K7@window: the first chunk of 8 on each window of a 2×2 split
+        wins = _windows_2x2(maps, res, 8)
+        row_i = torch.clamp(torch.round(parts.row).to(torch.int32), 0, res - 1)
+        col_i = torch.clamp(torch.round(parts.col).to(torch.int32), 0, res - 1)
+        win_args = []
+        for (r0, c0), side, origin, shape, table in wins:
+            owned = ((row_i >= r0) & (row_i < r0 + side) & (col_i >= c0) & (col_i < c0 + side))
+            a = (parts, table, *args, 8, origin, shape, owned)
+            g = DC.descend_steps_window(*a)
+            w = PA.descend_steps_plain(*a[:7], window_origin=origin, window_shape=shape,
+                                       owned=owned)
+            torch.cuda.synchronize()
+            _same_bits(f"K7@window ({label}, block {r0},{c0})", _flat(g), _flat(w))
+            win_args.append((a, g))
+        (a0, g0) = win_args[0]
+        wbytes, wops = _k7_cost(parts, g0, 8, plants)
+        if label == "Quickstart":
+            rows.compare("K7", f"K7 descend_steps, {n} particles, {steps} steps on the "
+                         f"Quickstart's {res}² state (MAXAGE {params.MAXAGE})", SRC["K7"],
+                         "none: noize_tpu/erosion/particles.py:266 (descend_step in the "
+                         "lax.scan/while_loop of descend_all, :445; no Pallas kernel)",
+                         _flat(got), lambda: DC.descend_steps(parts, maps, *args, steps),
+                         lambda: _flat(PA.descend_steps_plain(parts, maps, *args, steps)),
+                         "k7", 20, nbytes, ops)
+            rows.compare("K7@window", f"K7 descend_steps_window, one chunk of 8 steps of {n} "
+                         f"particles on the {wins[0][3][0]}² window of a 2×2 split of the "
+                         f"Quickstart's {res}² state, owner mask", SRC["K7"],
+                         "none: noize_tpu/parallel/sharded_erosion.py:185 (descend_step on "
+                         "a rank's extended block; no Pallas kernel)", _flat(g0),
+                         lambda: DC.descend_steps_window(*a0),
+                         lambda: _flat(PA.descend_steps_plain(
+                             *a0[:7], window_origin=a0[7], window_shape=a0[8], owned=a0[9])),
+                         "k7w", 20, wbytes, wops)
+            rows.compare("K8", f"K8 threefry2x32, the Quickstart spawn's draw ({pairs} "
+                         "pairs: both coordinates' two halves)", SRC["K8"],
+                         "none: JAX's threefry2x32 (an XLA computation), reached from "
+                         "noize_tpu/erosion/particles.py:75 (spawn) and the vegetation draws",
+                         k8, lambda: prng.threefry2x32(keys, hi, lo),
+                         lambda: prng._threefry2x32_plain(keys, hi, lo), "k8", 50,
+                         16 * hi.numel() + 16 * pairs, K8_OPS_PER_PAIR * pairs, None,
+                         PEAK_I32_OPS_PER_S)
+        k7_ms = _time_ms(lambda: DC.descend_steps(parts, maps, *args, steps), 20)
+        all_ms = _time_ms(lambda: PA.descend_all(parts, world, *args), 20)
+        plain_ms = _time_ms(lambda: PA.descend_steps_plain(parts, maps, *args, steps), 2)
+        early_ms = _time_ms(lambda: PA._descend_all_plain(parts, world, *args,
+                                                          params.MAXAGE + 1, 8), 2)
+        win_ms = _time_ms(lambda: DC.descend_steps_window(*a0), 20)
+        print(f"descent ({label}, {res}², {n} particles, {steps} steps): K7 and K7@window "
+              f"(4 windows of a 2×2 split, a chunk of 8, owner masks) bit-equal to their plain "
+              f"versions, K8 on the spawn's hash too; descend_all's sums bit-equal to the plain "
+              f"events' scatter, within {gap!r} of the early-exit loop's; K7 {k7_ms:.4f} ms, "
+              f"descend_all (K7 + 3 scatters) {all_ms:.4f} ms, plain fixed-step loop "
+              f"{plain_ms:.3f} ms, early-exit loop {early_ms:.3f} ms; K7@window chunk "
+              f"{win_ms:.4f} ms")
+    del cases, maps, wins, win_args
 
 
 def prng_phase():
@@ -568,11 +784,17 @@ def prng_phase():
                      (prng.fold_in(kc, 7), prng.fold_in(kh, 7))):
             _check(torch.equal(a.cpu(), b), f"threefry keys differ on the card (seed {seed})")
     kc = prng.PRNGKey(0, device="cuda")
+    keys, (hi, lo) = prng.split(prng.split(kc)), prng._counters(n, "cuda")
+    _same_bits("K8 on 10^6 randint counters", prng.threefry2x32(keys, hi, lo),
+               prng._threefry2x32_plain(keys, hi, lo))
+    k8_ms = _time_ms(lambda: prng.threefry2x32(keys, hi, lo), 20)
+    k8_plain_ms = _time_ms(lambda: prng._threefry2x32_plain(keys, hi, lo), 5)
     draw_ms = _time_ms(lambda: prng.randint(kc, (n,), 0, 2048), 20)
     spawn_ms = _time_ms(lambda: spawn(kc, 1000, 2048), 20)
     print(f"prng: threefry on the card equals the CPU (3 seeds x 2 ranges x {n} randint draws, "
-          f"split, fold_in); randint 10^6 {draw_ms:.4f} ms, spawn of 1000 particles "
-          f"{spawn_ms:.4f} ms")
+          f"split, fold_in); K8 bit-equal to its plain version on the card; randint 10^6 "
+          f"{draw_ms:.4f} ms (its hash: K8 {k8_ms:.4f} ms, plain {k8_plain_ms:.4f} ms), spawn "
+          f"of 1000 particles {spawn_ms:.4f} ms")
 
 
 def filter_phase(rows):
@@ -788,6 +1010,8 @@ def tiles_phase(rows):
     _check(counts["K1"] == 3 and k1_plan == 4, "K1 not one call of 4 launches a batch")
     _check(counts["K2"] == 1, "K2 not one call on the flow stack")
     _check(counts["K3"] == 2 * n and counts["K4"] == 2 * n, "erosion not once a tile")
+    _check(counts["K7"] == 2 * n and counts["K8"] > 0, f"descent not one K7 launch a tile: "
+                                                         f"{counts}")
     _check(tuple(heights.shape) == (n, res, res) and bool(torch.isfinite(heights).all()),
            "heights misshapen or not finite")
     _check(torch.equal(meshed["height"], heights), "mesh variant's heights differ")
@@ -803,6 +1027,8 @@ def tiles_phase(rows):
         _check(torch.equal(one, heights[i]), f"tile {i} differs from generate_tile alone")
     print(f"config 5: each of the {n} tiles equals generate_tile of it alone")
     rows.set_launches({"K1@stack": counts["K1"], "K2@stack": counts["K2"]})
+    PROFILES.append(("config 5 tile_batch, 16 tiles of 1024²",
+                     lambda: TL.tile_batch(cfg, origins)))
 
     noise, blurred = _stack_inputs()
     cells = noise.numel()
@@ -865,12 +1091,23 @@ def serve_phase(heights):
     finally:
         srv.stop()
     counts = _read_counts()
-    for key in ("K1", "K3", "K4"):
+    for key in ("K1", "K3", "K4", "K7", "K8"):
         _check(counts[key] > 0, f"{key} was not launched on the serving path")
     for wave, wall, batches in waves:
         print(f"TileServer {wave} wave: 16 tiles in {batches} batches of 4, {wall:.3f} ms "
               f"({wall / 16:.3f} ms/tile)")
     print(f"serve launches {counts}")
+
+    def wave():
+        srv = TileServer(cfg, batch_size=4)
+        try:
+            srv.start()
+            for i, pos in enumerate(poses):
+                srv.submit(f"p{i}", pos)
+            _check(srv.drain(timeout=600), "profiled wave did not drain")
+        finally:
+            srv.stop()
+    PROFILES.append(("TileServer wave, config 5's 16 tiles at batch 4 (cold server)", wave))
 
 
 def cli_phase():
@@ -892,7 +1129,7 @@ def cli_phase():
         _, erode_ms = _timed(lambda: cli.main(["erode", "--resolution", "2048", "--cycles", "3",
                                                "--mesh", "--heightmap16", "-o", out]))
         counts = _read_counts()
-        for key in ("K1", "K3", "K4"):
+        for key in ("K1", "K3", "K4", "K7", "K8"):
             _check(counts[key] > 0, f"{key} was not launched by the CLI's erode")
         _check(os.path.getsize(os.path.join(out, "eroded_height.raw")) == 2 * 2048 * 2048,
                "eroded_height.raw size")
@@ -933,7 +1170,7 @@ def generator_phase():
         _, step_ms = _timed(lambda: gen.step_erosion(1))
         counts = _read_counts()
         _check(len(children) == 4, f"{len(children)} children")
-        for key in ("K1", "K3", "K4"):
+        for key in ("K1", "K3", "K4", "K7", "K8"):
             _check(counts[key] > 0, f"{key} was not launched by the tile generator")
         t0 = time.perf_counter()
         pngs = []
@@ -975,7 +1212,7 @@ def continuous_phase():
     counts = _read_counts()
     _check(states[0] == "triggered" and set(states[1:-1]) <= {"running"}, f"states {states[:5]}")
     _check(sim.cycle_count == sim.settings.CYCLES, f"{sim.cycle_count} cycles")
-    for key in ("K3", "K4"):
+    for key in ("K3", "K4", "K7", "K8"):
         _check(counts[key] > 0, f"{key} was not launched by the continuous sim")
     print(f"continuous ErosionSim 2048²: triggered, running ×{len(states) - 2}, completed in "
           f"{wall:.1f} ms ({sim.cycle_count} cycles, {len(sim.syncs)} host syncs before the "
@@ -1037,7 +1274,8 @@ def vegetation_phase():
     counts = _read_counts()
     for k, v in (("height", sim.height_map), ("pool", sim.pool_map), ("stream", sim.stream_map)):
         _check(bool(torch.isfinite(v).all()), f"vegetation sim {k} not finite")
-    _check(counts["K3"] > 0 and counts["K4"] > 0, f"vegetation sim launches {counts}")
+    _check(all(counts[k] > 0 for k in ("K3", "K4", "K7", "K8")),
+           f"vegetation sim launches {counts}")
     small = h[::8, ::8].contiguous()
     out = {}
     for dev in ("cuda", "cpu"):
@@ -1054,6 +1292,7 @@ def vegetation_phase():
           f"cycle), grow {grow_ms:.3f} ms, density {splat_ms:.3f} ms; ErosionSim.step() with "
           f"VEGETATION_FRICTION=5 {step_ms:.3f} ms, {len(sim.syncs)} host syncs; 256² card "
           f"vs CPU within {CROSS_DEVICE_RTOL}")
+    PROFILES.append(("vegetation ErosionSim.step() 2048², VEGETATION_FRICTION=5", sim.step))
 
 
 def _pile_case(res, radius, seed, n_cand=None):
@@ -1120,11 +1359,13 @@ def exact_piles_phase(rows):
     _, step_ms = _timed(sim.step)
     counts = _read_counts()
     _check(counts["K6"] > 0, f"K6 was not launched by the EXACT_PILES step: {counts}")
+    _check(counts["K7"] > 0 and counts["K8"] > 0, f"EXACT_PILES step launches {counts}")
     _check(counts["K6"] <= settings.CYCLES, f"K6 launched {counts['K6']} times in a step")
     _check(bool(torch.isfinite(sim.height_map).all()), "EXACT_PILES heights not finite")
     rows.set_launches({"K6": counts["K6"]})
     print(f"EXACT_PILES ErosionSim.step() 2048²: {step_ms:.3f} ms, launches {counts}, "
           f"{len(sim.syncs)} host syncs")
+    PROFILES.append(("EXACT_PILES ErosionSim.step() 2048²", sim.step))
 
 
 def native_io_phase(sim):
@@ -1297,9 +1538,11 @@ def sharded_erosion_phase(sp, bm, rows):
     _, sharded_ms = _timed(sharded.step)
     counts = _read_counts()
     _equal_maps("ShardedErosionSim.step", sharded.state, single.state)
+    chunks = -(-(sharded.settings.MAXAGE + 1) // 8)
     _check(counts["K3"] == 3 and counts["K5@window"] == 3 * sharded.settings.WATER_STEPS
-           and counts["K4"] == 0, f"sharded sim launches {counts}")
-    rows.set_launches({"K5@window": counts["K5@window"]})
+           and counts["K4"] == 0 and counts["K7@window"] == 3 * chunks and counts["K7"] == 0
+           and counts["K8"] > 0, f"sharded sim launches {counts}")
+    rows.set_launches({"K5@window": counts["K5@window"], "K7@window": counts["K7@window"]})
     _, sharded_ms2 = _timed(sharded.step)
     _, single_ms2 = _timed(single.step)
     print(f"ShardedErosionSim.step() 2048² (1×1 mesh, 3 cycles): {sharded_ms:.3f} and "
@@ -1333,7 +1576,7 @@ def sharded_erosion_phase(sp, bm, rows):
     for k, got in (("height", state.world.height), ("flow_velocity", flow_v),
                    ("pool", state.world.pool), ("stream", state.world.flow)):
         _check(torch.equal(got.full_tensor(), want[k]), f"sharded tile step: {k} differs")
-    for k in ("K1", "K2", "K3", "K5@window"):
+    for k in ("K1", "K2", "K3", "K5@window", "K7@window", "K8"):
         _check(counts[k] > 0, f"{k} not launched by the sharded tile step: {counts}")
     print(f"make_sharded_tile_step 2048² (1 cycle): {step_ms:.3f} ms (make_tile_step "
           f"{ref_ms:.3f} ms), equal; launches {counts}")
@@ -1406,6 +1649,8 @@ def sharded_erosion_phase(sp, bm, rows):
 
     _, dry_ms = _timed(lambda: dryrun_multichip(1))
     print(f"dryrun_multichip(1): {dry_ms:.1f} ms (a child process with its own NCCL group)")
+    # last in the group's life: the profiler slows what runs after it
+    profile_path("ShardedErosionSim.step() 2048² (1×1 mesh, 3 cycles)", sharded.step)
 
 
 def _pool_stitch(window_fn, h, p, nx, ny, iters):
@@ -1525,9 +1770,13 @@ def window_kernels_phase(rows):
     print(f"K6 table: committed equal to K6 on the {res}² map")
 
 
-def profile_step(sim):
-    """One more ``ErosionSim.step()`` under ``torch.profiler``: device busy
-    time, idle share of the wall clock and the kernels that take it."""
+#: (label, callable) of each step path, profiled once after every timed phase
+PROFILES = []
+
+
+def profile_path(label, fn):
+    """One more run of ``fn`` under ``torch.profiler``: wall time, device
+    busy time, idle share of the wall clock and the kernels that take it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1535,7 +1784,7 @@ def profile_step(sim):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        sim.step()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies, sets): an operator's own
@@ -1545,13 +1794,13 @@ def profile_step(sim):
               and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     if busy_ms == 0:
-        print(f"profiled sim step: wall {wall_ms:.3f} ms; device time not measured "
+        print(f"profiled {label}: wall {wall_ms:.3f} ms; device time not measured "
               "(the profiler saw no device activity)")
         return
     n_ops = sum(e.count for e in events)
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    print(f"profiled sim step (3 cycles, under the profiler): wall {wall_ms:.3f} ms, device "
-          f"busy {busy_ms:.3f} ms in {n_ops} device ops, idle share {1 - busy_ms / wall_ms:.3f}")
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"profiled {label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms in {n_ops} "
+          f"device ops, idle share {1 - busy_ms / wall_ms:.3f}")
     print("  top device time: " + "; ".join(
         f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms ×{e.count}" for e in top))
 
@@ -1724,13 +1973,17 @@ def flagship_phase(steps=2):
     for f in ("positions", "normals", "tangents", "uvs"):
         _check(bool(torch.isfinite(getattr(m, f)).all()), f"mesh {f} not finite")
     _check(float(out["stream"].abs().max()) > 0, "erosion left no stream")
-    for key in ("K1", "K2", "K3", "K4"):
+    for key in ("K1", "K2", "K3", "K4", "K7", "K8"):
         _check(counts[key] > 0, f"{key} was not launched on the flagship path")
+    _check("descent.alive" not in step.syncs, f"flagship host syncs {step.syncs}")
     timed = times[1:]
     print(f"flagship 2048² (3 cycles, mesh): warm-up {times[0]:.1f} ms, steps "
           f"{[round(t, 3) for t in timed]} ms, median {sorted(timed)[len(timed) // 2]:.3f} ms/step")
     print(f"flagship launches over {steps + 1} steps {counts}; K4 gate open in {wet} of "
           f"{counts['K4']} calls; host syncs per step {len(step.syncs)}")
+    PROFILES.append(("flagship step 2048² (3 cycles, mesh)",
+                     lambda k=fold_in(PRNGKey(0, device="cuda"), steps + 1):
+                     step(float(steps + 1) * 100, 0.0, k)))
 
 
 def odd_grid_phase(rows):
@@ -1771,7 +2024,7 @@ def odd_grid_phase(rows):
         SIM.pool_automata_cuda = pool_call
     counts = _read_counts()
     wet = _wet(pool_automata_full_cuda)
-    for key in ("K3", "K5"):
+    for key in ("K3", "K5", "K7", "K8"):
         _check(counts[key] > 0, f"{key} was not launched on the odd-grid path")
     _check(counts["K4"] == 0, "K4 launched on an odd grid")
     for k, v in (("height", sim.height_map), ("pool", sim.pool_map), ("stream", sim.stream_map)):
@@ -1781,6 +2034,7 @@ def odd_grid_phase(rows):
     print(f"odd grid 1025²: ErosionSim.step (3 cycles) {step_ms:.3f} ms; launches {counts}; "
           f"K5 gate open in {wet} of {counts['K5']} calls; host syncs {len(sim.syncs)}")
     rows.set_launches({"K5": counts["K5"], "K5@1025": counts["K5"], "K3@1025": counts["K3"]})
+    PROFILES.append(("ErosionSim.step() 1025² (3 cycles)", sim.step))
 
     # K5 on the inputs of the step's last call whose gate was open
     s, cells = sim.settings, res * res
@@ -1874,6 +2128,7 @@ def main():
     flagship_phase()
     odd_grid_phase(rows)
     cross_device_phase()
+    descent_phase(rows, sim)
     prng_phase()
     filter_phase(rows)
     presets_phase(rows)
@@ -1886,9 +2141,10 @@ def main():
     vegetation_phase()
     exact_piles_phase(rows)
     native_io_phase(sim)
-    sharded_phase(rows)
     window_kernels_phase(rows)
-    profile_step(sim)  # last: no timed phase runs after the profiler
+    sharded_phase(rows)  # profiles the sharded sim step at its end
+    for label, fn in PROFILES:  # last: no timed phase runs after the profiler
+        profile_path(label, fn)
     pool_trace_phase()
     plan_trace_phase(rows)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")

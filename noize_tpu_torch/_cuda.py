@@ -38,6 +38,7 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-f
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 
 #: argtypes of every C entry point (csrc/*.cu); all return int.
@@ -74,6 +75,15 @@ SIGNATURES = {
     # slots (i32), hash capacity, piles, round ends, radius, slots,
     # increment, stream (K6 on a pile table)
     "noize_pile_table": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _F, _P),
+    # table, f32 params (host), i32 params (host), the 8 particle fields in,
+    # owned (u8 or null), the 8 fields out, event cells (i64), d_track,
+    # d_pool, d_sed, stream (K7)
+    "noize_descent": (_P,) * 25,
+    # x, atan(x), sin(x), n, stream (K7's atanf and sinf)
+    "noize_atan_sin": (_P, _P, _P, _L, _P),
+    # key (u32), key word stride, x0, x1 (i64), dims, shape, key, x0 and
+    # x1 strides (host i64[dims] each), y0, y1 (i64), stream (K8)
+    "noize_threefry": (_P, _L, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P),
 }
 
 _LIB = None

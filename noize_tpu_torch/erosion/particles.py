@@ -4,8 +4,8 @@
 All N particles advance together, one step per iteration, with an alive
 mask; each step's event deltas are scatter-added into three accumulator
 maps (track, pool, sediment) in the reference's order (step-major, then
-particle slot), so every per-cell float32 sum matches.  The reference's
-semantics are kept: flow-inflated neighbour heights quantised to 2
+particle slot), so on the CPU every per-cell float32 sum matches.  The
+reference's semantics are kept: flow-inflated neighbour heights quantised to 2
 decimals, 8-heading constrained steering with the natural drain as
 fallback, the death conditions and their payouts, drag, slope-resolved
 acceleration, the terminal-velocity soft clamp, the capacity exchange and
@@ -19,6 +19,10 @@ CPU and the card on the same bits.
 Only the ``"waf"`` table layout is ported; the reference's patch
 prefetch (``patch_k``), the ``"wf"`` layout and the alive-compaction
 cascade are TPU tuning and give the same sums as the plain loop here.
+
+On the card the descent is K7 (``erosion.descent_cuda``, ``csrc/descent.cu``):
+one thread a particle for every step; ``descend_steps_plain`` is its plain
+version.
 """
 
 from __future__ import annotations
@@ -306,23 +310,70 @@ def descend_step(p: Particles, state: WorldState, params, height_scale,
     return out, events
 
 
-def descend_all(p: Particles, state: WorldState, params, height_scale,
-                patch_res, res: int, max_steps: int = None, chunk: int = 8,
-                patch_k: int = 0, table_layout: str = "waf", scatter: str = "chunk",
-                compact: bool = True, *, syncs: list = None):
-    """Run the full descent; returns (particles, track_acc, pool_acc,
-    sed_acc).
+def _event_cells(ev, res: int, origin=None, shape=None):
+    """The flat table cell of each event: ``row·res + col`` on the grid's
+    table, or the window's cell (clamped into it) on a window's."""
+    if shape is None:
+        return (ev["row"] * res + ev["col"]).long()
+    wr = torch.clamp(ev["row"] - int(origin[0]), 0, int(shape[0]) - 1)
+    wc = torch.clamp(ev["col"] - int(origin[1]), 0, int(shape[1]) - 1)
+    return (wr * int(shape[1]) + wc).long()
 
-    ``MAXAGE + 1`` steps cover every trajectory, run in chunks of
-    ``chunk`` steps with the reference's all-dead early exit before each
-    chunk (one host sync each, counted in ``syncs`` when given).  Events
-    scatter-add once per chunk, step-major then particle slot — the
-    reference's order, so duplicate-cell f32 sums match.  ``index_put_``
-    with ``accumulate=True`` adds duplicates in that order on the CPU and,
-    through its sort-based kernel, on CUDA too.  ``patch_k``,
-    ``table_layout``, ``scatter`` and ``compact`` chose how the TPU ran
-    the same sums and are ignored."""
-    steps = (params.MAXAGE + 1) if max_steps is None else max_steps
+
+def descend_steps_plain(p: Particles, maps, params, height_scale, patch_res, res: int,
+                        steps: int, window_origin=None, window_shape=None, owned=None):
+    """``steps`` ``descend_step``s on the table ``maps`` (``step_maps``, or
+    a window's: ``window_origin``/``window_shape``), with no early exit:
+    the plain version of K7 (``descent_cuda.descend_steps`` and
+    ``descend_steps_window``).  Returns (particles, cells i64[steps·N],
+    d_track, d_pool, d_sed f32[steps·N]): every step's events, dead slots
+    included, step-major then particle slot.  ``owned`` (bool[N]) zeroes
+    the events of particles another rank owns."""
+    cells = [torch.zeros(0, dtype=torch.int64, device=p.row.device)]
+    evs = tuple([torch.zeros(0, dtype=_F32, device=p.row.device)] for _ in range(3))
+    for _ in range(steps):
+        p, ev = descend_step(p, None, params, height_scale, patch_res, res, maps=maps,
+                             window_origin=window_origin, window_shape=window_shape)
+        cells.append(_event_cells(ev, res, window_origin, window_shape))
+        for e, k in zip(evs, ("d_track", "d_pool", "d_sed")):
+            e.append(ev[k] if owned is None else torch.where(owned, ev[k], 0.0))
+    return (p, torch.cat(cells)) + tuple(torch.cat(e) for e in evs)
+
+
+#: the most values a CPU ``index_put_(accumulate=True)`` call adds in
+#: order: from PyTorch's grain size (32768) up, with more than one thread,
+#: it adds them with atomics in no fixed order
+CPU_IN_ORDER = 32767
+
+
+def scatter_events(cells, deltas, size: int, acc=None):
+    """The per-cell sums of the events, one ``index_put_`` with
+    ``accumulate=True`` a map, added into ``acc`` (flat f32 maps, in
+    place) or into zeros of ``size``.  On the CPU each cell's events are
+    added to it in their order (step-major, then particle slot), as the
+    reference's scatter adds them, in calls of at most ``CPU_IN_ORDER``
+    events.  On CUDA it sorts the events stably by cell and sums each
+    cell's run apart, a warp's lanes taking 32 events at a time when the
+    run is that long, before adding the sum to the map: the same events
+    give the same bits, but splitting them over several calls, or adding
+    zeros within a run, can move the last bit (ROADMAP §3,
+    ``scripts/scatter_order.py``)."""
+    if acc is None:
+        acc = [torch.zeros(size, dtype=_F32, device=cells.device) for _ in deltas]
+    piece = CPU_IN_ORDER if cells.device.type == "cpu" else max(cells.numel(), 1)
+    for a, d in zip(acc, deltas):
+        for c, v in zip(cells.split(piece), d.split(piece)):
+            a.index_put_((c,), v, accumulate=True)
+    return acc
+
+
+def _descend_all_plain(p: Particles, state: WorldState, params, height_scale, patch_res,
+                       res: int, steps: int, chunk: int, syncs: list = None):
+    """``descend_all`` as torch operations: chunks of ``chunk`` steps
+    (``descend_steps_plain``), the reference's all-dead early exit before
+    each (one host sync each, counted in ``syncs`` when given), and each
+    chunk's events scatter-added into the accumulators, as the reference's
+    ``scatter="chunk"`` mode adds them."""
     n_chunks = -(-steps // chunk)
     shape = state.height.shape
     maps = step_maps(state, params, height_scale)
@@ -333,16 +384,54 @@ def descend_all(p: Particles, state: WorldState, params, height_scale,
             syncs.append("descent.alive")
         if not bool(p.alive.any()):
             break
-        idx, dt, dp_, ds = [], [], [], []
-        for _ in range(chunk):
-            p, ev = descend_step(p, state, params, height_scale, patch_res,
-                                 res, maps=maps)
-            idx.append((ev["row"] * res + ev["col"]).long())
-            dt.append(ev["d_track"])
-            dp_.append(ev["d_pool"])
-            ds.append(ev["d_sed"])
-        flat = torch.cat(idx)
-        for a, vals in zip(acc, (dt, dp_, ds)):
-            a.index_put_((flat,), torch.cat(vals), accumulate=True)
+        p, cells, *deltas = descend_steps_plain(p, maps, params, height_scale, patch_res,
+                                                res, chunk)
+        scatter_events(cells, deltas, shape[0] * shape[1], acc)
     track_acc, pool_acc, sed_acc = (a.reshape(shape) for a in acc)
     return p, track_acc, pool_acc, sed_acc
+
+
+def _descend_all_fixed(p: Particles, state: WorldState, params, height_scale, patch_res,
+                       res: int, steps: int):
+    """``descend_all`` as K7 runs it: ``steps`` steps in one
+    ``descent_cuda.descend_steps`` call (K7 on the card, the plain loop on
+    the CPU) and one scatter-add a map.  Steps after a particle's death add
+    zeros to accumulators that never hold -0.0, so on the CPU the sums are
+    bit-equal to ``_descend_all_plain``'s, which stops early; on the card
+    they are bit-equal to the plain loop's events scattered the same way,
+    and within rounding of ``_descend_all_plain``'s (``scatter_events``)."""
+    from .descent_cuda import descend_steps
+
+    shape = state.height.shape
+    maps = step_maps(state, params, height_scale)
+    p, cells, *deltas = descend_steps(p, maps, params, height_scale, patch_res, res, steps)
+    track_acc, pool_acc, sed_acc = (a.reshape(shape)
+                                    for a in scatter_events(cells, deltas, shape[0] * shape[1]))
+    return p, track_acc, pool_acc, sed_acc
+
+
+def descend_all(p: Particles, state: WorldState, params, height_scale,
+                patch_res, res: int, max_steps: int = None, chunk: int = 8,
+                patch_k: int = 0, table_layout: str = "waf", scatter: str = "chunk",
+                compact: bool = True, *, syncs: list = None):
+    """Run the full descent; returns (particles, track_acc, pool_acc,
+    sed_acc).
+
+    ``MAXAGE + 1`` steps cover every trajectory, run as ``chunk``-step
+    chunks (the reference's ``lax.scan`` length), so ``ceil(steps / chunk)
+    · chunk`` steps in all.  Events scatter-add step-major, then particle
+    slot — the reference's order, so on the CPU duplicate-cell f32 sums
+    match it (on the card see ``scatter_events``).
+
+    On CUDA tensors the descent is K7 (``descent_cuda.descend_steps``): one
+    launch for every step and three scatter-adds, no host sync.  On CPU
+    tensors it is the plain loop, with the reference's all-dead early exit
+    before each chunk (one host sync each, counted in ``syncs`` when
+    given).  ``patch_k``, ``table_layout``, ``scatter`` and ``compact``
+    chose how the TPU ran the same sums and are ignored."""
+    steps = (params.MAXAGE + 1) if max_steps is None else max_steps
+    if state.height.device.type == "cpu":
+        return _descend_all_plain(p, state, params, height_scale, patch_res, res, steps,
+                                  chunk, syncs=syncs)
+    return _descend_all_fixed(p, state, params, height_scale, patch_res, res,
+                              -(-steps // chunk) * chunk)

@@ -13,12 +13,15 @@ Each rank holds its block of every map (a ``DTensor`` placed ``Shard(0)``,
 * descent — particles are replicated; each chunk of ``chunk`` steps the
   rank whose block holds a particle's cell owns it.  The maps are read
   only, so one exchange of width ``chunk`` before the loop suffices, and
-  ``descend_step`` reads the extended block as a windowed table.  Every
-  rank steps every particle; non-owned ones read clamped window cells and
-  their events are zeroed.  After each chunk one ``all_reduce`` of the
-  8 particle fields packed as an (8, N) f32 stack merges the owners'
-  results.  Events scatter into extended accumulators, folded back onto
-  their owners once at the end (``halo.fold_2d``).  A fixed
+  each chunk is one ``descend_steps_window`` call (K7 on the card) on the
+  extended block as a windowed table.  Every rank steps every particle;
+  non-owned ones read clamped window cells and their events are zeroed.
+  After each chunk one ``all_reduce`` of the 8 particle fields packed as
+  an (8, N) f32 stack merges the owners' results.  Every chunk's events
+  scatter once, at the end, into extended accumulators (as the
+  single-device descent scatters its events: on one rank the same events
+  in the same order, so the same bits on the card too), folded back onto
+  their owners (``halo.fold_2d``).  A fixed
   ``ceil((MAXAGE + 1) / chunk)`` chunks run: an early exit taken by one
   rank alone would leave the others waiting in a collective.
 * sediment — the clamped-scatter dispersal as a zero-padded correlation
@@ -58,7 +61,8 @@ import torch.distributed as dist
 
 from ..core.tiles import TileSetMeta
 from ..erosion.params import ErosionMode, ErosionSettings
-from ..erosion.particles import Particles, descend_step, spawn
+from ..erosion.descent_cuda import descend_steps_window
+from ..erosion.particles import Particles, scatter_events, spawn
 from ..erosion.pile_cuda import solve_pile_table
 from ..erosion.pool_cuda import pool_automata_window
 from ..erosion.sediment import KERNEL5, _pile_tables, _triangle_taps, pile_increment
@@ -175,26 +179,16 @@ def _descent_block(mesh, world: WorldState, parts: Particles, params, height_sca
     ext = exchange_2d(torch.stack(maps, -1), h, mesh=mesh)  # one exchange for all
     combo = torch.cat([ext[..., i].reshape(-1) for i in range(len(maps))])
     origin = (row0 - h, col0 - h)
-    acc = [torch.zeros(er * ec, dtype=_F32, device=world.height.device) for _ in range(3)]
+    events = []
     for _ in range(n_chunks):
         row_i = torch.clamp(torch.round(parts.row).to(torch.int32), 0, res - 1)
         col_i = torch.clamp(torch.round(parts.col).to(torch.int32), 0, res - 1)
         owned = ((row_i >= row0) & (row_i < row0 + lr) & (col_i >= col0) & (col_i < col0 + lc))
-        idx, evs = [], ([], [], [])
-        for _ in range(chunk):
-            parts, ev = descend_step(parts, None, params, height_scale, patch_res, res,
-                                     maps=combo, window_origin=origin, window_shape=(er, ec))
-            # a particle another rank owns may be outside the window: its
-            # cell clamps into it and its events are 0
-            wr = torch.clamp(ev["row"] - origin[0], 0, er - 1)
-            wc = torch.clamp(ev["col"] - origin[1], 0, ec - 1)
-            idx.append((wr * ec + wc).long())
-            for e, k in zip(evs, ("d_track", "d_pool", "d_sed")):
-                e.append(torch.where(owned, ev[k], 0.0))
-        # step-major, then particle slot: the single-device order
-        flat = torch.cat(idx)
-        for a, e in zip(acc, evs):
-            a.index_put_((flat,), torch.cat(e), accumulate=True)
+        # one K7 launch a chunk; a particle another rank owns may be outside
+        # the window: its cell clamps into it and its events are 0
+        parts, *ev = descend_steps_window(parts, combo, params, height_scale, patch_res, res,
+                                          chunk, origin, (er, ec), owned)
+        events.append(ev)
         # the owners' results: one rank holds each particle, the others add 0
         stack = torch.stack([parts.row, parts.col, parts.heading.to(_F32), parts.vel,
                              parts.water, parts.sediment, parts.age.to(_F32),
@@ -203,6 +197,10 @@ def _descent_block(mesh, world: WorldState, parts: Particles, params, height_sca
         parts = Particles(row=stack[0], col=stack[1], heading=stack[2].to(torch.int32),
                           vel=stack[3], water=stack[4], sediment=stack[5],
                           age=stack[6].to(torch.int32), alive=stack[7] > 0.5)
+    # one scatter a map of every chunk's events, step-major then particle
+    # slot, as the single-device descent scatters its events
+    cells, *deltas = (torch.cat(e) for e in zip(*events))
+    acc = scatter_events(cells, deltas, er * ec)
     folded = fold_2d(torch.stack(acc, -1).reshape(er, ec, 3), h, mesh=mesh)
     return parts, folded[..., 0], folded[..., 1], folded[..., 2]
 

@@ -17,14 +17,19 @@ What the partitionable setting selects (``jax/_src/prng.py``):
     returns the output word pairs as the new keys (the "foldlike" split);
   * ``fold_in(key, data)`` hashes the one block (0, data).
 
-Each hash is about 170 elementwise tensor ops whatever its size, so on the
-card a draw costs launches, not bytes: a stack of keys hashes in one pass
+On CPU tensors the hash is about 170 elementwise int64 tensor ops
+whatever its size (``_threefry2x32_plain``).  On the card it is K8
+(``csrc/threefry.cu``): one launch a hash, one thread an output pair, the
+rounds in uint32 registers.  Either way a stack of keys hashes in one pass
 (``randint`` draws both of its halves at once, ``erosion.particles.spawn``
 both coordinates).
 """
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -37,12 +42,8 @@ def _rotl(v, r: int):
     return ((v << r) & _MASK) | (v >> (32 - r))
 
 
-def threefry2x32(key, x0, x1):
-    """The 20-round Threefry-2x32 hash of the counter words ``(x0, x1)``
-    (int64 tensors, values in [0, 2³²)) under ``key`` (uint32 (2,), or a
-    stack (..., 2) whose leading dims broadcast against the counters' all
-    but last); returns the two output words, as ``_threefry2x32_lowering``
-    does."""
+def _threefry2x32_plain(key, x0, x1):
+    """The plain version of K8: the rounds as int64 tensor operations."""
     k = key.to(torch.int64)
     k0, k1 = k[..., 0, None], k[..., 1, None]
     ks = (k0, k1, (k0 ^ k1 ^ _PARITY) & _MASK)
@@ -55,6 +56,72 @@ def threefry2x32(key, x0, x1):
         x0 = (x0 + ks[(i + 1) % 3]) & _MASK
         x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK
     return x0, x1
+
+
+def _broadcast(*shapes) -> tuple:
+    """The broadcast of ``shapes`` (``torch.broadcast_shapes`` imports the
+    symbolic-shape machinery on its first call, seconds of host time)."""
+    nd = max(len(s) for s in shapes)
+    out = []
+    for d in range(nd):
+        sizes = {s[d - nd + len(s)] for s in shapes if d - nd + len(s) >= 0} - {1}
+        if len(sizes) > 1:
+            raise ValueError(f"threefry2x32: shapes {shapes} do not broadcast")
+        out.append(sizes.pop() if sizes else 1)
+    return tuple(out)
+
+
+def _threefry_layout(key, x0, x1):
+    """K8's view of a hash: the uint32 key and int64 counters, the
+    broadcast shape, and the element strides (0 where broadcast) of key
+    word 0 (word 1 lies ``key.stride(-1)`` after it) and of each counter
+    over that shape."""
+    if key.dtype != torch.uint32:
+        key = key.to(torch.int64).to(torch.uint32)
+    x0, x1 = x0.to(torch.int64), x1.to(torch.int64)
+    if key.shape[-1] != 2 or x0.device != key.device or x1.device != key.device:
+        raise ValueError("threefry2x32: expected keys (..., 2) and counters on one device")
+    k0 = key[..., 0, None]
+    shape = _broadcast(k0.shape, x0.shape, x1.shape)
+    if len(shape) > 8:
+        raise ValueError(f"threefry2x32: at most 8 broadcast dims on the card, got {shape}")
+    strides = tuple(tuple(t.expand(shape).stride()) for t in (k0, x0, x1))
+    return key, x0, x1, shape, strides
+
+
+def _threefry2x32_cuda(key, x0, x1):
+    """K8: one launch over the broadcast of the key words and counters
+    (strides, no copies)."""
+    from . import _cuda
+
+    key, x0, x1, shape, strides = _threefry_layout(key, x0, x1)
+    y0 = torch.empty(shape, dtype=torch.int64, device=key.device)
+    y1 = torch.empty(shape, dtype=torch.int64, device=key.device)
+    if y0.numel() == 0:
+        return y0, y1
+    arrays = [np.array(v, np.int64) for v in (shape,) + strides]
+    host = [a.ctypes.data_as(ctypes.c_void_p) for a in arrays]
+    with torch.cuda.device(key.device):
+        _cuda.call("noize_threefry", key.data_ptr(), key.stride(-1), x0.data_ptr(),
+                   x1.data_ptr(), len(shape), *host, y0.data_ptr(), y1.data_ptr(),
+                   _cuda.stream(key))
+    threefry2x32.launches += 1
+    return y0, y1
+
+
+def threefry2x32(key, x0, x1):
+    """The 20-round Threefry-2x32 hash of the counter words ``(x0, x1)``
+    (int64 tensors, values in [0, 2³²)) under ``key`` (uint32 (2,), or a
+    stack (..., 2) whose leading dims broadcast against the counters' all
+    but last); returns the two output words (int64), as
+    ``_threefry2x32_lowering`` does.  A CPU key takes the plain version; a
+    CUDA key launches K8 (one launch) or raises."""
+    if key.device.type == "cpu":
+        return _threefry2x32_plain(key, x0, x1)
+    return _threefry2x32_cuda(key, x0, x1)
+
+
+threefry2x32.launches = 0
 
 
 def _counters(size: int, device):

@@ -10,7 +10,8 @@ builds the Quickstart pipeline's height (fBm 13 octaves, Gauss-5 ×17, flow
 defaults) ``--steps`` times on the most-square mesh of the ranks; rank 0
 then runs ``ErosionSim.step()`` on its card from the same height and key
 and compares the first step's maps (the descent's event sums reassociate
-across block borders: the largest difference is printed).  Then
+across block borders: the largest difference is printed, and held to the
+reference's 2e-6).  Then
 ``dryrun_multichip(--ranks)``.  Prints the card's name and power limit
 first; times are host clock to ``torch.cuda.synchronize()`` and a barrier.
 """
@@ -52,6 +53,7 @@ def _rank(rank: int, world: int, init: str, res: int, steps: int, device: str):
     import torch
     import torch.distributed as dist
 
+    from noize_tpu_torch.erosion.descent_cuda import descend_steps_window
     from noize_tpu_torch.erosion.pool_cuda import pool_automata_window
     from noize_tpu_torch.erosion.sim import ErosionSim
     from noize_tpu_torch.parallel import device_mesh as DM
@@ -81,7 +83,8 @@ def _rank(rank: int, world: int, init: str, res: int, steps: int, device: str):
             print(f"ShardedErosionSim.step() {res}² on a {tuple(mesh.shape)} mesh of {world} "
                   f"{device} ranks (blocks {block}), 3 cycles: "
                   + ", ".join(f"{t:.3f}" for t in times) + " ms; K5 window launches on rank 0 "
-                  f"{pool_automata_window.launches}")
+                  f"{pool_automata_window.launches}, K7 window launches "
+                  f"{descend_steps_window.launches}")
             single = ErosionSim(h)
             ones = []
             for i in range(steps):
@@ -106,6 +109,8 @@ def _rank(rank: int, world: int, init: str, res: int, steps: int, device: str):
                     raise RuntimeError(f"sharded {k} not finite")
             if not keys_equal:
                 raise RuntimeError("the sharded key differs from the single-device key")
+            if max(gaps.values()) > 2e-6:
+                raise RuntimeError(f"the sharded step is not within 2e-6 of one device: {gaps}")
         dist.barrier()
     finally:
         dist.destroy_process_group()

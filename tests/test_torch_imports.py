@@ -65,6 +65,15 @@ def test_sharded_slice_modules_are_listed():
         assert f"noize_tpu_torch.{m}" in mods, m
 
 
+def test_descent_and_threefry_kernel_modules_are_listed():
+    """K7's wrapper module and the kernels' sources (K7, K8) are part of the
+    port: the import check below covers the wrapper."""
+    mods = set(_modules())
+    assert "noize_tpu_torch.erosion.descent_cuda" in mods
+    for src in ("descent.cu", "threefry.cu"):
+        assert (REPO / "noize_tpu_torch" / "csrc" / src).exists(), src
+
+
 def test_port_imports_no_jax():
     code = (
         "import importlib, sys\n"

@@ -813,3 +813,259 @@ def test_k6_table_matches_plain_and_full_map(cuda, radius, n_cand):
     _equal(got[0], want[0])
     assert torch.equal(got[1], want[1])
     _equal(_commit(hd, *got, cid), PL.exact_piles(hd, pd, 1e-3, radius))
+
+
+# --- K7: particle descent; K8: threefry -------------------------------------
+
+def _descent_world(res, seed, plants=False):
+    """A smooth world with pools, flow and (optionally) plant canopies, on
+    the card."""
+    from noize_tpu_torch.erosion.world import WorldState
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:res, 0:res].astype(np.float32) / np.float32(res)
+    h = (0.5 + 0.2 * np.sin(6.283 * (3 * x + rng.uniform())) * np.cos(6.283 * (2 * y))
+         + 0.1 * np.sin(6.283 * (7 * x * y)) + rng.uniform(0, 0.01, (res, res)))
+    maps = dict(height=h,
+                pool=np.where(rng.uniform(0, 1, (res, res)) < 0.2,
+                              rng.uniform(0, 1e-3, (res, res)), 0.0),
+                flow=rng.uniform(0, 0.6, (res, res)),
+                track=np.zeros((res, res)),
+                plants=rng.uniform(0, 4, (res, res)) if plants else np.zeros((res, res)))
+    return WorldState(**{k: torch.from_numpy(v.astype(np.float32)).cuda()
+                         for k, v in maps.items()})
+
+
+def _descent_params(maxage, plants=False):
+    from noize_tpu_torch.erosion.params import ErosionSettings
+
+    return ErosionSettings(MAXAGE=maxage,
+                           VEGETATION_FRICTION=5.0 if plants else 0.0).as_parameters()
+
+
+def _bits(a, b):
+    """Bit-equality, signs of zero and NaN payloads included."""
+    assert a.shape == b.shape and a.dtype == b.dtype
+    if a.is_floating_point():
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+    assert torch.equal(a, b)
+
+
+def _particles_bits(got, want):
+    for f in got._fields:
+        _bits(getattr(got, f), getattr(want, f))
+
+
+@pytest.mark.parametrize("maxage", [32, 100])
+@pytest.mark.parametrize("n", [1, 250, 777, 1000])
+@pytest.mark.parametrize("res", [64, 256, 1025, 2048])
+def test_k7_descent_matches_plain(cuda, res, n, maxage):
+    """``descend_all`` on the card (K7, one launch) against the fixed-step
+    plain loop on the card with the same scatter: particles, events and
+    sums bit for bit (777 particles fill no block of 128 exactly).  Against
+    the early-exit loop (a scatter a chunk): particles bit-equal, sums
+    within 1e-5 of their largest value, since CUDA's ``index_put_`` adds
+    each cell's duplicates of a call apart and then to the map (ROADMAP
+    §3), so another chunking reassociates them."""
+    from noize_tpu_torch.erosion import descent_cuda as DC
+    from noize_tpu_torch.erosion import particles as PA
+    from noize_tpu_torch.prng import PRNGKey
+
+    world = _descent_world(res, res + n)
+    params = _descent_params(maxage)
+    p = PA.spawn(PRNGKey(n + maxage, device=cuda), n, res)
+    steps = 8 * (-(-(maxage + 1) // 8))
+    maps = PA.step_maps(world, params, 1000.0)
+    before = DC.descend_steps.launches
+    got = PA.descend_all(p, world, params, 1000.0, 1, res)
+    assert DC.descend_steps.launches == before + 1
+    ev = DC.descend_steps(p, maps, params, 1000.0, 1, res, steps)
+    ev_plain = PA.descend_steps_plain(p, maps, params, 1000.0, 1, res, steps)
+    want = PA.scatter_events(ev_plain[1], ev_plain[2:], res * res)
+    early = PA._descend_all_plain(p, world, params, 1000.0, 1, res, maxage + 1, 8)
+    torch.cuda.synchronize()
+    _particles_bits(ev[0], ev_plain[0])
+    for a, b in zip(ev[1:], ev_plain[1:]):
+        _bits(a, b)
+    _particles_bits(got[0], ev_plain[0])
+    _particles_bits(early[0], ev_plain[0])
+    for a, b, c in zip(got[1:], want, early[1:]):
+        _bits(a.reshape(-1), b)
+        assert float((a - c).abs().max()) <= 1e-5 * float(c.abs().max())
+    assert (n == 1 or float(got[1].max()) > 0) and not bool(got[0].alive.any())
+
+
+def test_k7_dead_particles_and_plants_match_plain(cuda):
+    """Every particle dead at the start (events: the cells and zeros), and
+    the plant friction's fourth table part."""
+    from noize_tpu_torch.erosion import descent_cuda as DC
+    from noize_tpu_torch.erosion import particles as PA
+    from noize_tpu_torch.prng import PRNGKey
+
+    res = 256
+    for plants, alive in ((False, False), (True, True), (True, False)):
+        world = _descent_world(res, 3, plants=plants)
+        params = _descent_params(100, plants)
+        p = PA.spawn(PRNGKey(9, device=cuda), 1000, res, alive=alive)
+        maps = PA.step_maps(world, params, 1000.0)
+        assert maps.numel() == (4 if plants else 3) * res * res
+        got = DC.descend_steps(p, maps, params, 1000.0, 1, res, 104)
+        want = PA.descend_steps_plain(p, maps, params, 1000.0, 1, res, 104)
+        torch.cuda.synchronize()
+        _particles_bits(got[0], want[0])
+        for a, b in zip(got[1:], want[1:]):
+            _bits(a, b)
+        assert bool(got[2].any()) == alive
+        acc = PA.descend_all(p, world, params, 1000.0, 1, res)
+        ref = PA.scatter_events(want[1], want[2:], res * res)
+        for a, b in zip(acc[1:], ref):
+            _bits(a.reshape(-1), b)
+
+
+@pytest.mark.parametrize("res,nx,ny", [(256, 2, 2), (256, 4, 1), (255, 3, 3), (2048, 2, 2)])
+def test_k7_window_matches_plain_with_owner_masks(cuda, res, nx, ny):
+    """K7@window on each block's window (extended by the chunk of 8), as the
+    sharded descent runs it: chunk by chunk with the owner mask, events and
+    particles bit-equal to the windowed plain loop."""
+    from noize_tpu_torch.erosion import descent_cuda as DC
+    from noize_tpu_torch.erosion import particles as PA
+    from noize_tpu_torch.prng import PRNGKey
+
+    chunk = 8
+    world = _descent_world(res, nx * 10 + ny, plants=nx == 3)
+    params = _descent_params(32, plants=nx == 3)
+    full = PA.step_maps(world, params, 1000.0)
+    parts = full.numel() // (res * res)
+    tiles = full.reshape(parts, res, res)
+    p0 = PA.spawn(PRNGKey(res + nx, device=cuda), 1000, res)
+    lr, lc = -(-res // nx), -(-res // ny)
+    before = DC.descend_steps_window.launches
+    calls = 0
+    for bx in range(nx):
+        for by in range(ny):
+            r0, c0 = bx * lr, by * lc
+            origin, shape = (r0 - chunk, c0 - chunk), (lr + 2 * chunk, lc + 2 * chunk)
+            r = torch.clamp(torch.arange(origin[0], origin[0] + shape[0], device=cuda), 0, res - 1)
+            c = torch.clamp(torch.arange(origin[1], origin[1] + shape[1], device=cuda), 0, res - 1)
+            table = torch.cat([t[r][:, c].reshape(-1) for t in tiles]).contiguous()
+            p_k, p_p = p0, p0
+            for _ in range(5):
+                ri = torch.clamp(torch.round(p_k.row).to(torch.int32), 0, res - 1)
+                ci = torch.clamp(torch.round(p_k.col).to(torch.int32), 0, res - 1)
+                owned = (ri >= r0) & (ri < r0 + lr) & (ci >= c0) & (ci < c0 + lc)
+                got = DC.descend_steps_window(p_k, table, params, 1000.0, 1, res, chunk,
+                                              origin, shape, owned)
+                want = PA.descend_steps_plain(p_p, table, params, 1000.0, 1, res, chunk,
+                                              window_origin=origin, window_shape=shape,
+                                              owned=owned)
+                calls += 1
+                torch.cuda.synchronize()
+                _particles_bits(got[0], want[0])
+                for a, b in zip(got[1:], want[1:]):
+                    _bits(a, b)
+                p_k, p_p = got[0], want[0]
+    assert DC.descend_steps_window.launches == before + calls
+
+
+def test_event_scatter_on_card_depends_only_on_each_cells_run(cuda):
+    """What the single-device and the one-rank sharded descents rely on:
+    ``scatter_events`` on the card is deterministic, and a cell's sum
+    depends only on its own events in order, not on how the cells are
+    numbered (the window's cells against the grid's) nor on other cells'
+    events."""
+    from noize_tpu_torch.erosion import particles as PA
+
+    rng = np.random.default_rng(4)
+    m, size = 200_000, 5000
+    cells = torch.from_numpy(rng.zipf(1.3, m) % size).to(cuda)
+    vals = [torch.from_numpy(rng.normal(0, 1, m).astype(np.float32)).to(cuda)
+            for _ in range(3)]
+    a = PA.scatter_events(cells, vals, size)
+    b = PA.scatter_events(cells, vals, size)
+    perm = torch.from_numpy(rng.permutation(size)).to(cuda)  # another numbering
+    c = PA.scatter_events(perm[cells], vals, size)
+    keep = cells < size // 2  # other cells' events dropped
+    d = PA.scatter_events(cells[keep], [v[keep] for v in vals], size)
+    for x, y, z, w in zip(a, b, c, d):
+        _bits(x, y)
+        _bits(x, z[perm])
+        _bits(x[: size // 2], w[: size // 2])
+
+
+def test_k7_refuses_bad_input(cuda):
+    from noize_tpu_torch.erosion import descent_cuda as DC
+    from noize_tpu_torch.erosion import particles as PA
+    from noize_tpu_torch.prng import PRNGKey
+
+    world = _descent_world(64, 1)
+    params = _descent_params(32)
+    maps = PA.step_maps(world, params, 1000.0)
+    p = PA.spawn(PRNGKey(1, device=cuda), 10, 64)
+    with pytest.raises(ValueError):
+        DC.descend_steps(p, maps[:-1], params, 1000.0, 1, 64, 8)  # not 3 maps
+    with pytest.raises(ValueError):
+        DC.descend_steps(p, maps.double(), params, 1000.0, 1, 64, 8)
+    with pytest.raises(ValueError):
+        DC.descend_steps(p._replace(row=p.row.cpu()), maps, params, 1000.0, 1, 64, 8)
+
+
+def test_k7_atan_sin_match_torch(cuda):
+    """K7's atanf and sinf (built with -fmad=false, as every source) against
+    torch.atan and torch.sin on ~10^6 inputs: the descent's ranges (slopes
+    of any size, angles within ±π/2), wide magnitudes, subnormals and the
+    special values, bit for bit."""
+    from noize_tpu_torch.erosion import descent_cuda as DC
+
+    rng = np.random.default_rng(0)
+    mags = 10.0 ** rng.uniform(-40, 38, 300_000)
+    x = np.concatenate([
+        rng.uniform(-np.pi / 2, np.pi / 2, 300_000),
+        rng.uniform(-50.0, 50.0, 200_000),
+        np.where(rng.uniform(0, 1, 300_000) < 0.5, -mags, mags),
+        rng.uniform(-1e-3, 1e-3, 100_000),
+        [0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45, 1.17549435e-38, 3.4028235e38],
+    ]).astype(np.float32)
+    t = torch.from_numpy(x).to(cuda)
+    a, s = DC.atan_sin(t)
+    torch.cuda.synchronize()
+    _bits(a, torch.atan(t))
+    _bits(s, torch.sin(t))
+
+
+def test_k8_threefry_matches_plain(cuda):
+    """K8 against the plain int64 rounds on the card: single keys, key
+    stacks and views, split, fold_in, fold_in_stack, and 10^6 randint
+    draws (whose halves are one broadcast hash)."""
+    from noize_tpu_torch import prng
+
+    key = prng.PRNGKey(2**31 - 1, device=cuda)
+    stack = prng.split(key, 5)
+    n = torch.arange(1_000_003, dtype=torch.int64, device=cuda)
+    cases = [
+        (key, n >> 32, n & 0xFFFFFFFF),
+        (stack, n[:1000] >> 32, n[:1000]),
+        (prng.split(stack, 2), n[:77] >> 32, n[:77]),
+        (stack[3], n[5:9] * 0, n[5:9] * 2654435761 % (1 << 32)),
+        (stack, torch.zeros(5, 1, dtype=torch.int64, device=cuda), n[:5, None] + 7),
+        (key, torch.zeros(1, dtype=torch.int64, device=cuda),
+         torch.full((1,), 0xFFFFFFFF, dtype=torch.int64, device=cuda)),
+    ]
+    for args in cases:
+        before = prng.threefry2x32.launches
+        got = prng.threefry2x32(*args)
+        assert prng.threefry2x32.launches == before + 1
+        want = prng._threefry2x32_plain(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            _bits(g, w)
+    for seed in (0, 42, -5):
+        kc, kh = prng.PRNGKey(seed, device=cuda), prng.PRNGKey(seed, device="cpu")
+        _bits(prng.split(kc, 7).cpu(), prng.split(kh, 7))
+        _bits(prng.fold_in(kc, 123456).cpu(), prng.fold_in(kh, 123456))
+        _bits(prng.fold_in_stack(kc, [1, 2, 3]).cpu(), prng.fold_in_stack(kh, [1, 2, 3]))
+        _bits(prng.fold_in_stack(prng.split(kc, 3), [4, 5, 6]).cpu(),
+              prng.fold_in_stack(prng.split(kh, 3), [4, 5, 6]))
+        _bits(prng.randint(kc, (1_000_000,), -1024, 2049).cpu(),
+              prng.randint(kh, (1_000_000,), -1024, 2049))
+        _bits(prng.randint(prng.split(kc, 4), (250,), 0, 2048).cpu(),
+              prng.randint(prng.split(kh, 4), (250,), 0, 2048))
