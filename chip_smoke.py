@@ -7,8 +7,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. device: requires CUDA; prints the card's name and
    ``nvidia-smi --query-gpu=name,power.limit``;
-2. build: compiles the CUDA kernels K1-K8 from ``noize_tpu_torch/csrc``
-   (K7 particle descent ``descent.cu``, K8 threefry ``threefry.cu``);
+2. build: compiles the CUDA kernels K1-K9 from ``noize_tpu_torch/csrc``
+   (K7 particle descent ``descent.cu``, K8 threefry ``threefry.cu``, K9 the
+   in-order event scatter ``scatter.cu``);
 3. kernels: each kernel against its plain PyTorch version on the card at
    the flagship's shapes (2048², and 2049² for K5), with CUDA-event times
    of both, the card's least time for the same work (``bound_ms``) and,
@@ -29,15 +30,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``__graft_entry__.entry()`` configuration from the same seed (the same
    threefry spawn), and the mesh export round trip (OBJ, NPZ) at that
    size;
-8b. descent: K7 (``descend_steps``: every step of the 1000 particles of
-   the Quickstart's 2048² state after its step, MAXAGE 100, spawned from the
-   sim's key; and config 5's 250 particles on a 1024² tile) against its
-   plain version, particles and events bit-equal, and ``descend_all``'s
-   sums bit-equal to the plain events' scatter (within 1e-5 of the
-   early-exit loop's, a scatter a chunk); K7@window on the four windows of
-   a 2×2 split of both, chunk of 8, owner masks, bit-equal; K8 on the
-   spawns' hashes; each timed against its plain version (rows K7,
-   K7@window, K8);
+8b. descent: K7 (``descend_steps`` on its record table: every step of the
+   1000 particles of the Quickstart's 2048² state after its step, MAXAGE
+   100, spawned from the sim's key; and config 5's 250 particles on a 1024²
+   tile) against its plain version on ``step_maps``, particles and events
+   bit-equal; the record table (K7@records) against its plain builder; K9
+   on K7's events against the CPU's ``scatter_events`` on CPU copies, and
+   ``descend_all`` against the early-exit loop (a scatter a chunk), bit for
+   bit; K7@window on the four windows of a 2×2 split of both, chunk of 8,
+   owner masks, bit-equal; K8 on the spawns' hashes, and K8's draw entry
+   against the CPU's ``randint(split(k))`` and ``spawn``; each timed against
+   its plain version, K9 also against the three ``index_put_`` it replaced,
+   the draw against the composition it replaced (rows K7, K7@window,
+   K7@records, K8, K8@randint, K9);
 9. prng: the threefry PRNG on the card against the CPU, 10⁶ ``randint``
    draws (integers, exact), with the card's time for the draw, and K8
    against its plain version on the card (bit-equal);
@@ -112,7 +117,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 Each path phase resets every launch count just before it runs and fails
 if a kernel of its path was not launched: every erosion path runs K7 (the
-sharded one K7@window) and K8, and prints its step time and host syncs.  Prints the per-kernel JSON
+sharded one K7@window), its record table, K8, K8's draw entry and K9, and
+prints its step time and host syncs; a Quickstart cycle draws with at most
+two K8 launches.  Prints the per-kernel JSON
 line, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -163,11 +170,17 @@ PEAK_I32_OPS_PER_S = 132 * 64 * 1.98e9
 #       event and computes nothing.
 #   K8: 20 rounds of an add, a rotate (2 shifts and an or) and a xor, 5
 #       key injections of 3 adds: 115 32-bit integer ops a pair.
+#   K8@randint: what randint(split(k)) needs, not what the kernel does (it
+#       re-derives each output's leaf key, 5 hashes an output): 2 hashes
+#       an output (randint's higher and lower bits) and the combine (8),
+#       plus the 6 split hashes the outputs share (split(k), then each
+#       half's split).
 K2_OPS_PER_ITER, K2_OPS_ONCE = 35, 14
 K3_OPS_PER_ITER = 48
 POOL_OPS_PER_ITER = 4 * (98 / 4 + 5)
 K7_OPS_PER_LIVE_STEP = 200
 K8_OPS_PER_PAIR = 115
+K8_OPS_PER_COMBINE, K8_RANDINT_SPLIT_HASHES = 8, 6
 
 
 def _check(cond, msg):
@@ -208,6 +221,7 @@ def _counters():
     from noize_tpu_torch.erosion import descent_cuda as DC
     from noize_tpu_torch.erosion import pile_cuda as PL
     from noize_tpu_torch.erosion import pool_cuda as PC
+    from noize_tpu_torch.erosion import scatter_cuda as SCU
     from noize_tpu_torch.ops.cuda import flow as FC
     from noize_tpu_torch.ops.cuda import stencil as SC
     from noize_tpu_torch.ops.cuda import thermal as TC
@@ -218,7 +232,8 @@ def _counters():
         "K5": PC.pool_automata_full_cuda, "K6": PL.exact_piles,
         "K5@window": PC.pool_automata_window, "K6@table": PL.solve_pile_table,
         "K7": DC.descend_steps, "K7@window": DC.descend_steps_window,
-        "K8": prng.threefry2x32,
+        "K7@records": DC.step_records, "K8": prng.threefry2x32,
+        "K8@randint": prng._randint_cuda, "K9": SCU.scatter_in_order,
         "#1": SC.fused_separable_chain, "#2": SC.fused_separable_chain_rows,
         "#3": FC.flow_map_pallas, "#6": PC.pool_automata_pallas,
         "#7": PC.pool_automata_pallas_pair, "#8": PC.pool_automata_pallas_quad,
@@ -271,9 +286,10 @@ def build_phase():
         _cuda.library()
         _check(host.result(), "the native IO runtime did not load")
     srcs = sorted(p.name for p in _cuda.CSRC.glob("*.cu"))
-    _check({"descent.cu", "threefry.cu"} <= set(srcs), f"K7 or K8 source missing: {srcs}")
+    _check({"descent.cu", "threefry.cu", "scatter.cu"} <= set(srcs),
+           f"K7, K8 or K9 source missing: {srcs}")
     print(f"build: {path.relative_to(HERE)} ({len(srcs)} sources in parallel: "
-          f"{', '.join(srcs)}; K7 descent.cu, K8 threefry.cu) and "
+          f"{', '.join(srcs)}; K7 descent.cu, K8 threefry.cu, K9 scatter.cu) and "
           f"{native.library_path().relative_to(HERE)} in {time.perf_counter() - t0:.1f} s")
 
 
@@ -309,7 +325,8 @@ class Rows:
     K3 at 1025² (odd sizes), K1 with each filter's taps, K1 and K2 on the
     config-5 stack, K6 (the exact pile solver, no TPU kernel's port), K5 on
     a window and K6 on a pile table (the sharded cycle's), and K7 (particle
-    descent), K7 on a window and K8 (threefry), none a TPU kernel's port,
+    descent), K7 on a window, K7's record table, K8 (threefry), K8's draw
+    entry and K9 (the in-order event scatter), none a TPU kernel's port,
     filled as the phases run."""
 
     def __init__(self):
@@ -352,7 +369,7 @@ class Rows:
         order = (["#1", "#2", "#3", "#4", "#5", "#6", "#7", "#8", "#9", "#10", "K5", "K5@1025",
                   "K3@1025"] + [f"K1:{f}" for f in FILTERS]
                  + ["K1@stack", "K2@stack", "K6", "K5@window", "K6@table", "K7", "K7@window",
-                    "K8"])
+                    "K7@records", "K8", "K8@randint", "K9"])
         _check(set(self.rows) == set(order), f"rows {sorted(self.rows)}")
         for k in order:
             _check(self.launches.get(k, 0) > 0, f"{k} was launched on no path")
@@ -387,6 +404,7 @@ SRC = {
     "K3": "noize_tpu_torch/csrc/thermal.cu", "K4": "noize_tpu_torch/csrc/pool.cu",
     "K5": "noize_tpu_torch/csrc/pool.cu", "K6": "noize_tpu_torch/csrc/piles.cu",
     "K7": "noize_tpu_torch/csrc/descent.cu", "K8": "noize_tpu_torch/csrc/threefry.cu",
+    "K9": "noize_tpu_torch/csrc/scatter.cu",
 }
 TPU = "noize_tpu/ops/pallas/"
 POOL_TPU = "noize_tpu/erosion/pool_pallas.py"
@@ -563,10 +581,14 @@ def quickstart_phase(rows):
             _check(back.device.type == "cuda" and back.dtype == torch.float32,
                    f"restored {n} on {back.device} as {back.dtype}")
             _check(torch.equal(back, sm.get_buffer(n)), f"restored {n} differs")
-    for key in ("K1", "K2", "K3", "K4", "K7", "K8"):
+    for key in ("K1", "K2", "K3", "K4", "K7", "K8", "K7@records", "K8@randint", "K9"):
         _check(counts[key] > 0, f"{key} was not launched on the Quickstart path")
     cycles = sim.settings.CYCLES
-    _check(counts["K7"] == cycles, f"K7 launched {counts['K7']} times in {cycles} cycles")
+    for key in ("K7", "K7@records", "K9"):
+        _check(counts[key] == cycles, f"{key} launched {counts[key]} times in {cycles} cycles")
+    _check(counts["K8"] + counts["K8@randint"] <= 2 * cycles,
+           f"the spawn's draws took {counts['K8']} + {counts['K8@randint']} K8 launches in "
+           f"{cycles} cycles (at most 2 a cycle)")
     _check(len(sim.syncs) == 2 * cycles and "descent.alive" not in sim.syncs,
            f"Quickstart step host syncs {sim.syncs}")
     for k, v in (("height", sim.height_map), ("pool", sim.pool_map), ("stream", sim.stream_map),
@@ -588,7 +610,9 @@ def quickstart_phase(rows):
           "restored equal")
     print(f"quickstart launches {counts}")
     rows.set_launches({"#2": counts["K1"], "#4": counts["K2"], "#5": counts["K3"],
-                       "#10": counts["K4"], "K7": counts["K7"], "K8": counts["K8"]})
+                       "#10": counts["K4"], "K7": counts["K7"], "K8": counts["K8"],
+                       "K7@records": counts["K7@records"], "K8@randint": counts["K8@randint"],
+                       "K9": counts["K9"]})
     PROFILES.append(("Quickstart ErosionSim.step() 2048² (3 cycles)", sim.step))
     return sim
 
@@ -623,14 +647,23 @@ def _k7_cost(parts, out, steps, plants):
         live * K7_OPS_PER_LIVE_STEP
 
 
-def _windows_2x2(maps, res, chunk):
-    """The four windows of a 2×2 split of the table ``maps``, each block
-    extended by ``chunk`` cells (edge-clamped outside the grid: reads clamp
-    to the grid first): (block origin, block side, window origin, window
-    shape, window table)."""
+def _k9_cost(n_events, size, maps=3):
+    """(bytes, f32 ops) of the scatter into zeros: each event's cell (8
+    bytes) and deltas read once, each map written once, an add an event and
+    map."""
+    return n_events * (8 + 4 * maps) + 4 * maps * size, n_events * maps
+
+
+def _windows_2x2(maps, records, res, chunk):
+    """The four windows of a 2×2 split of the table ``maps`` (and of K7's
+    record table ``records``), each block extended by ``chunk`` cells
+    (edge-clamped outside the grid: reads clamp to the grid first): (block
+    origin, block side, window origin, window shape, window table, window
+    records)."""
     import torch
 
     tiles = maps.reshape(-1, res, res)
+    grid = records.reshape(res, res, 4)
     half = res // 2
     out = []
     for r0 in (0, half):
@@ -641,16 +674,20 @@ def _windows_2x2(maps, res, chunk):
             c = torch.clamp(torch.arange(origin[1], origin[1] + shape[1], device=maps.device),
                             0, res - 1)
             table = torch.cat([t[r][:, c].reshape(-1) for t in tiles]).contiguous()
-            out.append(((r0, c0), half, origin, shape, table))
+            window = grid[r][:, c].reshape(-1, 4).contiguous()
+            out.append(((r0, c0), half, origin, shape, table, window))
     return out
 
 
 def descent_phase(rows, sim):
-    """K7, K7@window and K8 against their plain versions on the card
-    (bit-equal), timed: the Quickstart's 2048² state after its step with
-    the next cycle's 1000 particles spawned from the sim's key (the rows
-    K7, K7@window, K8), and config 5's tile 0 (1024², 250 particles, MAXAGE
-    32) as its erosion cycle starts."""
+    """K7 (on its record table), K7@window, K7@records, K8 (the hash), K8's
+    draw entry and K9 (the in-order scatter) against their plain versions
+    (bit-equal), timed: the Quickstart's 2048² state after its step with the
+    next cycle's 1000 particles spawned from the sim's key (the rows), and
+    config 5's tile 0 (1024², 250 particles, MAXAGE 32) as its erosion cycle
+    starts.  K9 and K8's draw are held against the CPU's ``scatter_events``
+    and ``randint`` on CPU copies, and ``descend_all`` against the early-exit
+    loop, bit for bit."""
     import dataclasses
 
     import torch
@@ -682,54 +719,69 @@ def descent_phase(rows, sim):
 
     for label, world, parts, params, hs, pr, res, k1 in cases:
         n = parts.row.numel()
+        cells = res * res
         plants = PA._with_plants(params)
         steps = 8 * -(-(params.MAXAGE + 1) // 8)
         maps = PA.step_maps(world, params, hs)
+        table = DC.descent_table(world, params, hs)  # K7's records
+        plain_records = lambda: (DC.step_records_plain(  # noqa: E731
+            world.height, world.pool, world.flow, world.plants if plants else None, params, hs),)
+        _same_bits(f"K7@records ({label})", (table,), plain_records())
         args = (params, hs, pr, res)
-        got = DC.descend_steps(parts, maps, *args, steps)
+        got = DC.descend_steps(parts, table, *args, steps)
         want = PA.descend_steps_plain(parts, maps, *args, steps)
         torch.cuda.synchronize()
         _same_bits(f"K7 ({label})", _flat(got), _flat(want))
         _check(not bool(got[0].alive.any()), f"K7 ({label}): particles alive after {steps} steps")
+        # K9: K7's events scattered in order, against the CPU's scatter_events
+        ev_h = [t.cpu() for t in got[1:]]
+        acc9 = PA.scatter_events(got[1], got[2:], cells)
+        ref9 = PA.scatter_events(ev_h[0], ev_h[1:], cells)
+        _same_bits(f"K9 ({label}) vs the CPU's scatter_events", [a.cpu() for a in acc9], ref9)
         acc = PA.descend_all(parts, world, *args)
-        ref = PA.scatter_events(want[1], want[2:], res * res)
         early = PA._descend_all_plain(parts, world, *args, params.MAXAGE + 1, 8)
         torch.cuda.synchronize()
-        _same_bits(f"descend_all sums ({label})", [a.reshape(-1) for a in acc[1:]], ref)
+        _same_bits(f"descend_all sums ({label})", [a.reshape(-1) for a in acc[1:]], acc9)
         _same_bits(f"descend_all particles ({label})", tuple(acc[0]), tuple(early[0]))
-        gap = max(_max_abs(a, b) / max(float(b.abs().max()), 1e-30)
-                  for a, b in zip(acc[1:], early[1:]))
-        _check(gap <= 1e-5, f"descend_all ({label}) vs the early-exit loop: {gap}")
+        _same_bits(f"descend_all vs the early-exit loop ({label})", acc[1:], early[1:])
         _check(float(acc[1].max()) > 0, f"descend_all ({label}) left no track")
         nbytes, ops = _k7_cost(parts, got, steps, plants)
-        # K8: the spawn's draw, randint(split(k1), (n,), 0, res): one hash
+        # K8: the spawn's hash on the general entry (randint(split(k1)): one
+        # hash of both halves), and the spawn's draw on the draw entry
         keys = prng.split(prng.split(k1))
         hi, lo = prng._counters(n, "cuda")
         k8 = prng.threefry2x32(keys, hi, lo)
         _same_bits(f"K8 spawn hash ({label})", k8, prng._threefry2x32_plain(keys, hi, lo))
         pairs = k8[0].numel()
+        k1_h = k1.cpu()
+        draw = prng._randint_of_split(k1, (n,), 0, res, torch.float32)
+        plain_draw = lambda: (prng._randint_composed(  # noqa: E731
+            prng.split(k1_h), (n,), 0, res).to(torch.float32).cuda(),)
+        _same_bits(f"K8@randint ({label}) vs the CPU's randint(split(k))", (draw,), plain_draw())
+        _same_bits(f"spawn on the card vs the CPU ({label})",
+                   [t.cpu() for t in PA.spawn(k1, n, res)], tuple(PA.spawn(k1_h, n, res)))
         # K7@window: the first chunk of 8 on each window of a 2×2 split
-        wins = _windows_2x2(maps, res, 8)
+        wins = _windows_2x2(maps, table, res, 8)
         row_i = torch.clamp(torch.round(parts.row).to(torch.int32), 0, res - 1)
         col_i = torch.clamp(torch.round(parts.col).to(torch.int32), 0, res - 1)
         win_args = []
-        for (r0, c0), side, origin, shape, table in wins:
+        for (r0, c0), side, origin, shape, wtable, wrecords in wins:
             owned = ((row_i >= r0) & (row_i < r0 + side) & (col_i >= c0) & (col_i < c0 + side))
-            a = (parts, table, *args, 8, origin, shape, owned)
+            a = (parts, wrecords, *args, 8, origin, shape, owned)
             g = DC.descend_steps_window(*a)
-            w = PA.descend_steps_plain(*a[:7], window_origin=origin, window_shape=shape,
-                                       owned=owned)
+            w = PA.descend_steps_plain(parts, wtable, *args, 8, window_origin=origin,
+                                       window_shape=shape, owned=owned)
             torch.cuda.synchronize()
             _same_bits(f"K7@window ({label}, block {r0},{c0})", _flat(g), _flat(w))
-            win_args.append((a, g))
-        (a0, g0) = win_args[0]
+            win_args.append((a, wtable, g))
+        (a0, wt0, g0) = win_args[0]
         wbytes, wops = _k7_cost(parts, g0, 8, plants)
         if label == "Quickstart":
             rows.compare("K7", f"K7 descend_steps, {n} particles, {steps} steps on the "
                          f"Quickstart's {res}² state (MAXAGE {params.MAXAGE})", SRC["K7"],
                          "none: noize_tpu/erosion/particles.py:266 (descend_step in the "
                          "lax.scan/while_loop of descend_all, :445; no Pallas kernel)",
-                         _flat(got), lambda: DC.descend_steps(parts, maps, *args, steps),
+                         _flat(got), lambda: DC.descend_steps(parts, table, *args, steps),
                          lambda: _flat(PA.descend_steps_plain(parts, maps, *args, steps)),
                          "k7", 20, nbytes, ops)
             rows.compare("K7@window", f"K7 descend_steps_window, one chunk of 8 steps of {n} "
@@ -739,9 +791,16 @@ def descent_phase(rows, sim):
                          "a rank's extended block; no Pallas kernel)", _flat(g0),
                          lambda: DC.descend_steps_window(*a0),
                          lambda: _flat(PA.descend_steps_plain(
-                             *a0[:7], window_origin=a0[7], window_shape=a0[8], owned=a0[9])),
+                             a0[0], wt0, *a0[2:7], window_origin=a0[7], window_shape=a0[8],
+                             owned=a0[9])),
                          "k7w", 20, wbytes, wops)
-            rows.compare("K8", f"K8 threefry2x32, the Quickstart spawn's draw ({pairs} "
+            rows.compare("K7@records", f"K7's record table of the Quickstart's {res}² state "
+                         f"({cells} records of 16 bytes)", SRC["K7"],
+                         "none: the descent's gather table, noize_tpu/erosion/particles.py:"
+                         "306-311 (no Pallas kernel)", (table,),
+                         lambda: (DC.descent_table(world, params, hs),), plain_records, "k7r",
+                         20, (12 + (4 if plants else 0) + 16) * cells, 7 * cells)
+            rows.compare("K8", f"K8 threefry2x32, the Quickstart spawn's hash ({pairs} "
                          "pairs: both coordinates' two halves)", SRC["K8"],
                          "none: JAX's threefry2x32 (an XLA computation), reached from "
                          "noize_tpu/erosion/particles.py:75 (spawn) and the vegetation draws",
@@ -749,19 +808,52 @@ def descent_phase(rows, sim):
                          lambda: prng._threefry2x32_plain(keys, hi, lo), "k8", 50,
                          16 * hi.numel() + 16 * pairs, K8_OPS_PER_PAIR * pairs, None,
                          PEAK_I32_OPS_PER_S)
-        k7_ms = _time_ms(lambda: DC.descend_steps(parts, maps, *args, steps), 20)
+            rows.compare("K8@randint", f"K8's draw entry, the Quickstart spawn's "
+                         f"randint(split(k), ({n},), 0, {res}) as float32 (2 × {n} draws)",
+                         SRC["K8"],
+                         "none: jax.random.randint of jax.random.split, "
+                         "noize_tpu/erosion/particles.py:75-80 (spawn)", (draw,),
+                         lambda: (prng._randint_of_split(k1, (n,), 0, res, torch.float32),),
+                         plain_draw, "k8r", 50, 8 + 4 * 2 * n,
+                         K8_RANDINT_SPLIT_HASHES * K8_OPS_PER_PAIR
+                         + 2 * n * (2 * K8_OPS_PER_PAIR + K8_OPS_PER_COMBINE), None,
+                         PEAK_I32_OPS_PER_S)
+            k9_bytes, k9_ops = _k9_cost(got[1].numel(), cells)
+            rows.compare("K9", f"K9 scatter_events, K7's {got[1].numel()} events of the "
+                         f"Quickstart's descent into 3 maps of {res}² (each cell's events in "
+                         "order)", SRC["K9"],
+                         "none: the descent's event scatter-add, noize_tpu/erosion/"
+                         "particles.py:445 (descend_all; no Pallas kernel)", acc9,
+                         lambda: PA.scatter_events(got[1], got[2:], cells),
+                         lambda: [a.cuda() for a in PA.scatter_events(ev_h[0], ev_h[1:], cells)],
+                         "k9", 20, k9_bytes, k9_ops,
+                         lambda: [torch.zeros(cells, device="cuda").index_put_(
+                             (got[1],), d, accumulate=True) for d in got[2:]])
+        records_ms = _time_ms(lambda: DC.descent_table(world, params, hs), 20)
+        k7_ms = _time_ms(lambda: DC.descend_steps(parts, table, *args, steps), 20)
+        k9_ms = _time_ms(lambda: PA.scatter_events(got[1], got[2:], cells), 20)
+        put_ms = _time_ms(lambda: [torch.zeros(cells, device="cuda").index_put_(
+            (got[1],), d, accumulate=True) for d in got[2:]], 20)
         all_ms = _time_ms(lambda: PA.descend_all(parts, world, *args), 20)
         plain_ms = _time_ms(lambda: PA.descend_steps_plain(parts, maps, *args, steps), 2)
         early_ms = _time_ms(lambda: PA._descend_all_plain(parts, world, *args,
                                                           params.MAXAGE + 1, 8), 2)
         win_ms = _time_ms(lambda: DC.descend_steps_window(*a0), 20)
-        print(f"descent ({label}, {res}², {n} particles, {steps} steps): K7 and K7@window "
-              f"(4 windows of a 2×2 split, a chunk of 8, owner masks) bit-equal to their plain "
-              f"versions, K8 on the spawn's hash too; descend_all's sums bit-equal to the plain "
-              f"events' scatter, within {gap!r} of the early-exit loop's; K7 {k7_ms:.4f} ms, "
-              f"descend_all (K7 + 3 scatters) {all_ms:.4f} ms, plain fixed-step loop "
-              f"{plain_ms:.3f} ms, early-exit loop {early_ms:.3f} ms; K7@window chunk "
-              f"{win_ms:.4f} ms")
+        draw_ms = _time_ms(lambda: prng._randint_of_split(k1, (n,), 0, res, torch.float32), 50)
+        composed_ms = _time_ms(lambda: prng._randint_composed(
+            prng.split(k1), (n,), 0, res).to(torch.float32), 50)
+        spawn_ms = _time_ms(lambda: PA.spawn(k1, n, res), 50)
+        print(f"descent ({label}, {res}², {n} particles, {steps} steps): K7 (records), "
+              f"K7@window (4 windows of a 2×2 split, a chunk of 8, owner masks), K7@records and "
+              f"K8 (the spawn's hash, its draw entry) bit-equal to their plain versions; K9 "
+              f"bit-equal to the CPU's scatter_events; descend_all bit-equal to the early-exit "
+              f"loop; record table {records_ms:.4f} ms, K7 {k7_ms:.4f} ms "
+              f"({k7_ms / steps * 1e3:.3f} µs a step), K9 {k9_ms:.4f} ms (three index_put_ "
+              f"{put_ms:.4f} ms), descend_all (records + K7 + K9) {all_ms:.4f} ms, plain "
+              f"fixed-step loop {plain_ms:.3f} ms, early-exit loop {early_ms:.3f} ms; "
+              f"K7@window chunk {win_ms:.4f} ms; the spawn's draw {draw_ms:.4f} ms (K8's draw "
+              f"entry; the composition of split, K8 hashes and int64 operations "
+              f"{composed_ms:.4f} ms), spawn {spawn_ms:.4f} ms")
     del cases, maps, wins, win_args
 
 
@@ -1010,8 +1102,8 @@ def tiles_phase(rows):
     _check(counts["K1"] == 3 and k1_plan == 4, "K1 not one call of 4 launches a batch")
     _check(counts["K2"] == 1, "K2 not one call on the flow stack")
     _check(counts["K3"] == 2 * n and counts["K4"] == 2 * n, "erosion not once a tile")
-    _check(counts["K7"] == 2 * n and counts["K8"] > 0, f"descent not one K7 launch a tile: "
-                                                         f"{counts}")
+    _check(all(counts[k] == 2 * n for k in ("K7", "K7@records", "K9")) and counts["K8"] > 0
+           and counts["K8@randint"] > 0, f"descent not one K7 and one K9 launch a tile: {counts}")
     _check(tuple(heights.shape) == (n, res, res) and bool(torch.isfinite(heights).all()),
            "heights misshapen or not finite")
     _check(torch.equal(meshed["height"], heights), "mesh variant's heights differ")
@@ -1091,7 +1183,7 @@ def serve_phase(heights):
     finally:
         srv.stop()
     counts = _read_counts()
-    for key in ("K1", "K3", "K4", "K7", "K8"):
+    for key in ("K1", "K3", "K4", "K7", "K8", "K7@records", "K8@randint", "K9"):
         _check(counts[key] > 0, f"{key} was not launched on the serving path")
     for wave, wall, batches in waves:
         print(f"TileServer {wave} wave: 16 tiles in {batches} batches of 4, {wall:.3f} ms "
@@ -1129,7 +1221,7 @@ def cli_phase():
         _, erode_ms = _timed(lambda: cli.main(["erode", "--resolution", "2048", "--cycles", "3",
                                                "--mesh", "--heightmap16", "-o", out]))
         counts = _read_counts()
-        for key in ("K1", "K3", "K4", "K7", "K8"):
+        for key in ("K1", "K3", "K4", "K7", "K8", "K7@records", "K8@randint", "K9"):
             _check(counts[key] > 0, f"{key} was not launched by the CLI's erode")
         _check(os.path.getsize(os.path.join(out, "eroded_height.raw")) == 2 * 2048 * 2048,
                "eroded_height.raw size")
@@ -1170,7 +1262,7 @@ def generator_phase():
         _, step_ms = _timed(lambda: gen.step_erosion(1))
         counts = _read_counts()
         _check(len(children) == 4, f"{len(children)} children")
-        for key in ("K1", "K3", "K4", "K7", "K8"):
+        for key in ("K1", "K3", "K4", "K7", "K8", "K7@records", "K8@randint", "K9"):
             _check(counts[key] > 0, f"{key} was not launched by the tile generator")
         t0 = time.perf_counter()
         pngs = []
@@ -1212,7 +1304,7 @@ def continuous_phase():
     counts = _read_counts()
     _check(states[0] == "triggered" and set(states[1:-1]) <= {"running"}, f"states {states[:5]}")
     _check(sim.cycle_count == sim.settings.CYCLES, f"{sim.cycle_count} cycles")
-    for key in ("K3", "K4", "K7", "K8"):
+    for key in ("K3", "K4", "K7", "K8", "K7@records", "K8@randint", "K9"):
         _check(counts[key] > 0, f"{key} was not launched by the continuous sim")
     print(f"continuous ErosionSim 2048²: triggered, running ×{len(states) - 2}, completed in "
           f"{wall:.1f} ms ({sim.cycle_count} cycles, {len(sim.syncs)} host syncs before the "
@@ -1274,7 +1366,7 @@ def vegetation_phase():
     counts = _read_counts()
     for k, v in (("height", sim.height_map), ("pool", sim.pool_map), ("stream", sim.stream_map)):
         _check(bool(torch.isfinite(v).all()), f"vegetation sim {k} not finite")
-    _check(all(counts[k] > 0 for k in ("K3", "K4", "K7", "K8")),
+    _check(all(counts[k] > 0 for k in ("K3", "K4", "K7", "K8", "K7@records", "K8@randint", "K9")),
            f"vegetation sim launches {counts}")
     small = h[::8, ::8].contiguous()
     out = {}
@@ -1359,7 +1451,8 @@ def exact_piles_phase(rows):
     _, step_ms = _timed(sim.step)
     counts = _read_counts()
     _check(counts["K6"] > 0, f"K6 was not launched by the EXACT_PILES step: {counts}")
-    _check(counts["K7"] > 0 and counts["K8"] > 0, f"EXACT_PILES step launches {counts}")
+    _check(all(counts[k] > 0 for k in ("K7", "K8", "K7@records", "K8@randint", "K9")),
+           f"EXACT_PILES step launches {counts}")
     _check(counts["K6"] <= settings.CYCLES, f"K6 launched {counts['K6']} times in a step")
     _check(bool(torch.isfinite(sim.height_map).all()), "EXACT_PILES heights not finite")
     rows.set_launches({"K6": counts["K6"]})
@@ -1541,7 +1634,8 @@ def sharded_erosion_phase(sp, bm, rows):
     chunks = -(-(sharded.settings.MAXAGE + 1) // 8)
     _check(counts["K3"] == 3 and counts["K5@window"] == 3 * sharded.settings.WATER_STEPS
            and counts["K4"] == 0 and counts["K7@window"] == 3 * chunks and counts["K7"] == 0
-           and counts["K8"] > 0, f"sharded sim launches {counts}")
+           and counts["K8"] > 0 and counts["K8@randint"] > 0 and counts["K9"] > 0
+           and counts["K7@records"] > 0, f"sharded sim launches {counts}")
     rows.set_launches({"K5@window": counts["K5@window"], "K7@window": counts["K7@window"]})
     _, sharded_ms2 = _timed(sharded.step)
     _, single_ms2 = _timed(single.step)
@@ -1576,7 +1670,7 @@ def sharded_erosion_phase(sp, bm, rows):
     for k, got in (("height", state.world.height), ("flow_velocity", flow_v),
                    ("pool", state.world.pool), ("stream", state.world.flow)):
         _check(torch.equal(got.full_tensor(), want[k]), f"sharded tile step: {k} differs")
-    for k in ("K1", "K2", "K3", "K5@window", "K7@window", "K8"):
+    for k in ("K1", "K2", "K3", "K5@window", "K7@window", "K8", "K8@randint", "K9"):
         _check(counts[k] > 0, f"{k} not launched by the sharded tile step: {counts}")
     print(f"make_sharded_tile_step 2048² (1 cycle): {step_ms:.3f} ms (make_tile_step "
           f"{ref_ms:.3f} ms), equal; launches {counts}")
@@ -1973,7 +2067,7 @@ def flagship_phase(steps=2):
     for f in ("positions", "normals", "tangents", "uvs"):
         _check(bool(torch.isfinite(getattr(m, f)).all()), f"mesh {f} not finite")
     _check(float(out["stream"].abs().max()) > 0, "erosion left no stream")
-    for key in ("K1", "K2", "K3", "K4", "K7", "K8"):
+    for key in ("K1", "K2", "K3", "K4", "K7", "K8", "K7@records", "K8@randint", "K9"):
         _check(counts[key] > 0, f"{key} was not launched on the flagship path")
     _check("descent.alive" not in step.syncs, f"flagship host syncs {step.syncs}")
     timed = times[1:]
@@ -2024,7 +2118,7 @@ def odd_grid_phase(rows):
         SIM.pool_automata_cuda = pool_call
     counts = _read_counts()
     wet = _wet(pool_automata_full_cuda)
-    for key in ("K3", "K5", "K7", "K8"):
+    for key in ("K3", "K5", "K7", "K8", "K7@records", "K8@randint", "K9"):
         _check(counts[key] > 0, f"{key} was not launched on the odd-grid path")
     _check(counts["K4"] == 0, "K4 launched on an odd grid")
     for k, v in (("height", sim.height_map), ("pool", sim.pool_map), ("stream", sim.stream_map)):

@@ -38,8 +38,21 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-f
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+
+#: K8's broadcast dims (threefry.cu's ``kMaxDims``), one value a dim
+MAX_DIMS = 8
+Dims = _L * MAX_DIMS
+
+
+class Bcast(ctypes.Structure):
+    """K8's broadcast, passed by value (threefry.cu's ``NoizeBcast``): the dims,
+    the shape and the element strides of the key words and the counters."""
+
+    _fields_ = [("ndim", _I), ("shape", Dims), ("key", Dims), ("x0", Dims), ("x1", Dims)]
+
 
 #: argtypes of every C entry point (csrc/*.cu); all return int.
 SIGNATURES = {
@@ -75,15 +88,27 @@ SIGNATURES = {
     # slots (i32), hash capacity, piles, round ends, radius, slots,
     # increment, stream (K6 on a pile table)
     "noize_pile_table": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _F, _P),
-    # table, f32 params (host), i32 params (host), the 8 particle fields in,
-    # owned (u8 or null), the 8 fields out, event cells (i64), d_track,
-    # d_pool, d_sed, stream (K7)
+    # record table (float4 a cell), f32 params (host), i32 params (host),
+    # the 8 particle fields in, owned (u8 or null), the 8 fields out, event
+    # cells (i64), d_track, d_pool, d_sed, stream (K7)
     "noize_descent": (_P,) * 25,
+    # height, pool, flow, plants (or null), cells, height scale,
+    # FLOW_HEIGHT_CONTRIBUTION, recip(100), record table, stream (K7's table)
+    "noize_descent_records": (_P, _P, _P, _P, _L, _F, _F, _F, _P, _P),
     # x, atan(x), sin(x), n, stream (K7's atanf and sinf)
     "noize_atan_sin": (_P, _P, _P, _L, _P),
-    # key (u32), key word stride, x0, x1 (i64), dims, shape, key, x0 and
-    # x1 strides (host i64[dims] each), y0, y1 (i64), stream (K8)
-    "noize_threefry": (_P, _L, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P),
+    # key (u32), key word stride, x0, x1 (i64), the broadcast (by value),
+    # y0, y1 (i64), stream (K8)
+    "noize_threefry": (_P, _L, _P, _P, Bcast, _P, _P, _P),
+    # keys (u32 [K, 2]), K, draws a key, split first, minval, span, mult,
+    # float32 out, out, stream (K8's draw)
+    "noize_randint": (_P, _L, _L, _I, _I, _U, _U, _I, _P, _P),
+    # cells (i64), deltas (host array of k pointers), k, n, size, skip
+    # zeros, keys (i32), stream (K9's keys)
+    "noize_scatter_keys": (_P, _P, _I, _L, _L, _I, _P, _P),
+    # sorted keys (i32), permutation (i64), n, deltas, accumulators (host
+    # arrays of k pointers), k, stream (K9's runs)
+    "noize_scatter_runs": (_P, _P, _L, _P, _P, _I, _P),
 }
 
 _LIB = None

@@ -9,7 +9,14 @@ particle for all the steps of a call: ``descend_steps`` on the grid's table
 (``particles.descend_all``), ``descend_steps_window`` on a window of it
 with an owner mask (``parallel.sharded_erosion``, one launch a chunk).
 Both return every step's events, step-major then particle slot, for one
-scatter-add a map; the plain version is ``particles.descend_steps_plain``.
+in-order scatter (``particles.scatter_events``, K9 on the card); the plain
+version is ``particles.descend_steps_plain``.
+
+The table differs by device (``descent_table``): the plain version reads
+``particles.step_maps``; K7 reads one 16-byte record a cell,
+{quantised all-heights, WIH, flow, plants or 0} (``step_records``, built by
+one launch of K7's record pass; ``step_records_plain`` is its plain
+version), so a step's 3×3 is nine aligned loads.
 """
 
 from __future__ import annotations
@@ -21,25 +28,75 @@ from .. import _cuda
 from ..ops.f32 import recip
 from . import particles as _pa
 from .particles import Particles
-from .world import NEIGHBOR_OFFSETS
+from .world import NEIGHBOR_OFFSETS, WorldState
 
 
 def _f32(v) -> float:
     return float(np.float32(v))
 
 
-def _launch(p: Particles, maps, params, height_scale, patch_res, res: int, steps: int,
+def step_records_plain(height, pool, flow, plants, params, height_scale):
+    """The record table as torch operations: f32 [cells, 4] of
+    {``_quantize(all_h)``, wih, flow, plants or 0} with wih = height_scale ·
+    (height + pool) and all_h = wih + FLOW_HEIGHT_CONTRIBUTION · flow,
+    rounded op by op as ``particles.step_maps`` and ``_quantize`` round
+    them; ``plants`` None gives zeros."""
+    wih = height_scale * (height + pool)
+    all_h = wih + params.FLOW_HEIGHT_CONTRIBUTION * flow
+    fourth = torch.zeros_like(flow) if plants is None else plants
+    return torch.stack([_pa._quantize(all_h), wih, flow, fourth], -1).reshape(-1, 4)
+
+
+def step_records(height, pool, flow, plants, params, height_scale):
+    """K7's record table of the maps ``height``, ``pool``, ``flow`` and
+    ``plants`` (or None: zeros), f32 [cells, 4], 16-byte records.  A CPU
+    tensor takes the plain version; a CUDA tensor launches K7's record pass
+    (one launch) or raises."""
+    if height.device.type == "cpu":
+        return step_records_plain(height, pool, flow, plants, params, height_scale)
+    maps = [height, pool, flow] + ([] if plants is None else [plants])
+    if any(m.shape != height.shape or m.device != height.device for m in maps):
+        raise ValueError("step_records: the maps must match in shape and device")
+    maps = [m.contiguous() for m in maps]
+    for m in maps:
+        _cuda.check_map(m.reshape(1, -1), "step_records", square=False)
+    n = height.numel()
+    out = torch.empty((n, 4), dtype=torch.float32, device=height.device)
+    with torch.cuda.device(height.device):
+        _cuda.call("noize_descent_records", *(m.data_ptr() for m in maps[:3]),
+                   None if plants is None else maps[3].data_ptr(), n, _f32(height_scale),
+                   _f32(params.FLOW_HEIGHT_CONTRIBUTION), recip(100.0), out.data_ptr(),
+                   _cuda.stream(height))
+    step_records.launches += 1
+    return out
+
+
+step_records.launches = 0
+
+
+def descent_table(state: WorldState, params, height_scale):
+    """The descent's table of ``state`` for its device: ``step_maps`` on the
+    CPU (the plain version's), ``step_records`` on the card (K7's)."""
+    if state.height.device.type == "cpu":
+        return _pa.step_maps(state, params, height_scale)
+    plants = state.plants if _pa._with_plants(params) else None
+    return step_records(state.height, state.pool, state.flow, plants, params, height_scale)
+
+
+def _launch(p: Particles, table, params, height_scale, patch_res, res: int, steps: int,
             origin, shape, owned, name: str):
     """One K7 launch; see ``descend_steps_plain`` for the arguments and the
     result."""
-    dev = maps.device
-    _cuda.check_map(maps[None], name, square=False)
+    dev = table.device
     n = int(p.row.shape[0])
     rows_w, cols_w = (int(v) for v in shape)
+    if table.shape != (rows_w * cols_w, 4):
+        raise ValueError(f"{name}: expected the record table of {rows_w}x{cols_w} cells "
+                         f"(step_records), got {tuple(table.shape)}")
+    _cuda.check_map(table, name, square=False)
+    if table.data_ptr() % 16:
+        raise ValueError(f"{name}: the record table must be 16-byte aligned")
     plants = _pa._with_plants(params)
-    if maps.numel() != (4 if plants else 3) * rows_w * cols_w:
-        raise ValueError(f"{name}: expected a table of {4 if plants else 3} maps of "
-                         f"{rows_w}x{cols_w}, got {maps.numel()} floats")
     if steps < 0 or res < 1:
         raise ValueError(f"{name}: bad steps {steps} or res {res}")
     fields = (p.row, p.col, p.heading, p.vel, p.water, p.sediment, p.age, p.alive)
@@ -66,23 +123,24 @@ def _launch(p: Particles, maps, params, height_scale, patch_res, res: int, steps
                  + [o[0] for o in NEIGHBOR_OFFSETS] + [o[1] for o in NEIGHBOR_OFFSETS]
                  + list(_pa.RING_DR) + list(_pa.RING_DC), np.int32)
     with torch.cuda.device(dev):
-        _cuda.call("noize_descent", maps.data_ptr(), f.ctypes.data, i.ctypes.data,
+        _cuda.call("noize_descent", table.data_ptr(), f.ctypes.data, i.ctypes.data,
                    *(t.data_ptr() for t in ins),
                    None if owned is None else owned.data_ptr(),
                    *(t.data_ptr() for t in outs), cells.data_ptr(),
-                   *(t.data_ptr() for t in deltas), _cuda.stream(maps))
+                   *(t.data_ptr() for t in deltas), _cuda.stream(table))
     return (Particles(*outs), cells) + tuple(deltas)
 
 
-def descend_steps(p: Particles, maps, params, height_scale, patch_res, res: int, steps: int):
+def descend_steps(p: Particles, table, params, height_scale, patch_res, res: int,
+                  steps: int):
     """``steps`` descent steps of every particle on the grid's table
-    ``maps`` (``particles.step_maps``): (particles, cells i64[steps·N],
-    d_track, d_pool, d_sed f32[steps·N]), step-major then particle slot.
-    A CPU tensor takes the plain version; a CUDA tensor launches K7 (one
-    launch) or raises."""
-    if maps.device.type == "cpu":
-        return _pa.descend_steps_plain(p, maps, params, height_scale, patch_res, res, steps)
-    out = _launch(p, maps, params, height_scale, patch_res, res, steps, (0, 0), (res, res),
+    (``descent_table``: ``step_maps`` on the CPU, ``step_records`` on the
+    card): (particles, cells i64[steps·N], d_track, d_pool, d_sed
+    f32[steps·N]), step-major then particle slot.  A CPU tensor takes the
+    plain version; a CUDA tensor launches K7 (one launch) or raises."""
+    if table.device.type == "cpu":
+        return _pa.descend_steps_plain(p, table, params, height_scale, patch_res, res, steps)
+    out = _launch(p, table, params, height_scale, patch_res, res, steps, (0, 0), (res, res),
                   None, "descend_steps")
     descend_steps.launches += 1
     return out
@@ -91,7 +149,7 @@ def descend_steps(p: Particles, maps, params, height_scale, patch_res, res: int,
 descend_steps.launches = 0
 
 
-def descend_steps_window(p: Particles, maps, params, height_scale, patch_res, res: int,
+def descend_steps_window(p: Particles, table, params, height_scale, patch_res, res: int,
                          steps: int, window_origin, window_shape, owned=None):
     """``descend_steps`` on the table of a window of the grid (its cell
     (0, 0) at the global ``window_origin``, ``window_shape`` cells; reads
@@ -99,11 +157,11 @@ def descend_steps_window(p: Particles, maps, params, height_scale, patch_res, re
     zeroed and each event's cell the window's: the sharded descent's chunk.
     A CPU tensor takes the plain version; a CUDA tensor launches K7 (one
     launch) or raises."""
-    if maps.device.type == "cpu":
-        return _pa.descend_steps_plain(p, maps, params, height_scale, patch_res, res, steps,
+    if table.device.type == "cpu":
+        return _pa.descend_steps_plain(p, table, params, height_scale, patch_res, res, steps,
                                        window_origin=window_origin,
                                        window_shape=window_shape, owned=owned)
-    out = _launch(p, maps, params, height_scale, patch_res, res, steps, window_origin,
+    out = _launch(p, table, params, height_scale, patch_res, res, steps, window_origin,
                   window_shape, owned, "descend_steps_window")
     descend_steps_window.launches += 1
     return out

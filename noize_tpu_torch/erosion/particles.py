@@ -22,7 +22,8 @@ cascade are TPU tuning and give the same sums as the plain loop here.
 
 On the card the descent is K7 (``erosion.descent_cuda``, ``csrc/descent.cu``):
 one thread a particle for every step; ``descend_steps_plain`` is its plain
-version.
+version.  Its events go through K9 (``erosion.scatter_cuda``,
+``csrc/scatter.cu``), whose plain version is ``scatter_events`` on the CPU.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.f32 import recip, sqrt
-from ..prng import randint, split
+from ..prng import _randint_of_split
 from .world import NEIGHBOR_OFFSETS, WorldState
 
 _F32 = torch.float32
@@ -64,8 +65,10 @@ class Particles(NamedTuple):
 def spawn(key, n: int, res: int, water=1.0, alive=True):
     """FillBeyerQueueJob parity: uniform random integer positions, vel .01,
     water 1, no heading.  ``key`` is a threefry key (``prng.PRNGKey``);
-    the draws are ``jax.random``'s bits, on the key's device."""
-    row, col = randint(split(key), (n,), 0, res).to(_F32)  # (kr, kc) in one draw
+    the draws are ``jax.random``'s bits, on the key's device: ``randint``
+    of each half of ``split(key)``, in one draw (one K8 launch on the
+    card)."""
+    row, col = _randint_of_split(key, (n,), 0, res, _F32)  # (kr, kc)
     device = key.device
     return Particles(
         row=row,
@@ -347,22 +350,22 @@ CPU_IN_ORDER = 32767
 
 
 def scatter_events(cells, deltas, size: int, acc=None):
-    """The per-cell sums of the events, one ``index_put_`` with
-    ``accumulate=True`` a map, added into ``acc`` (flat f32 maps, in
-    place) or into zeros of ``size``.  On the CPU each cell's events are
-    added to it in their order (step-major, then particle slot), as the
-    reference's scatter adds them, in calls of at most ``CPU_IN_ORDER``
-    events.  On CUDA it sorts the events stably by cell and sums each
-    cell's run apart, a warp's lanes taking 32 events at a time when the
-    run is that long, before adding the sum to the map: the same events
-    give the same bits, but splitting them over several calls, or adding
-    zeros within a run, can move the last bit (ROADMAP §3,
-    ``scripts/scatter_order.py``)."""
+    """The per-cell sums of the events, added into ``acc`` (flat f32 maps,
+    in place) or into zeros of ``size``: each cell's events added to it one
+    by one in their order (step-major, then particle slot), as the
+    reference's scatter adds them.  On the CPU that is ``index_put_`` with
+    ``accumulate=True``, a map at a time, in calls of at most
+    ``CPU_IN_ORDER`` events; on CUDA it is K9 (``scatter_cuda``, one call
+    for up to four maps), which gives the same bits whatever the events'
+    chunking, or raises."""
+    if cells.device.type != "cpu":
+        from .scatter_cuda import scatter_in_order
+
+        return scatter_in_order(cells, list(deltas), size, acc)
     if acc is None:
         acc = [torch.zeros(size, dtype=_F32, device=cells.device) for _ in deltas]
-    piece = CPU_IN_ORDER if cells.device.type == "cpu" else max(cells.numel(), 1)
     for a, d in zip(acc, deltas):
-        for c, v in zip(cells.split(piece), d.split(piece)):
+        for c, v in zip(cells.split(CPU_IN_ORDER), d.split(CPU_IN_ORDER)):
             a.index_put_((c,), v, accumulate=True)
     return acc
 
@@ -394,17 +397,17 @@ def _descend_all_plain(p: Particles, state: WorldState, params, height_scale, pa
 def _descend_all_fixed(p: Particles, state: WorldState, params, height_scale, patch_res,
                        res: int, steps: int):
     """``descend_all`` as K7 runs it: ``steps`` steps in one
-    ``descent_cuda.descend_steps`` call (K7 on the card, the plain loop on
-    the CPU) and one scatter-add a map.  Steps after a particle's death add
-    zeros to accumulators that never hold -0.0, so on the CPU the sums are
-    bit-equal to ``_descend_all_plain``'s, which stops early; on the card
-    they are bit-equal to the plain loop's events scattered the same way,
-    and within rounding of ``_descend_all_plain``'s (``scatter_events``)."""
-    from .descent_cuda import descend_steps
+    ``descent_cuda.descend_steps`` call (K7 on the record table on the card,
+    the plain loop on ``step_maps`` on the CPU) and one ``scatter_events``
+    call for the three maps (K9 on the card).  Steps after a particle's
+    death add zeros to accumulators that never hold -0.0, so the sums are
+    bit-equal to ``_descend_all_plain``'s, which stops early, on the CPU and
+    on the card alike."""
+    from .descent_cuda import descend_steps, descent_table
 
     shape = state.height.shape
-    maps = step_maps(state, params, height_scale)
-    p, cells, *deltas = descend_steps(p, maps, params, height_scale, patch_res, res, steps)
+    table = descent_table(state, params, height_scale)
+    p, cells, *deltas = descend_steps(p, table, params, height_scale, patch_res, res, steps)
     track_acc, pool_acc, sed_acc = (a.reshape(shape)
                                     for a in scatter_events(cells, deltas, shape[0] * shape[1]))
     return p, track_acc, pool_acc, sed_acc
@@ -420,11 +423,12 @@ def descend_all(p: Particles, state: WorldState, params, height_scale,
     ``MAXAGE + 1`` steps cover every trajectory, run as ``chunk``-step
     chunks (the reference's ``lax.scan`` length), so ``ceil(steps / chunk)
     · chunk`` steps in all.  Events scatter-add step-major, then particle
-    slot — the reference's order, so on the CPU duplicate-cell f32 sums
-    match it (on the card see ``scatter_events``).
+    slot — the reference's order, so duplicate-cell f32 sums match it, on
+    the card too (``scatter_events``).
 
-    On CUDA tensors the descent is K7 (``descent_cuda.descend_steps``): one
-    launch for every step and three scatter-adds, no host sync.  On CPU
+    On CUDA tensors the descent is K7 (``descent_cuda.descend_steps``): the
+    record table, one launch for every step and one in-order scatter of
+    the three maps (K9), no host sync.  On CPU
     tensors it is the plain loop, with the reference's all-dead early exit
     before each chunk (one host sync each, counted in ``syncs`` when
     given).  ``patch_k``, ``table_layout``, ``scatter`` and ``compact``

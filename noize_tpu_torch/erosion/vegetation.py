@@ -6,8 +6,9 @@ and a density splat mirrors ChangeVegetationDensity (+1 at the cell, +0.6
 on the 4 axes, +0.4 on the diagonals, clamped at the border).  The draws
 come from ``noize_tpu_torch.prng`` (``jax.random``'s threefry bits), so a
 key reproduces the reference's plant set.  Splats add duplicates in plant
-order (``index_put_(accumulate=True)``), as the reference's scatter-adds
-do; ``growth`` stays int32 throughout.
+order through the descent's event scatter (``particles.scatter_events``:
+pieces of 32767 on the CPU, K9 on the card), as the reference's
+scatter-adds do; ``growth`` stays int32 throughout.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..prng import randint, split
+from ..prng import _randint_of_split, randint, split
+from .particles import scatter_events
 from .world import WorldState, normal_map
 
 _F32 = torch.float32
@@ -70,7 +72,7 @@ def root_plants(key, ptype: PlantType, state: WorldState, n: int,
     a plant, the first survivable one kept (attempt 0, dead, if none)."""
     res = state.height.shape[0]
     device = state.height.device
-    rows, cols = randint(split(key), (n, ptype.max_spawn_attempts), 0, res)  # (kr, kc)
+    rows, cols = _randint_of_split(key, (n, ptype.max_spawn_attempts), 0, res)  # (kr, kc)
     ok_map = can_survive(ptype, state, height_scale, patch_res)
     ok = ok_map[rows.long(), cols.long()]               # [n, attempts]
     first = torch.argmax(ok.to(_I32), dim=1, keepdim=True)  # the first True
@@ -89,23 +91,32 @@ def root_plants(key, ptype: PlantType, state: WorldState, n: int,
 def splat_density(plants_map, plants: Plants, magnitude=1.0):
     """ChangeVegetationDensity (LiveErosionDataTypes.cs:888-936): +1·mag at
     the plant cell, +0.6·mag on the 4-neighbourhood, +0.4·mag on the
-    diagonals, with the reference's clamped border indexing."""
+    diagonals, with the reference's clamped border indexing.  As the
+    reference adds them: the centre stamps into zeros, that stamp onto
+    ``plants_map``, then each neighbour's stamps in the reference's offset
+    order, every stamp in plant slot order (flat cells ``row·cols + col``
+    through ``scatter_events``)."""
     res = plants_map.shape[0]
+    cols = plants_map.shape[1]
     mag = torch.as_tensor(magnitude, dtype=_F32, device=plants_map.device)
     m = torch.where(plants.alive, mag, torch.zeros((), dtype=_F32, device=mag.device))
-    m = m.expand(plants.alive.shape)
+    m = m.expand(plants.alive.shape).contiguous()
     row, col = plants.row.long(), plants.col.long()
-    stamp = torch.zeros_like(plants_map).index_put_((row, col), m, accumulate=True)
-    out = plants_map + stamp
+    (stamp,) = scatter_events(row * cols + col, [m], plants_map.numel())
+    out = (plants_map + stamp.reshape(plants_map.shape)).reshape(-1)
+    cells, values = [], []
     for w, offs in (
         (0.6, ((1, 0), (0, 1), (-1, 0), (0, -1))),
         (0.4, ((1, 1), (-1, 1), (1, -1), (-1, -1))),
     ):
+        mw = m * w
         for dr, dc in offs:
             r = torch.clamp(row + dr, 0, res - 1)
             c = torch.clamp(col + dc, 0, res - 1)
-            out = out.index_put_((r, c), m * w, accumulate=True)
-    return out
+            cells.append(r * cols + c)
+            values.append(mw)
+    scatter_events(torch.cat(cells), [torch.cat(values)], out.numel(), [out])
+    return out.reshape(plants_map.shape)
 
 
 def grow(plants: Plants, state: WorldState) -> Plants:

@@ -61,7 +61,7 @@ import torch.distributed as dist
 
 from ..core.tiles import TileSetMeta
 from ..erosion.params import ErosionMode, ErosionSettings
-from ..erosion.descent_cuda import descend_steps_window
+from ..erosion.descent_cuda import descend_steps_window, descent_table
 from ..erosion.particles import Particles, scatter_events, spawn
 from ..erosion.pile_cuda import solve_pile_table
 from ..erosion.pool_cuda import pool_automata_window
@@ -173,11 +173,13 @@ def _descent_block(mesh, world: WorldState, parts: Particles, params, height_sca
     row0, col0 = _origin(mesh, (lr, lc))
     er, ec = lr + 2 * h, lc + 2 * h
     with_plants = getattr(params, "VEGETATION_FRICTION", 0.0) > 0.0
-    wih = height_scale * (world.height + world.pool)
-    all_h = wih + params.FLOW_HEIGHT_CONTRIBUTION * world.flow
-    maps = [wih, all_h, world.flow] + ([world.plants] if with_plants else [])
+    maps = [world.height, world.pool, world.flow] + ([world.plants] if with_plants else [])
     ext = exchange_2d(torch.stack(maps, -1), h, mesh=mesh)  # one exchange for all
-    combo = torch.cat([ext[..., i].reshape(-1) for i in range(len(maps))])
+    # the extended block's table (step_maps on the CPU, K7's records on the
+    # card): each cell's values from its own maps, as on the whole grid
+    ext_world = WorldState(height=ext[..., 0], pool=ext[..., 1], flow=ext[..., 2], track=None,
+                           plants=ext[..., 3] if with_plants else None)
+    combo = descent_table(ext_world, params, height_scale)
     origin = (row0 - h, col0 - h)
     events = []
     for _ in range(n_chunks):
@@ -197,8 +199,8 @@ def _descent_block(mesh, world: WorldState, parts: Particles, params, height_sca
         parts = Particles(row=stack[0], col=stack[1], heading=stack[2].to(torch.int32),
                           vel=stack[3], water=stack[4], sediment=stack[5],
                           age=stack[6].to(torch.int32), alive=stack[7] > 0.5)
-    # one scatter a map of every chunk's events, step-major then particle
-    # slot, as the single-device descent scatters its events
+    # one scatter of every chunk's events, step-major then particle slot,
+    # as the single-device descent scatters its events
     cells, *deltas = (torch.cat(e) for e in zip(*events))
     acc = scatter_events(cells, deltas, er * ec)
     folded = fold_2d(torch.stack(acc, -1).reshape(er, ec, 3), h, mesh=mesh)

@@ -20,16 +20,15 @@ What the partitionable setting selects (``jax/_src/prng.py``):
 On CPU tensors the hash is about 170 elementwise int64 tensor ops
 whatever its size (``_threefry2x32_plain``).  On the card it is K8
 (``csrc/threefry.cu``): one launch a hash, one thread an output pair, the
-rounds in uint32 registers.  Either way a stack of keys hashes in one pass
-(``randint`` draws both of its halves at once, ``erosion.particles.spawn``
-both coordinates).
+rounds in uint32 registers; and ``randint`` — with the spawn's outer
+``split`` too (``_randint_of_split``) — is K8's draw entry, one launch that
+derives each output's leaf key, hashes its counter and combines the two
+halves.  Either way a stack of keys draws in one pass (``randint`` draws
+both of its halves at once, ``erosion.particles.spawn`` both coordinates).
 """
 
 from __future__ import annotations
 
-import ctypes
-
-import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -91,7 +90,7 @@ def _threefry_layout(key, x0, x1):
 
 def _threefry2x32_cuda(key, x0, x1):
     """K8: one launch over the broadcast of the key words and counters
-    (strides, no copies)."""
+    (strides, no copies; the shape and strides go by value)."""
     from . import _cuda
 
     key, x0, x1, shape, strides = _threefry_layout(key, x0, x1)
@@ -99,12 +98,10 @@ def _threefry2x32_cuda(key, x0, x1):
     y1 = torch.empty(shape, dtype=torch.int64, device=key.device)
     if y0.numel() == 0:
         return y0, y1
-    arrays = [np.array(v, np.int64) for v in (shape,) + strides]
-    host = [a.ctypes.data_as(ctypes.c_void_p) for a in arrays]
+    b = _cuda.Bcast(len(shape), *(_cuda.Dims(*v) for v in (shape,) + strides))
     with torch.cuda.device(key.device):
         _cuda.call("noize_threefry", key.data_ptr(), key.stride(-1), x0.data_ptr(),
-                   x1.data_ptr(), len(shape), *host, y0.data_ptr(), y1.data_ptr(),
-                   _cuda.stream(key))
+                   x1.data_ptr(), b, y0.data_ptr(), y1.data_ptr(), _cuda.stream(key))
     threefry2x32.launches += 1
     return y0, y1
 
@@ -177,23 +174,28 @@ def random_bits(key, shape) -> torch.Tensor:
     return (b0 ^ b1).reshape(key.shape[:-1] + shape)
 
 
-def randint(key, shape, minval, maxval) -> torch.Tensor:
-    """``jax.random.randint(key, shape, minval, maxval)`` with its default
-    int32 dtype: two 32-bit draws (from ``split(key)``) combined modulo
-    the span as ``jax._src.random._randint`` does, in uint32 arithmetic
-    that wraps; ``maxval <= minval`` returns ``minval``.  Bounds outside
-    int32 raise, as JAX's do without 64-bit mode.  A stack of keys
-    (..., 2) gives (..., *shape), each key's draw (``jax.vmap``), in the
-    same two hashes as one key."""
+def _span(minval, maxval):
+    """randint's bounds: (lo, span, mult) as ``jax._src.random._randint``
+    combines the halves, span = (hi - lo) mod 2³² (1 when hi <= lo) and
+    mult = (2¹⁶ mod span)² mod span.  Bounds outside int32 raise, as JAX's
+    do without 64-bit mode."""
     lo, hi = int(minval), int(maxval)
     if not (_INT32_MIN <= lo <= _INT32_MAX and _INT32_MIN <= hi <= _INT32_MAX):
         raise OverflowError(f"randint: bounds ({lo}, {hi}) outside int32")
+    span = (hi - lo) & _MASK if hi > lo else 1
+    mult = (1 << 16) % span
+    return lo, span, ((mult * mult) & _MASK) % span
+
+
+def _randint_composed(key, shape, minval, maxval) -> torch.Tensor:
+    """``randint`` as the hash and int64 tensor operations: two 32-bit
+    draws (``random_bits`` of ``split(key)``) combined modulo the span in
+    uint32 arithmetic that wraps.  The plain version of K8's draw entry on
+    CPU tensors (on CUDA tensors its hashes are K8 launches)."""
+    lo, span, mult = _span(minval, maxval)
     bits = random_bits(split(key), shape)  # (..., 2, *shape): both halves at once
     nd = len(tuple(shape))
     higher, lower = bits.unbind(dim=bits.dim() - nd - 1)
-    span = (hi - lo) & _MASK if hi > lo else 1
-    mult = (1 << 16) % span
-    mult = ((mult * mult) & _MASK) % span
     offset = (((higher % span) * mult) & _MASK) + lower % span
     offset = (offset & _MASK) % span
     # uint32 -> int32 wraps, and so does the int32 add
@@ -201,3 +203,59 @@ def randint(key, shape, minval, maxval) -> torch.Tensor:
     out = lo + offset
     out = torch.where(out > _INT32_MAX, out - (1 << 32), out)
     return out.to(torch.int32)
+
+
+def _randint_cuda(key, shape, minval, maxval, split_first: bool, dtype) -> torch.Tensor:
+    """K8's draw entry: ``randint`` of each key of the stack ``key`` —
+    of each half of its ``split`` when ``split_first`` — in one launch,
+    written as ``dtype`` (int32, or float32 rounded as ``.to``)."""
+    from . import _cuda
+
+    lo, span, mult = _span(minval, maxval)
+    shape = tuple(int(s) for s in shape)
+    size = 1
+    for s in shape:
+        size *= s
+    if key.shape[-1:] != (2,):
+        raise ValueError(f"randint: expected keys (..., 2), got {tuple(key.shape)}")
+    if key.dtype != torch.uint32:
+        key = key.to(torch.int64).to(torch.uint32)
+    if dtype not in (torch.int32, torch.float32):
+        raise ValueError(f"randint: the card writes int32 or float32, not {dtype}")
+    keys = key.reshape(-1, 2).contiguous()
+    lead = tuple(key.shape[:-1]) + ((2,) if split_first else ())
+    out = torch.empty(lead + shape, dtype=dtype, device=key.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(key.device):
+        _cuda.call("noize_randint", keys.data_ptr(), keys.shape[0], size, int(split_first), lo,
+                   span, mult, int(dtype == torch.float32), out.data_ptr(), _cuda.stream(key))
+    _randint_cuda.launches += 1
+    return out
+
+
+_randint_cuda.launches = 0
+
+
+def randint(key, shape, minval, maxval) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` with its default
+    int32 dtype: two 32-bit draws (from ``split(key)``) combined modulo
+    the span as ``jax._src.random._randint`` does, in uint32 arithmetic
+    that wraps; ``maxval <= minval`` returns ``minval``.  Bounds outside
+    int32 raise, as JAX's do without 64-bit mode.  A stack of keys
+    (..., 2) gives (..., *shape), each key's draw (``jax.vmap``), in the
+    same pass as one key.  A CPU key takes the plain version
+    (``_randint_composed``); a CUDA key launches K8's draw entry (one
+    launch) or raises."""
+    if key.device.type == "cpu":
+        return _randint_composed(key, shape, minval, maxval)
+    return _randint_cuda(key, shape, minval, maxval, False, torch.int32)
+
+
+def _randint_of_split(key, shape, minval, maxval, dtype=torch.int32) -> torch.Tensor:
+    """``randint(split(key), shape, minval, maxval).to(dtype)``: the
+    draws of both halves of ``split(key)``, (..., 2, *shape) — the spawn's
+    two coordinates.  One K8 launch on the card."""
+    if key.device.type == "cpu":
+        return _randint_composed(split(key), shape, minval, maxval).to(dtype)
+    return _randint_cuda(key, shape, minval, maxval, True, dtype)

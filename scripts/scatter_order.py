@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """How ``index_put_(..., accumulate=True)`` adds a cell's duplicate events on
-the card, against the CPU's in-order sum: the reason the descent scatters
-its events once a map, and the sharded descent once at the end.
+the card, against the CPU's in-order sum, and how K9 (the port's in-order
+scatter, ``particles.scatter_events`` on the card) adds them: the reason
+the descent's events go through K9.
 
     python3 scripts/scatter_order.py
 
 For each run length L (events a cell), 2000 cells each get a run of L
 normal f32 events (seed 0), interleaved at random across the cells (a
-stable sort by cell keeps each run's order).  Prints, per L, the largest
-difference of a cell's sum on the card:
+stable sort by cell keeps each run's order).  Prints, per L and for each
+of ``index_put_`` and K9 on the card, the largest difference of a cell's
+sum:
 
 * ``cpu``: one scatter on the card against the CPU's (the CPU adds each
   event to the cell in order: ``particles.scatter_events`` hands its
@@ -64,14 +66,18 @@ def events(rng, length: int, zeros: int):
     return ids, runs[ids, rank]
 
 
-def scatter(ids, vals, device, pieces: int = 1):
+def scatter(ids, vals, device, pieces: int = 1, how: str = "k9"):
     """The per-cell sums, the events cut in ``pieces`` consecutive calls of
-    ``scatter_events`` (on the card one ``index_put_`` a call)."""
+    ``scatter_events`` (on the card K9; on the CPU ``index_put_`` in
+    order), or of one ``index_put_`` a call (``how="index_put"``)."""
     acc = [torch.zeros(CELLS, dtype=torch.float32, device=device)]
     cells = torch.from_numpy(ids).to(device)
     deltas = torch.from_numpy(vals).to(device)
     for c, d in zip(cells.tensor_split(pieces), deltas.tensor_split(pieces)):
-        scatter_events(c, [d], CELLS, acc)
+        if how == "index_put":
+            acc[0].index_put_((c,), d, accumulate=True)
+        else:
+            scatter_events(c, [d], CELLS, acc)
     return acc[0].cpu()
 
 
@@ -89,15 +95,16 @@ def main():
     for length in LENGTHS:
         ids, vals = events(np.random.default_rng(length), length, 0)
         zids, zvals = events(np.random.default_rng(length), length, ZEROS)
-        one = scatter(ids, vals, "cuda")
         cpu = scatter(ids, vals, "cpu")
         # the CPU's sum does not see where the zeros are
         assert torch.equal(cpu, scatter(zids, zvals, "cpu"))
         assert torch.equal(cpu, scatter(ids, vals, "cpu", PIECES))
-        print(f"L={length}: cpu {gap(one, cpu):.6g}, "
-              f"chunks {gap(one, scatter(ids, vals, 'cuda', PIECES)):.6g}, "
-              f"zeros {gap(one, scatter(zids, zvals, 'cuda')):.6g}, "
-              f"again {gap(one, scatter(ids, vals, 'cuda')):.6g}")
+        for how in ("index_put", "k9"):
+            one = scatter(ids, vals, "cuda", 1, how)
+            print(f"L={length} {how}: cpu {gap(one, cpu):.6g}, "
+                  f"chunks {gap(one, scatter(ids, vals, 'cuda', PIECES, how)):.6g}, "
+                  f"zeros {gap(one, scatter(zids, zvals, 'cuda', 1, how)):.6g}, "
+                  f"again {gap(one, scatter(ids, vals, 'cuda', 1, how)):.6g}")
 
 
 if __name__ == "__main__":

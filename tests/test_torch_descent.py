@@ -359,3 +359,104 @@ def test_threefry_layout_broadcasts_as_the_plain_version(case):
     for g, w in zip(prng.threefry2x32(*args), want):
         assert torch.equal(g, w)
     assert prng.threefry2x32.launches == before  # the CPU takes the plain version
+
+
+@pytest.mark.parametrize("plants", [False, True], ids=["bare", "plants"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_record_table_plain_matches_step_maps_and_reference(seed, plants):
+    """K7's record table (``step_records_plain``, and ``descent_table`` on the
+    CPU, which is ``step_maps``): each record's quantised all-heights, WIH,
+    flow and plants bit-equal to ``step_maps`` + ``_quantize`` and to the
+    reference's table (``noize_tpu.erosion.particles``, lines 306-311) one
+    primitive at a time.  The reference's ``_quantize`` divides by 100, which
+    its compiled programs turn into a multiply by the float32 reciprocal;
+    the port multiplies, as the compiled reference does (ROADMAP.md §3), so
+    the quantised field is held against the compiled ``_quantize``."""
+    res = 96
+    world = _world(40 + seed, res=res, plants=True)
+    world["pool"] = world["pool"] * 10.0 + world["height"] * 0.5
+    params = _params(30, plants)
+    tw = _port_world(world)
+    got = DC.step_records_plain(tw.height, tw.pool, tw.flow, tw.plants if plants else None,
+                                params, HS)
+    assert got.shape == (res * res, 4) and got.dtype == torch.float32
+    cells = res * res
+    maps = TPa.step_maps(tw, params, HS)
+    assert DC.descent_table(tw, params, HS).shape == maps.shape  # the CPU keeps step_maps
+    _bits_equal(got[:, 0], TPa._quantize(maps[cells:2 * cells]))
+    _bits_equal(got[:, 1], maps[:cells])
+    _bits_equal(got[:, 2], maps[2 * cells:3 * cells])
+    _bits_equal(got[:, 3], maps[3 * cells:] if plants else torch.zeros(cells))
+    jw = {k: jnp.asarray(v) for k, v in world.items()}
+    with jax.disable_jit():
+        wih = HS * (jw["height"] + jw["pool"])
+        all_h = wih + params.FLOW_HEIGHT_CONTRIBUTION * jw["flow"]
+    q = jax.jit(JPa._quantize)(all_h)
+    for k, want in enumerate((q, wih, jw["flow"], jw["plants"] if plants else jnp.zeros_like(q))):
+        _bits_equal(got[:, k], torch.from_numpy(np.asarray(want).reshape(-1).copy()))
+    assert float(got[:, 0].abs().max()) > 0
+
+
+def _runs_with_zeros(seed, run, n_cells, zeros=40):
+    """Events of ``n_cells`` cells, each a run of ``run`` N(0, 1) values with
+    ``zeros`` zeros (either sign) at random places inside it, all runs
+    interleaved at random."""
+    rng = np.random.default_rng(seed)
+    cells = np.repeat(np.arange(n_cells) * 3 + 1, run + zeros)
+    vals = rng.normal(0, 1, cells.size).astype(np.float32)
+    for c in range(n_cells):
+        at = c * (run + zeros) + rng.choice(run + zeros, zeros, replace=False)
+        vals[at] = np.where(rng.uniform(0, 1, zeros) < 0.5, 0.0, -0.0)
+    order = rng.permutation(cells.size)
+    return torch.from_numpy(cells[order].astype(np.int64)), torch.from_numpy(vals[order])
+
+
+@pytest.mark.parametrize("run", [32, 33, 100, 1000])
+@pytest.mark.parametrize("pieces", [2, 13, 97])
+def test_scatter_chunks_equal_one_call(run, pieces):
+    """``scatter_events`` of the events cut in ``pieces`` consecutive calls
+    into the same maps against one call: bit-equal, with runs of 32 or more
+    N(0, 1) events a cell and zeros inside them (the dead slots' events,
+    the early-exit loop's scatter a chunk)."""
+    cells, vals = _runs_with_zeros(run + pieces, run, 60)
+    size = 200
+    other = vals.flip(0)
+    one = TPa.scatter_events(cells, [vals, other], size)
+    acc = [torch.zeros(size), torch.zeros(size)]
+    for c, v, o in zip(cells.tensor_split(pieces), vals.tensor_split(pieces),
+                       other.tensor_split(pieces)):
+        TPa.scatter_events(c, [v, o], size, acc)
+    for a, b in zip(acc, one):
+        _bits_equal(a, b)
+    nonzero = vals[vals != 0]
+    _bits_equal(TPa.scatter_events(cells[vals != 0], [nonzero], size)[0], one[0])
+
+
+@pytest.mark.parametrize("given", [False, True], ids=["into-zeros", "into-maps"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_scatter_events_with_and_without_zero_events(seed, given):
+    """``scatter_events`` with zero events of either sign inside runs, held
+    against NumPy's one-by-one float32 adds: into fresh zeros the same
+    bits with the all-zero events dropped (a sum that starts at +0.0 never
+    holds -0.0, so they change nothing; the card's K9 drops them), and
+    into maps that hold -0.0 the zero events kept (-0.0 + +0.0 is +0.0)."""
+    rng = np.random.default_rng(seed)
+    cells, vals = _runs_with_zeros(seed, 35, 20, zeros=10)
+    extra = torch.from_numpy(rng.integers(0, 64, 3000).astype(np.int64))
+    cells = torch.cat([cells, extra])
+    deltas = [torch.cat([vals, torch.from_numpy(rng.normal(0, 1, 3000).astype(np.float32))])
+              for _ in range(3)]
+    deltas[1][rng.uniform(0, 1, deltas[1].numel()) < 0.5] = -0.0
+    size = 64
+    start = [np.where(rng.uniform(0, 1, size) < 0.3, -0.0, rng.normal(0, 1, size))
+             .astype(np.float32) if given else np.zeros(size, np.float32) for _ in range(3)]
+    got = TPa.scatter_events(cells, deltas, size,
+                             [torch.from_numpy(a.copy()) for a in start] if given else None)
+    for a, d, g in zip(start, deltas, got):
+        want = a.copy()
+        np.add.at(want, cells.numpy(), d.numpy())
+        _bits_equal(g, torch.from_numpy(want))
+    if not given:
+        live = torch.stack([d != 0 for d in deltas]).any(0)
+        for a, b in zip(TPa.scatter_events(cells[live], [d[live] for d in deltas], size), got):
+            _bits_equal(a, b)

@@ -74,6 +74,13 @@ def test_descent_and_threefry_kernel_modules_are_listed():
         assert (REPO / "noize_tpu_torch" / "csrc" / src).exists(), src
 
 
+def test_scatter_kernel_module_is_listed():
+    """K9's wrapper module and source are part of the port: the import check
+    below covers the wrapper."""
+    assert "noize_tpu_torch.erosion.scatter_cuda" in set(_modules())
+    assert (REPO / "noize_tpu_torch" / "csrc" / "scatter.cu").exists()
+
+
 def test_port_imports_no_jax():
     code = (
         "import importlib, sys\n"

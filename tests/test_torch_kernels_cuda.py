@@ -1,4 +1,4 @@
-"""noize_tpu_torch CUDA kernels K1-K6 and the JAX-signature entries on
+"""noize_tpu_torch CUDA kernels K1-K9 and the JAX-signature entries on
 them against their plain PyTorch versions on the card.
 
 Every test here needs an NVIDIA GPU (and nvcc to build the kernels); on a
@@ -856,17 +856,22 @@ def _particles_bits(got, want):
         _bits(getattr(got, f), getattr(want, f))
 
 
+def _records(world, params):
+    from noize_tpu_torch.erosion import descent_cuda as DC
+
+    return DC.descent_table(world, params, 1000.0)
+
+
 @pytest.mark.parametrize("maxage", [32, 100])
 @pytest.mark.parametrize("n", [1, 250, 777, 1000])
 @pytest.mark.parametrize("res", [64, 256, 1025, 2048])
 def test_k7_descent_matches_plain(cuda, res, n, maxage):
-    """``descend_all`` on the card (K7, one launch) against the fixed-step
-    plain loop on the card with the same scatter: particles, events and
-    sums bit for bit (777 particles fill no block of 128 exactly).  Against
-    the early-exit loop (a scatter a chunk): particles bit-equal, sums
-    within 1e-5 of their largest value, since CUDA's ``index_put_`` adds
-    each cell's duplicates of a call apart and then to the map (ROADMAP
-    §3), so another chunking reassociates them."""
+    """``descend_all`` on the card (K7 on the record table, one launch, and
+    K9) against the fixed-step plain loop on the card with the same
+    scatter, and against the early-exit loop (a scatter a chunk):
+    particles, events and sums bit for bit (777 particles fill no block
+    exactly).  K9 adds each cell's events in order, so the chunking does not
+    move a bit."""
     from noize_tpu_torch.erosion import descent_cuda as DC
     from noize_tpu_torch.erosion import particles as PA
     from noize_tpu_torch.prng import PRNGKey
@@ -879,7 +884,7 @@ def test_k7_descent_matches_plain(cuda, res, n, maxage):
     before = DC.descend_steps.launches
     got = PA.descend_all(p, world, params, 1000.0, 1, res)
     assert DC.descend_steps.launches == before + 1
-    ev = DC.descend_steps(p, maps, params, 1000.0, 1, res, steps)
+    ev = DC.descend_steps(p, _records(world, params), params, 1000.0, 1, res, steps)
     ev_plain = PA.descend_steps_plain(p, maps, params, 1000.0, 1, res, steps)
     want = PA.scatter_events(ev_plain[1], ev_plain[2:], res * res)
     early = PA._descend_all_plain(p, world, params, 1000.0, 1, res, maxage + 1, 8)
@@ -891,13 +896,13 @@ def test_k7_descent_matches_plain(cuda, res, n, maxage):
     _particles_bits(early[0], ev_plain[0])
     for a, b, c in zip(got[1:], want, early[1:]):
         _bits(a.reshape(-1), b)
-        assert float((a - c).abs().max()) <= 1e-5 * float(c.abs().max())
+        _bits(a, c)
     assert (n == 1 or float(got[1].max()) > 0) and not bool(got[0].alive.any())
 
 
 def test_k7_dead_particles_and_plants_match_plain(cuda):
     """Every particle dead at the start (events: the cells and zeros), and
-    the plant friction's fourth table part."""
+    the plant friction's fourth record field."""
     from noize_tpu_torch.erosion import descent_cuda as DC
     from noize_tpu_torch.erosion import particles as PA
     from noize_tpu_torch.prng import PRNGKey
@@ -909,7 +914,9 @@ def test_k7_dead_particles_and_plants_match_plain(cuda):
         p = PA.spawn(PRNGKey(9, device=cuda), 1000, res, alive=alive)
         maps = PA.step_maps(world, params, 1000.0)
         assert maps.numel() == (4 if plants else 3) * res * res
-        got = DC.descend_steps(p, maps, params, 1000.0, 1, res, 104)
+        table = _records(world, params)
+        assert table.shape == (res * res, 4)
+        got = DC.descend_steps(p, table, params, 1000.0, 1, res, 104)
         want = PA.descend_steps_plain(p, maps, params, 1000.0, 1, res, 104)
         torch.cuda.synchronize()
         _particles_bits(got[0], want[0])
@@ -920,6 +927,62 @@ def test_k7_dead_particles_and_plants_match_plain(cuda):
         ref = PA.scatter_events(want[1], want[2:], res * res)
         for a, b in zip(acc[1:], ref):
             _bits(a.reshape(-1), b)
+
+
+def test_k7_off_grid_positions_match_plain(cuda):
+    """Positions off the integer grid (half-integers round half-to-even, so
+    a move can jump two cells and leave the prefetched 5x5) and particles
+    at the grid's edges: K7 reloads its patch and stays bit-equal."""
+    from noize_tpu_torch.erosion import descent_cuda as DC
+    from noize_tpu_torch.erosion import particles as PA
+    from noize_tpu_torch.prng import PRNGKey
+
+    res = 128
+    world = _descent_world(res, 5)
+    params = _descent_params(64)
+    p = PA.spawn(PRNGKey(2, device=cuda), 1000, res)
+    rng = np.random.default_rng(2)
+    frac = torch.from_numpy(rng.choice([0.0, 0.5, 0.25, -0.5], 1000).astype(np.float32)).cuda()
+    edge = torch.from_numpy(rng.choice([0.0, res - 1.0, -1.0], 1000).astype(np.float32)).cuda()
+    row = torch.where(torch.arange(1000, device=cuda) % 3 == 0, edge, p.row + frac)
+    p = p._replace(row=row, col=p.col + frac.flip(0))
+    got = DC.descend_steps(p, _records(world, params), params, 1000.0, 1, res, 72)
+    want = PA.descend_steps_plain(p, PA.step_maps(world, params, 1000.0), params, 1000.0, 1,
+                                  res, 72)
+    torch.cuda.synchronize()
+    _particles_bits(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        _bits(a, b)
+
+
+@pytest.mark.parametrize("plants", [False, True])
+@pytest.mark.parametrize("shape", [(64, 64), (1040, 1040), (2048, 2048), (33, 70)])
+def test_k7_records_match_plain(cuda, shape, plants):
+    """K7's record pass against ``step_records_plain`` on the card and
+    against ``step_maps`` and ``_quantize``: bit for bit, one launch."""
+    from noize_tpu_torch.erosion import descent_cuda as DC
+    from noize_tpu_torch.erosion import particles as PA
+    from noize_tpu_torch.erosion.world import WorldState
+
+    rng = np.random.default_rng(shape[0])
+    maps = {k: torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)).to(cuda)
+            for k, lo, hi in (("height", -0.2, 1.2), ("pool", 0, 1e-3), ("flow", -0.1, 0.9),
+                              ("plants", 0, 4))}
+    world = WorldState(track=torch.zeros(shape, device=cuda), **maps)
+    params = _descent_params(32, plants)
+    before = DC.step_records.launches
+    got = DC.descent_table(world, params, 1000.0)
+    assert DC.step_records.launches == before + 1
+    want = DC.step_records_plain(world.height, world.pool, world.flow,
+                                 world.plants if plants else None, params, 1000.0)
+    torch.cuda.synchronize()
+    _bits(got, want)
+    cells = shape[0] * shape[1]
+    table = PA.step_maps(world, params, 1000.0)
+    _bits(got[:, 0], PA._quantize(table[cells:2 * cells]))
+    _bits(got[:, 1], table[:cells])
+    _bits(got[:, 2], table[2 * cells:3 * cells])
+    _bits(got[:, 3], table[3 * cells:] if plants else torch.zeros_like(got[:, 3]))
 
 
 @pytest.mark.parametrize("res,nx,ny", [(256, 2, 2), (256, 4, 1), (255, 3, 3), (2048, 2, 2)])
@@ -937,6 +1000,7 @@ def test_k7_window_matches_plain_with_owner_masks(cuda, res, nx, ny):
     full = PA.step_maps(world, params, 1000.0)
     parts = full.numel() // (res * res)
     tiles = full.reshape(parts, res, res)
+    records = _records(world, params).reshape(res, res, 4)
     p0 = PA.spawn(PRNGKey(res + nx, device=cuda), 1000, res)
     lr, lc = -(-res // nx), -(-res // ny)
     before = DC.descend_steps_window.launches
@@ -948,12 +1012,13 @@ def test_k7_window_matches_plain_with_owner_masks(cuda, res, nx, ny):
             r = torch.clamp(torch.arange(origin[0], origin[0] + shape[0], device=cuda), 0, res - 1)
             c = torch.clamp(torch.arange(origin[1], origin[1] + shape[1], device=cuda), 0, res - 1)
             table = torch.cat([t[r][:, c].reshape(-1) for t in tiles]).contiguous()
+            window = records[r][:, c].reshape(-1, 4).contiguous()
             p_k, p_p = p0, p0
             for _ in range(5):
                 ri = torch.clamp(torch.round(p_k.row).to(torch.int32), 0, res - 1)
                 ci = torch.clamp(torch.round(p_k.col).to(torch.int32), 0, res - 1)
                 owned = (ri >= r0) & (ri < r0 + lr) & (ci >= c0) & (ci < c0 + lc)
-                got = DC.descend_steps_window(p_k, table, params, 1000.0, 1, res, chunk,
+                got = DC.descend_steps_window(p_k, window, params, 1000.0, 1, res, chunk,
                                               origin, shape, owned)
                 want = PA.descend_steps_plain(p_p, table, params, 1000.0, 1, res, chunk,
                                               window_origin=origin, window_shape=shape,
@@ -965,6 +1030,51 @@ def test_k7_window_matches_plain_with_owner_masks(cuda, res, nx, ny):
                     _bits(a, b)
                 p_k, p_p = got[0], want[0]
     assert DC.descend_steps_window.launches == before + calls
+
+
+def _cpu_scatter(cells, vals, size, acc=None):
+    from noize_tpu_torch.erosion import particles as PA
+
+    return PA.scatter_events(cells.cpu(), [v.cpu() for v in vals], size,
+                             None if acc is None else [a.cpu().clone() for a in acc])
+
+
+@pytest.mark.parametrize("run", [1, 31, 32, 33, 1000, 100_000])
+def test_k9_scatter_matches_cpu_for_run_lengths(cuda, run):
+    """K9 against the CPU's ``scatter_events`` (in order) on runs of
+    ``run`` N(0, 1) events a cell, some of them zeros, interleaved across
+    cells: one call, into zeros and into given maps, and the events cut
+    into 13 calls, all bit-equal to the CPU's one call."""
+    from noize_tpu_torch.erosion import particles as PA
+    from noize_tpu_torch.erosion import scatter_cuda as SCU
+
+    rng = np.random.default_rng(run)
+    n_cells = max(1, min(2000, 200_000 // run))
+    size = 4 * n_cells + 7
+    cells = np.repeat(rng.permutation(size)[:n_cells], run)
+    cells = cells[rng.permutation(cells.size)]  # each cell's run spread over the events
+    vals = rng.normal(0, 1, (3, cells.size)).astype(np.float32)
+    vals[:, rng.uniform(0, 1, cells.size) < 0.2] = 0.0  # dead slots' zeros inside runs
+    vals[1, rng.uniform(0, 1, cells.size) < 0.1] = -0.0
+    c = torch.from_numpy(cells.astype(np.int64)).to(cuda)
+    v = [torch.from_numpy(x).to(cuda) for x in vals]
+    start = [torch.from_numpy(rng.normal(0, 1, size).astype(np.float32)).to(cuda)
+             for _ in range(3)]
+    want = _cpu_scatter(c, v, size)
+    want_on = _cpu_scatter(c, v, size, start)
+    before = SCU.scatter_in_order.launches
+    got = PA.scatter_events(c, v, size)
+    assert SCU.scatter_in_order.launches == before + 1
+    on = [a.clone() for a in start]
+    assert PA.scatter_events(c, v, size, on) is on
+    pieces = [torch.zeros(size, device=cuda) for _ in range(3)]
+    for cc, *vv in zip(c.tensor_split(13), *(x.tensor_split(13) for x in v)):
+        PA.scatter_events(cc, vv, size, pieces)
+    torch.cuda.synchronize()
+    for g, o, p_, w, wo in zip(got, on, pieces, want, want_on):
+        _bits(g.cpu(), w)
+        _bits(p_.cpu(), w)
+        _bits(o.cpu(), wo)
 
 
 def test_event_scatter_on_card_depends_only_on_each_cells_run(cuda):
@@ -992,6 +1102,21 @@ def test_event_scatter_on_card_depends_only_on_each_cells_run(cuda):
         _bits(x[: size // 2], w[: size // 2])
 
 
+def test_k9_refuses_bad_input(cuda):
+    from noize_tpu_torch.erosion import scatter_cuda as SCU
+
+    c = torch.zeros(10, dtype=torch.int64, device=cuda)
+    v = torch.ones(10, device=cuda)
+    with pytest.raises(ValueError):
+        SCU.scatter_in_order(c, [v] * 5, 16)  # more than four maps
+    with pytest.raises(ValueError):
+        SCU.scatter_in_order(c.int(), [v], 16)
+    with pytest.raises(ValueError):
+        SCU.scatter_in_order(c, [v.double()], 16)
+    with pytest.raises(ValueError):
+        SCU.scatter_in_order(c, [v], 16, [torch.zeros(15, device=cuda)])
+
+
 def test_k7_refuses_bad_input(cuda):
     from noize_tpu_torch.erosion import descent_cuda as DC
     from noize_tpu_torch.erosion import particles as PA
@@ -999,14 +1124,16 @@ def test_k7_refuses_bad_input(cuda):
 
     world = _descent_world(64, 1)
     params = _descent_params(32)
-    maps = PA.step_maps(world, params, 1000.0)
+    table = _records(world, params)
     p = PA.spawn(PRNGKey(1, device=cuda), 10, 64)
     with pytest.raises(ValueError):
-        DC.descend_steps(p, maps[:-1], params, 1000.0, 1, 64, 8)  # not 3 maps
+        DC.descend_steps(p, table[:-1], params, 1000.0, 1, 64, 8)  # not 64² records
     with pytest.raises(ValueError):
-        DC.descend_steps(p, maps.double(), params, 1000.0, 1, 64, 8)
+        DC.descend_steps(p, PA.step_maps(world, params, 1000.0), params, 1000.0, 1, 64, 8)
     with pytest.raises(ValueError):
-        DC.descend_steps(p._replace(row=p.row.cpu()), maps, params, 1000.0, 1, 64, 8)
+        DC.descend_steps(p, table.double(), params, 1000.0, 1, 64, 8)
+    with pytest.raises(ValueError):
+        DC.descend_steps(p._replace(row=p.row.cpu()), table, params, 1000.0, 1, 64, 8)
 
 
 def test_k7_atan_sin_match_torch(cuda):
@@ -1069,3 +1196,58 @@ def test_k8_threefry_matches_plain(cuda):
               prng.randint(kh, (1_000_000,), -1024, 2049))
         _bits(prng.randint(prng.split(kc, 4), (250,), 0, 2048).cpu(),
               prng.randint(prng.split(kh, 4), (250,), 0, 2048))
+
+
+def test_k8_draw_matches_cpu(cuda):
+    """K8's draw entry (``randint`` on the card, and the spawn's
+    ``randint(split(key))``) in one launch a draw, against the CPU's
+    composition: single keys and stacks, negative and empty spans, int32
+    and the spawn's float32, 10^6 draws."""
+    from noize_tpu_torch import prng
+    from noize_tpu_torch.erosion import particles as PA
+
+    for seed in (0, 42, -5, 2**31 - 1):
+        kc, kh = prng.PRNGKey(seed, device=cuda), prng.PRNGKey(seed, device="cpu")
+        for keys_c, keys_h in ((kc, kh), (prng.split(kc, 3), prng.split(kh, 3)),
+                               (prng.split(prng.split(kc, 2), 2), prng.split(prng.split(kh, 2), 2))):
+            for shape, lo, hi in (((1000,), 0, 2048), ((37, 5), -1024, 1025), ((8,), 3, 3),
+                                  ((9,), -2**31, 2**31 - 1), ((0,), 0, 5)):
+                before = prng._randint_cuda.launches
+                got = prng.randint(keys_c, shape, lo, hi)
+                got_s = prng._randint_of_split(keys_c, shape, lo, hi)
+                got_f = prng._randint_of_split(keys_c, shape, lo, hi, torch.float32)
+                launched = prng._randint_cuda.launches - before
+                assert launched == (3 if got.numel() else 0)
+                _bits(got.cpu(), prng.randint(keys_h, shape, lo, hi))
+                _bits(got_s.cpu(), prng.randint(prng.split(keys_h), shape, lo, hi))
+                _bits(got_f.cpu(), prng.randint(prng.split(keys_h), shape, lo, hi)
+                      .to(torch.float32))
+        _bits(prng.randint(kc, (1_000_000,), -1024, 2049).cpu(),
+              prng._randint_composed(kh, (1_000_000,), -1024, 2049))
+        before = (prng._randint_cuda.launches, prng.threefry2x32.launches)
+        got = PA.spawn(kc, 1000, 2048)
+        assert (prng._randint_cuda.launches, prng.threefry2x32.launches) == \
+            (before[0] + 1, before[1])
+        for f in got._fields:
+            _bits(getattr(got, f).cpu(), getattr(PA.spawn(kh, 1000, 2048), f))
+
+
+def test_erosion_cycle_draws_with_two_k8_launches(cuda):
+    """A cycle's spawn takes two K8 launches (the cycle's ``split`` and the
+    spawn's draw), and K7 and K9 one each."""
+    from noize_tpu_torch import prng
+    from noize_tpu_torch.erosion import descent_cuda as DC
+    from noize_tpu_torch.erosion import scatter_cuda as SCU
+    from noize_tpu_torch.erosion.sim import ErosionSim
+
+    h = _descent_world(256, 7).height
+    sim = ErosionSim(h)
+    counts = lambda: (prng.threefry2x32.launches + prng._randint_cuda.launches,  # noqa: E731
+                      DC.descend_steps.launches, SCU.scatter_in_order.launches)
+    before = counts()
+    sim.step()
+    torch.cuda.synchronize()
+    cycles = sim.settings.CYCLES
+    after = counts()
+    assert after[0] - before[0] == 2 * cycles
+    assert after[1] - before[1] == cycles and after[2] - before[2] == cycles

@@ -99,3 +99,51 @@ def test_stacked_keys_are_vmapped_draws():
     np.testing.assert_array_equal(P.randint(tks, (5, 7), -3, 100).numpy(), np.asarray(want))
     np.testing.assert_array_equal(P.split(tks, 2).numpy(),
                                   np.asarray(jax.vmap(jax.random.split)(jks)))
+
+
+def _jax_randint_of_split(key, shape, lo, hi):
+    """``jax.random.randint`` of each half of ``jax.random.split(key)``, for a
+    key or a stack of keys: (..., 2, *shape)."""
+    one = lambda k: jax.vmap(lambda h: jax.random.randint(h, shape, lo, hi))(  # noqa: E731
+        jax.random.split(k))
+    for _ in range(key.ndim - 1):
+        one = jax.vmap(one)
+    return np.asarray(one(key))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("lo,hi", [(0, 2048), (-7, 2049), (-1024, -3), (5, 5), (9, 2),
+                                   (-2**31, 2**31 - 1)])
+def test_randint_of_split_matches_reference(seed, lo, hi):
+    """The fused draw's plain path (``_randint_of_split``: the spawn's
+    ``randint(split(key))``) against JAX's, int32 and as the spawn's
+    float32, for spans with negative and empty ranges."""
+    jk, tk = _key(seed)
+    for shape in ((1000,), (4, 9), (0,)):
+        want = _jax_randint_of_split(jk, shape, lo, hi)
+        got = P._randint_of_split(tk, shape, lo, hi)
+        assert got.dtype == torch.int32 and tuple(got.shape) == (2,) + shape
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(P._randint_of_split(tk, shape, lo, hi, torch.float32)
+                                      .numpy(), want.astype(np.float32))
+
+
+@pytest.mark.parametrize("stack", [(3,), (2, 2)])
+def test_randint_of_split_on_stacks_of_keys(stack):
+    jk = jax.random.split(jax.random.PRNGKey(17), int(np.prod(stack))).reshape(stack + (2,))
+    tk = torch.from_numpy(np.asarray(jk).copy())
+    assert tk.dtype == torch.uint32
+    want = _jax_randint_of_split(jk, (50,), -3, 100)
+    got = P._randint_of_split(tk, (50,), -3, 100)
+    assert tuple(got.shape) == stack + (2, 50)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_spawn_matches_reference(seed):
+    jk, tk = _key(seed)
+    for n, res in ((1000, 2048), (250, 1024), (1, 7)):
+        got, want = spawn(tk, n, res), jax_spawn(jk, n, res)
+        for f in got._fields:
+            np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                          np.asarray(getattr(want, f)), err_msg=f)

@@ -130,6 +130,37 @@ def test_splat_density_border_clamp():
     assert got[7, 7] == 0.0  # a dead plant splats nothing
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_splat_density_per_plant_magnitude_in_plant_order(seed):
+    """40,000 plants on a 64² map (about ten a cell, and a stamp has nine
+    cells) with a per-plant magnitude from N(0, 1): every sum bit-equal to
+    JAX's one primitive at a time, whose scatters add each cell's values
+    in plant order.  One CPU ``index_put_`` of 32768 values or more adds
+    with atomics across threads in no fixed order (ROADMAP.md §3), so the
+    stamps go through ``particles.scatter_events`` (pieces of 32767), here
+    with four threads."""
+    res, n = 64, 40_000
+    rng = np.random.default_rng(seed)
+    plants = TV.Plants(type_idx=torch.zeros(n, dtype=torch.int32),
+                       growth=torch.full((n,), 20, dtype=torch.int32),
+                       row=torch.from_numpy(rng.integers(0, res, n).astype(np.int32)),
+                       col=torch.from_numpy(rng.integers(0, res, n).astype(np.int32)),
+                       height=torch.zeros(n),
+                       alive=torch.from_numpy(rng.uniform(0, 1, n) < 0.9))
+    mag = rng.normal(0, 1, n).astype(np.float32)
+    base = rng.uniform(0, 1.6, (res, res)).astype(np.float32)
+    jplants = JV.Plants(*[jnp.asarray(v.numpy()) for v in plants])
+    with jax.disable_jit():
+        want = np.asarray(JV.splat_density(jnp.asarray(base), jplants, jnp.asarray(mag)))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        got = TV.splat_density(torch.from_numpy(base), plants, torch.from_numpy(mag)).numpy()
+    finally:
+        torch.set_num_threads(threads)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_grow_and_grow_cycles_bit_equal():
     res, n = 64, 400
     world = _world(res, 3)
