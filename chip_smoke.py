@@ -76,9 +76,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    one growth cycle, one ``step()``; the same at 256² on the card and the
    CPU (1e-4 relative);
 18. exact piles: K6 against its plain version at 256² with overlapping and
-   border piles, radius 4 and 15 (tolerance 0); K6 at 2048² with 64 of 100
-   tied piles (the kernels line's row); a 2048² ``step()`` with
-   ``EXACT_PILES`` (K6 one launch a cycle);
+   border piles, radius 4 and 15 (tolerance 0); K6 and its table entry on
+   64 disjoint piles at 2048² (all at once) and on a chain of 64 piles each
+   overlapping the next (fully serial), bit-equal, timed; K6 at 2048² with
+   64 of 100 tied piles (the kernels line's row), and how many of a sweep's
+   visits that case walks before its pile is placed (read from the plain
+   solve's inputs); a 2048² ``step()`` with ``EXACT_PILES`` (K6 one launch
+   a cycle);
 19. native IO: the Quickstart state checkpointed synchronously and queued
    (``async_``, ``flush``), restored equal, a corrupted payload refused;
 20. sharded: a one-rank NCCL group, ``spatial_mesh`` and ``batch_mesh`` of
@@ -104,7 +108,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``ErosionSim.step()``, the flagship step, the 1025² sim step, config 5's
    ``tile_batch``, a ``TileServer`` wave, the vegetation and
    ``EXACT_PILES`` steps (the sharded sim step is profiled inside its
-   phase, where its process group lives);
+   phase, where its process group lives), and one call each of K6 on the
+   disjoint, the chained and the 64 of 100 piles and of K6's table entry
+   (the device time of the kernel beside the pile selection's sort);
 22. pool trace: one wet K4 call and one wet K5 call at 2048² under
    ``torch.profiler``; each must run ``1 + WATER_STEPS`` device kernels
    (the init kernel and one fused launch per water step);
@@ -1409,11 +1415,84 @@ def _pile_case(res, radius, seed, n_cand=None):
     return torch.from_numpy(h).cuda(), torch.from_numpy(piles).cuda()
 
 
+def _pile_layout(kind):
+    """(height, pile map) on the card at radius 15, whose slots reach 16
+    cells: 64 piles 256 apart at 2048² (``disjoint``: every pile at once),
+    or 64 piles 12 apart in a row of a 1024² grid (``chain``: each waits for
+    the one before)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(11)
+    if kind == "disjoint":
+        res, lo, hi = 2048, 0.01, 0.04
+        cells = [(128 + 256 * i, 128 + 256 * j) for i in range(8) for j in range(8)]
+    else:
+        res, lo, hi = 1024, 0.1, 0.3
+        cells = [(500, 20 + 12 * j) for j in range(64)]
+    h = rng.uniform(0.2, 0.8, (res, res)).astype(np.float32)
+    piles = np.zeros((res, res), np.float32)
+    for (r, c), v in zip(cells, rng.uniform(lo, hi, len(cells)).astype(np.float32)):
+        piles[r, c] = v
+    return torch.from_numpy(h).cuda(), torch.from_numpy(piles).cuda()
+
+
+def _pile_table(h, piles, radius):
+    """The sharded EXACT_PILES table at world size 1: (slot values, in-grid
+    slots, volumes, clamped cells)."""
+    import torch
+
+    from noize_tpu_torch.erosion import sediment as SE
+
+    res = h.shape[0]
+    t = SE._pile_tables(radius)
+    vols, idxs = SE.select_piles(piles)
+    rows_ = (idxs // res)[:, None] + torch.from_numpy(t["off_r"]).to(h.device).long()[None]
+    cols_ = (idxs % res)[:, None] + torch.from_numpy(t["off_c"]).to(h.device).long()[None]
+    valid = (rows_ >= 0) & (cols_ >= 0) & (rows_ < res) & (cols_ < res)
+    cid = rows_.clamp(0, res - 1) * res + cols_.clamp(0, res - 1)
+    return h.reshape(-1)[cid], valid, vols, cid
+
+
+def _sweep_walks(vals0, valid, amount, inc, radius):
+    """Per sweep of one pile, from the plain solve's inputs: (visits walked
+    until nothing is left to place, or all of them, visits that
+    deposit)."""
+    import numpy as np
+
+    from noize_tpu_torch.erosion import sediment as SE
+
+    f32 = np.float32
+    vals, left, inc, walks = np.array(vals0, f32), f32(amount), f32(inc), []
+    while left > 0:
+        placed, walked, deposits = f32(0.0), 0, 0
+        for rf, end in zip(map(f32, range(1, radius + 1)), SE._pile_tables(radius)["ends"]):
+            for k in range(end):
+                remaining = left - placed
+                if not remaining > 0:
+                    break
+                walked += 1
+                if valid[k] and vals[k] < vals[0] + inc * rf:
+                    diff = min(inc, remaining)
+                    vals[k], placed, deposits = vals[k] + diff, placed + diff, deposits + 1
+            else:
+                continue
+            break
+        walks.append((walked, deposits))
+        if placed == 0:
+            break
+        left = left - placed
+    return walks
+
+
 def exact_piles_phase(rows):
     """K6 against its plain version (bit-equal) at 256² with overlapping
-    and border piles, radius 4 and 15; K6 alone at 2048² with 64 of 100
-    tied candidates (timed, the kernels line's row); then a 2048² sim step
-    with ``EXACT_PILES`` (K6 one launch a cycle)."""
+    and border piles, radius 4 and 15; K6 and its table entry on 64
+    disjoint and on 64 chained piles (bit-equal, timed); K6 alone at 2048²
+    with 64 of 100 tied candidates (timed, the kernels line's row) and the
+    visits its sweeps walk; then a 2048² sim step with ``EXACT_PILES`` (K6
+    one launch a cycle)."""
+    import numpy as np
     import torch
 
     from noize_tpu_torch.erosion import pile_cuda as PL
@@ -1429,11 +1508,44 @@ def exact_piles_phase(rows):
         torch.cuda.synchronize()
         _check(torch.equal(got, want), f"K6 disagrees with its plain version at radius {radius}")
         _check(not torch.equal(got, h), "K6 deposited nothing")
-    res, radius = 2048, 15
+    radius = 15
+    for kind in ("disjoint", "chain"):
+        h, piles = _pile_layout(kind)
+        table = _pile_table(h, piles, radius)
+        got = PL.exact_piles(h, piles, inc, radius)
+        got_t = PL.solve_pile_table(*table, inc, radius)
+        want = SE.exact_pile_deposit_plain(h, piles, inc, radius)
+        want_t = SE.solve_pile_table_plain(*table, inc, radius)
+        torch.cuda.synchronize()
+        _check(torch.equal(got, want) and not torch.equal(got, h),
+               f"K6 disagrees with its plain version on the {kind} piles")
+        _check(torch.equal(got_t[0], want_t[0]) and torch.equal(got_t[1], want_t[1]),
+               f"K6's table entry disagrees with its plain version on the {kind} piles")
+        ms = _time_ms(lambda: PL.exact_piles(h, piles, inc, radius), 20)
+        table_ms = _time_ms(lambda: PL.solve_pile_table(*table, inc, radius), 20)
+        print(f"K6 on 64 {kind} piles at radius {radius} ({h.shape[0]}²): bit-equal to the "
+              f"plain versions; K6 {ms:.4f} ms, K6@table {table_ms:.4f} ms")
+        PROFILES.append((f"K6 call, 64 {kind} piles ({h.shape[0]}²)",
+                         lambda h=h, piles=piles: PL.exact_piles(h, piles, inc, radius)))
+    res = 2048
     h, piles = _pile_case(res, radius, 3, n_cand=100)
     got = PL.exact_piles(h, piles, inc, radius)
     slots = len(SE._pile_tables(radius)["off_r"])
     visits = int(SE._pile_tables(radius)["ends"].sum())
+    inputs, solve = [], SE._solve_pile
+    SE._solve_pile = lambda *a: (inputs.append(a[:3]), solve(*a))[1]
+    try:
+        SE.exact_pile_deposit_plain(h, piles, inc, radius)
+    finally:
+        SE._solve_pile = solve
+    PROFILES.append((f"K6 call, 64 of 100 piles ({res}²)",
+                     lambda: PL.exact_piles(h, piles, inc, radius)))
+    walks = [w for a in inputs for w in _sweep_walks(*a, inc, radius)]
+    walked, deposits = np.array(walks).T
+    print(f"K6 {res}² case: {len(inputs)} piles, {len(walks)} sweeps; a sweep walks "
+          f"{walked.min()}-{walked.max()} (median {np.median(walked):g}) of its {visits} "
+          f"visits before its pile is placed ({int((walked == visits).sum())} walk all), "
+          f"{deposits.min()}-{deposits.max()} of them deposit")
     rows.compare(
         "K6", f"K6 exact PileSolver, 64 of 100 piles (4 tied levels), radius {radius} "
         f"({res}²)", SRC["K6"],
@@ -1838,12 +1950,7 @@ def window_kernels_phase(rows):
     h, piles = _pile_case(2048, radius, 3, n_cand=100)
     res = h.shape[0]
     t = SE._pile_tables(radius)
-    vols, idxs = SE.select_piles(piles)
-    rows_ = (idxs // res)[:, None] + torch.from_numpy(t["off_r"]).to(h.device).long()[None]
-    cols_ = (idxs % res)[:, None] + torch.from_numpy(t["off_c"]).to(h.device).long()[None]
-    valid = (rows_ >= 0) & (cols_ >= 0) & (rows_ < res) & (cols_ < res)
-    cid = rows_.clamp(0, res - 1) * res + cols_.clamp(0, res - 1)
-    vals0 = h.reshape(-1)[cid]
+    vals0, valid, vols, cid = _pile_table(h, piles, radius)
     got = PL.solve_pile_table(vals0, valid, vols, cid, inc, radius)
     committed = h.clone().reshape(-1)
     for j in range(vols.numel()):
@@ -1862,6 +1969,8 @@ def window_kernels_phase(rows):
                                                                     radius)),
         "table", 20, 18 * k * s + 4 * k, 8 * visits * 64)
     print(f"K6 table: committed equal to K6 on the {res}² map")
+    PROFILES.append((f"K6@table call, 64 of 100 piles ({res}²)",
+                     lambda: PL.solve_pile_table(vals0, valid, vols, cid, inc, radius)))
 
 
 #: (label, callable) of each step path, profiled once after every timed phase

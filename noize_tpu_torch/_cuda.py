@@ -80,14 +80,18 @@ SIGNATURES = {
     "noize_pool_automata_window": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                    _P),
     # height (in place), volumes, flat cell indices (i64), piles, rows,
-    # cols, slot row and column offsets, round ends, radius, slots,
-    # increment, stream (K6)
-    "noize_exact_piles": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _F, _P),
+    # cols, slot row and column offsets, each slot's next slot on its cell,
+    # round ends, radius, slots, whole increments summed (f32), visits a
+    # sweep, increment, the slots' reach, done flags (u32 scratch), stream
+    # (K6)
+    "noize_exact_piles": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _I, _F, _I, _P,
+                          _P),
     # valid (u8), volumes, cell ids (i64), work (the gathered slot values,
     # overlaid in place), com_vals, com_eff (u8), hash keys (u64), hash
-    # slots (i32), hash capacity, piles, round ends, radius, slots,
-    # increment, stream (K6 on a pile table)
-    "noize_pile_table": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _F, _P),
+    # slots (i32), hash capacity, piles, round ends, radius, slots, whole
+    # increments summed (f32), visits a sweep, increment, stream (K6 on a
+    # pile table)
+    "noize_pile_table": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _I, _F, _P),
     # record table (float4 a cell), f32 params (host), i32 params (host),
     # the 8 particle fields in, owned (u8 or null), the 8 fields out, event
     # cells (i64), d_track, d_pool, d_sed, stream (K7)

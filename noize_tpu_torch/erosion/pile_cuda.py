@@ -5,8 +5,9 @@ solver (``noize_tpu.erosion.sediment._solve_pile`` / ``_handle_pile`` /
 ``exact_pile_deposit``), which has no Pallas kernel: the reference runs it
 as one XLA program.  As torch operations it is launch-bound beyond use
 (some 25,000 launches and a host sync a sweep at radius 15), so the card
-runs every pile of a call in one launch of one block; the plain version is
-``sediment.exact_pile_deposit_plain``.
+runs every pile of a call in one launch: a warp a pile ranks each round's
+visits with ballots, and piles whose slots cannot share a cell run at
+once; the plain version is ``sediment.exact_pile_deposit_plain``.
 
 The pile selection (``sediment.select_piles``: a stable sort of the map)
 stays on the device, and K6 skips piles of zero volume itself, so a call
@@ -30,8 +31,30 @@ MAX_RADIUS = 68
 
 @functools.lru_cache(maxsize=16)
 def _tables(radius: int, device: torch.device):
+    """The slot tables on ``device``: off_r, off_c, later (the next slot on
+    the same cell, -1 for the last) and ends; then the visits of one sweep
+    and the slots' reach (the largest |off_r| + |off_c|)."""
     t = _sediment._pile_tables(radius)
-    return tuple(torch.from_numpy(t[k]).to(device) for k in ("off_r", "off_c", "ends"))
+    later, seen = np.full(t["off_r"].size, -1, np.int32), {}
+    for k in range(later.size - 1, -1, -1):
+        cell = (int(t["off_r"][k]), int(t["off_c"][k]))
+        later[k] = seen.get(cell, -1)
+        seen[cell] = k
+    on_device = tuple(torch.from_numpy(a).to(device)
+                      for a in (t["off_r"], t["off_c"], later, t["ends"]))
+    reach = int((np.abs(t["off_r"]) + np.abs(t["off_c"])).max())
+    return on_device + (int(t["ends"].sum()), reach)
+
+
+@functools.lru_cache(maxsize=16)
+def _deposits(increment: float, visits: int, device: torch.device):
+    """f32[visits + 1]: n whole increments placed, deps[n] = deps[n - 1] +
+    increment rounded to float32 add by add, as a sweep's deposits sum."""
+    inc = np.float32(increment)
+    deps = np.zeros(visits + 1, np.float32)
+    for n in range(visits):
+        deps[n + 1] = deps[n] + inc
+    return torch.from_numpy(deps).to(device)
 
 
 def exact_piles(height, pile_map, increment: float, radius: int, max_piles: int = 64):
@@ -51,14 +74,18 @@ def exact_piles(height, pile_map, increment: float, radius: int, max_piles: int 
     if not np.float32(increment) > 0.0:
         raise ValueError(f"exact_piles: increment must be > 0, got {increment}")
     vols, idxs = _sediment.select_piles(pile_map, max_piles)
-    off_r, off_c, ends = _tables(int(radius), height.device)
+    off_r, off_c, later, ends, visits, reach = _tables(int(radius), height.device)
+    inc = float(np.float32(increment))
+    deps = _deposits(inc, visits, height.device)
     out = height.clone()
+    done = torch.empty(vols.numel(), dtype=torch.int32, device=height.device)
     rows, cols = height.shape
     with torch.cuda.device(height.device):
         _cuda.call("noize_exact_piles", out.data_ptr(), vols.data_ptr(), idxs.data_ptr(),
                    int(vols.numel()), rows, cols, off_r.data_ptr(), off_c.data_ptr(),
-                   ends.data_ptr(), int(radius), int(off_r.numel()),
-                   float(np.float32(increment)), _cuda.stream(height))
+                   later.data_ptr(), ends.data_ptr(), int(radius), int(off_r.numel()),
+                   deps.data_ptr(), visits, inc, reach, done.data_ptr(),
+                   _cuda.stream(height))
     exact_piles.launches += 1
     return out
 
@@ -81,7 +108,9 @@ def solve_pile_table(vals0, valid, vols, cid, increment: float, radius: int):
         raise ValueError(f"{name}: radius must be in [1, {MAX_RADIUS}], got {radius}")
     if not np.float32(increment) > 0.0:
         raise ValueError(f"{name}: increment must be > 0, got {increment}")
-    off_r, _, ends = _tables(int(radius), vals0.device)
+    off_r, _, _, ends, visits, _ = _tables(int(radius), vals0.device)
+    inc = float(np.float32(increment))
+    deps = _deposits(inc, visits, vals0.device)
     k, s = vals0.shape
     if s != off_r.numel() or valid.shape != vals0.shape or cid.shape != vals0.shape \
             or vols.shape != (k,):
@@ -101,8 +130,8 @@ def solve_pile_table(vals0, valid, vols, cid, increment: float, radius: int):
     with torch.cuda.device(dev):
         _cuda.call("noize_pile_table", valid_u8.data_ptr(), vols.data_ptr(), cid.data_ptr(),
                    work.data_ptr(), com_vals.data_ptr(), com_eff.data_ptr(), keys.data_ptr(),
-                   last.data_ptr(), cap, k, ends.data_ptr(), int(radius), s,
-                   float(np.float32(increment)), _cuda.stream(vals0))
+                   last.data_ptr(), cap, k, ends.data_ptr(), int(radius), s, deps.data_ptr(),
+                   visits, inc, _cuda.stream(vals0))
     solve_pile_table.launches += 1
     return com_vals, com_eff
 

@@ -815,6 +815,106 @@ def test_k6_table_matches_plain_and_full_map(cuda, radius, n_cand):
     _equal(_commit(hd, *got, cid), PL.exact_piles(hd, pd, 1e-3, radius))
 
 
+def _k6_against_plain(cuda, h, piles, inc, radius):
+    """K6 on the map and on its pile table (one launch each) against their
+    plain versions, bit for bit, and the table's commits against K6."""
+    from noize_tpu_torch.erosion import pile_cuda as PL
+    from noize_tpu_torch.erosion import sediment as SE
+
+    hd, pd = torch.from_numpy(h).to(cuda), torch.from_numpy(piles).to(cuda)
+    before = PL.exact_piles.launches, PL.solve_pile_table.launches
+    got = PL.exact_piles(hd, pd, inc, radius)
+    vals0, valid, vols, cid = _pile_table(hd, pd, radius)
+    table = PL.solve_pile_table(vals0, valid, vols, cid, inc, radius)
+    assert (PL.exact_piles.launches, PL.solve_pile_table.launches) == (before[0] + 1,
+                                                                       before[1] + 1)
+    want = SE.exact_pile_deposit_plain(hd, pd, inc, radius)
+    want_table = SE.solve_pile_table_plain(vals0, valid, vols, cid, inc, radius)
+    torch.cuda.synchronize()
+    _equal(got, want)
+    _equal(table[0], want_table[0])
+    assert torch.equal(table[1], want_table[1])
+    _equal(_commit(hd, *table, cid), got)
+    return got, hd
+
+
+def _k6_case(name):
+    """(height, pile map, increment, radius) of a ``pile_cases`` case."""
+    import pile_cases as C
+
+    kind, key = name.split(":")
+    if kind == "pile":
+        radius, r0, c0, amount, inc, _ = C.handle_cases()[key]
+        return C.height(32, radius + r0), C.pile_map(32, [(r0, c0)], [amount]), inc, radius
+    cells, vols, radius, hs, res = C.map_cases()[key]
+    return C.height(res, 7), C.pile_map(res, cells, vols), np.float32(1.0 / hs), radius
+
+
+def _k6_case_names():
+    import pile_cases as C
+
+    return [f"pile:{k}" for k in C.handle_cases()] + [f"map:{k}" for k in C.map_cases()]
+
+
+@pytest.mark.parametrize("name", _k6_case_names())
+def test_k6_edge_cases_match_plain(cuda, name):
+    """The CPU parity cases (``pile_cases``: a partial deposit mid-round, a
+    volume of whole increments, many sweeps, an increment float32 rounds,
+    piles in the corners, a chain among disjoint piles), K6 and its table
+    entry against their plain versions."""
+    h, piles, inc, radius = _k6_case(name)
+    got, hd = _k6_against_plain(cuda, h, piles, float(inc), radius)
+    assert not torch.equal(got, hd)
+
+
+def _k6_layout(layout):
+    """(height, pile map, increment, radius) of a schedule layout at radius
+    15 (reach 16: centres within 32 of each other may share a cell)."""
+    import pile_cases as C
+
+    rng = np.random.default_rng(11)
+    if layout == "disjoint-64":  # 256 apart: every pile at once
+        res = 2048
+        cells = [(128 + 256 * i, 128 + 256 * j) for i in range(8) for j in range(8)]
+        vols = rng.uniform(0.01, 0.04, 64)
+    elif layout == "chain-64":  # 12 apart in a row: each waits for the one before
+        res = 1024
+        cells = [(500, 20 + 12 * j) for j in range(64)]
+        vols = rng.uniform(0.1, 0.3, 64)
+    elif layout.startswith("rim-"):  # the corners, the borders' middles, one cell in
+        res = int(layout[4:])
+        e, m = res - 1, res // 2
+        cells = [(0, 0), (0, e), (e, 0), (e, e), (0, m), (m, 0), (e, m), (m, e), (1, 1),
+                 (e - 1, 1), (1, e - 1), (e - 1, e - 1)]
+        vols = rng.uniform(0.01, 0.3, len(cells))
+    else:
+        raise ValueError(layout)
+    return C.height(res, 5), C.pile_map(res, cells, vols), C.INC, 15
+
+
+@pytest.mark.parametrize("layout", ["disjoint-64", "chain-64", "rim-255", "rim-256"])
+def test_k6_schedules_match_plain(cuda, layout):
+    """64 disjoint piles at 2048² (all at once), a chain of 64 piles each
+    overlapping the next (fully serial), and piles at the corners and
+    borders of an odd and an even grid: K6 and its table entry against
+    their plain versions."""
+    h, piles, inc, radius = _k6_layout(layout)
+    got, hd = _k6_against_plain(cuda, h, piles, float(inc), radius)
+    assert not torch.equal(got, hd)
+
+
+def test_k6_stalled_sweep_ends(cuda):
+    """An increment below the pile cells' ulp on a flat field places
+    nothing: K6 ends after the first empty sweep, as the plain version does,
+    and leaves the height as it was."""
+    import pile_cases as C
+
+    h = np.full((64, 64), 0.5, np.float32)
+    piles = C.pile_map(64, [(0, 0), (20, 30), (21, 33), (63, 40)], [0.01, 0.3, 0.02, 0.05])
+    got, hd = _k6_against_plain(cuda, h, piles, 1e-9, 4)
+    assert torch.equal(got, hd)
+
+
 # --- K7: particle descent; K8: threefry -------------------------------------
 
 def _descent_world(res, seed, plants=False):

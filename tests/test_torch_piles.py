@@ -7,9 +7,14 @@ Tolerance: bit-equality, against JAX evaluated one primitive at a time
 plain version's host scalars and K6's ``__f*_rn`` do, and against the
 compiled reference, which computes the same bits on these cases.  Eager
 JAX runs a scan step in milliseconds, so the eager cases are small (a few
-hundred visits) and the compiled reference takes the large ones.  Cases:
-radius 4 and 15, a pile at the border, overlapping piles, more than 64
-piles with ties in volume, and ``write_sediment_map(EXACT_PILES=True)``.
+hundred visits) and the compiled reference takes the large ones.  Cases
+(``pile_cases``, which the card tests reuse): radius 2, 4 and 15, piles in
+the corners and on the borders, a partial deposit mid-round, a volume of
+whole increments, many sweeps, an increment float32 rounds (1/3000),
+overlapping piles, a chain among disjoint piles, more than 64 piles with
+ties in volume, and ``write_sediment_map(EXACT_PILES=True)``.  K6's
+wrapper tables (the slots on one cell, the whole increments summed) are
+held against the reference's.
 """
 
 import jax
@@ -18,18 +23,14 @@ import numpy as np
 import pytest
 import torch
 
+import pile_cases as C
 from noize_tpu.erosion import sediment as JSe
 from noize_tpu.erosion.params import ErosionSettings
 from noize_tpu_torch.erosion import pile_cuda as PC
 from noize_tpu_torch.erosion import sediment as TSe
 
-HS = 1000.0
-INC = np.float32(1.0 / HS)  # MIN_PILE_INCREMENT / HEIGHT at the defaults
-
-
-def _height(res, seed):
-    rng = np.random.default_rng(seed)
-    return rng.uniform(0.2, 0.8, (res, res)).astype(np.float32)
+HS = C.HS
+INC = C.INC
 
 
 @pytest.mark.parametrize("radius", [1, 4, 15])
@@ -43,60 +44,33 @@ def test_pile_tables_match_reference(radius):
     assert len(t["off_r"]) == 2 * radius * radius + 6 * radius  # S = 4·Σ_{d<r}(d + 2)
 
 
-@pytest.mark.parametrize("radius,r0,c0,amount,eager", [
-    (2, 0, 1, 0.03, True),     # at the border, several sweeps, eager
-    (4, 20, 17, 0.4, False),   # several sweeps
-    (4, 0, 1, 0.05, False),    # at the border: out-of-grid slots skipped
-    (15, 31, 30, 0.03, False),  # the default radius, at the far corner
-    (15, 12, 9, 2.0, False),
-])
-def test_handle_pile_bit_equal(radius, r0, c0, amount, eager):
-    h = _height(32, radius + r0)
-    args = (jnp.asarray(h), jnp.float32(amount), jnp.float32(INC))
+@pytest.mark.parametrize("case", list(C.handle_cases()))
+def test_handle_pile_bit_equal(case):
+    radius, r0, c0, amount, inc, eager = C.handle_cases()[case]
+    h = C.height(32, radius + r0)
+    args = (jnp.asarray(h), jnp.float32(amount), jnp.float32(inc))
     if eager:
         with jax.disable_jit():
             want = JSe._handle_pile(args[0], r0, c0, args[1], args[2], radius)
     else:
         want = jax.jit(lambda hh, a, i: JSe._handle_pile(hh, r0, c0, a, i, radius))(*args)
-    got = TSe._handle_pile(torch.from_numpy(h.copy()), r0, c0, np.float32(amount), INC,
-                           radius).numpy()
+    got = TSe._handle_pile(torch.from_numpy(h.copy()), r0, c0, np.float32(amount),
+                           np.float32(inc), radius).numpy()
     np.testing.assert_array_equal(got, np.asarray(want))
     assert not np.array_equal(got, h)
 
 
-def _pile_map(res, cells, vols):
-    m = np.zeros((res, res), np.float32)
-    for (r, c), v in zip(cells, vols):
-        m[r, c] = v
-    return m
-
-
-def _exact_cases():
-    rng = np.random.default_rng(3)
-    # overlapping piles and one at the border, radius 4
-    overlap = ([(10, 10), (11, 12), (13, 9), (10, 14), (0, 5), (31, 31)],
-               [0.05, 0.08, 0.03, 0.12, 0.02, 0.04], 4)
-    # 90 piles, volumes in 5 tied levels: the 64 kept are the largest, ties
-    # to the lower cell index
-    flat = rng.choice(32 * 32, 90, replace=False)
-    cells = [(int(f) // 32, int(f) % 32) for f in flat]
-    vols = list(np.float32(0.01) * rng.integers(1, 6, 90).astype(np.float32))
-    many = (cells, vols, 2)
-    return {"overlap-r4": overlap, "many-ties-r2": many}
-
-
-@pytest.mark.parametrize("case", ["overlap-r4", "many-ties-r2"])
+@pytest.mark.parametrize("case", list(C.map_cases()))
 def test_exact_pile_deposit_bit_equal(case):
-    cells, vols, radius = _exact_cases()[case]
-    res = 32
-    h = _height(res, 7)
-    piles = _pile_map(res, cells, vols)
+    cells, vols, radius, hs, res = C.map_cases()[case]
+    h = C.height(res, 7)
+    piles = C.pile_map(res, cells, vols)
     params = ErosionSettings(PILING_RADIUS=radius).as_parameters()
-    want = np.asarray(jax.jit(lambda hh, pp: JSe.exact_pile_deposit(hh, pp, params, HS))(
+    want = np.asarray(jax.jit(lambda hh, pp: JSe.exact_pile_deposit(hh, pp, params, hs))(
         jnp.asarray(h), jnp.asarray(piles)))
     before = PC.exact_piles.launches
     got = TSe.exact_pile_deposit(torch.from_numpy(h), torch.from_numpy(piles), params,
-                                 HS).numpy()
+                                 hs).numpy()
     np.testing.assert_array_equal(got, want)
     assert PC.exact_piles.launches == before  # CPU tensors: the plain version
     if len(cells) > 64:
@@ -107,6 +81,32 @@ def test_exact_pile_deposit_bit_equal(case):
         order = np.argsort(np.asarray(ji), kind="stable")
         np.testing.assert_array_equal(idxs_t.numpy(), np.asarray(ji)[order])
         np.testing.assert_array_equal(vols_t.numpy(), np.asarray(jv)[order])
+
+
+@pytest.mark.parametrize("radius", [1, 2, 15])
+def test_k6_tables_match_reference(radius):
+    """K6's wrapper tables: each slot's chain of later slots on its cell is
+    the reference's ``dup_higher`` row, the reach is radius + 1, and the
+    whole increments summed are the reference's ``deposited + diff`` chain
+    at diff = increment (an increment float32 rounds, 1/3000, too)."""
+    j = JSe._pile_tables(radius)
+    _, _, later, ends, visits, reach = PC._tables(radius, torch.device("cpu"))
+    later = later.numpy()
+    for k in range(later.size):
+        chain, nxt = set(), int(later[k])
+        while nxt >= 0:
+            chain.add(nxt)
+            nxt = int(later[nxt])
+        assert chain == set(np.nonzero(j["dup_higher"][k])[0].tolist()), k
+    assert reach == radius + 1 and visits == len(j["visit_round"])
+    assert ends.numpy().tolist() == TSe._pile_tables(radius)["ends"].tolist()
+    for inc in (INC, np.float32(1.0 / 3000.0)):
+        step = jnp.float32(inc)
+        _, want = jax.lax.scan(lambda d, _: (d + step, d + step), jnp.float32(0.0), None,
+                               length=visits)
+        deps = PC._deposits(float(inc), visits, torch.device("cpu")).numpy()
+        assert deps[0] == 0.0
+        np.testing.assert_array_equal(deps[1:], np.asarray(want))
 
 
 def test_select_piles_orders_ties_and_zeros():
