@@ -42,7 +42,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    against the CPU's ``randint(split(k))`` and ``spawn``; each timed against
    its plain version, K9 also against the three ``index_put_`` it replaced,
    the draw against the composition it replaced (rows K7, K7@window,
-   K7@records, K8, K8@randint, K9);
+   K7@records, K8, K8@randint, K9), and K9's device operations a call by
+   the profiler (one kernel, and the fill into fresh maps; at most three
+   kernels besides the fill pass);
 9. prng: the threefry PRNG on the card against the CPU, 10⁶ ``randint``
    draws (integers, exact), with the card's time for the draw, and K8
    against its plain version on the card (bit-equal);
@@ -98,8 +100,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    wave of config 5's 16 tiles at batch 4 against the server without a
    mesh (each equal; each path with its launch counts), and
    ``dryrun_multichip(1)``; then K5 on windows (2×2 and 4×1 splits of a
-   wet 2048² pool, 3×3 of 2049², one launch a water step a window, the
-   drains carried in), stitched and bit-equal to K5 on the whole grid, and
+   wet 2048² pool, 3×3 of 2049², the sharded pool's schedule: one call a
+   window a group of water steps on a halo of 8 cells a step, the drains
+   carried in, the block kept), stitched and bit-equal to K5 on the whole
+   grid, and
    K6 on the pile table of 64 of 100 tied piles at radius 15, bit-equal to
    its plain version and, committed, to K6 on the map (the kernels line's
    rows K5@window and K6@table);
@@ -660,6 +664,41 @@ def _k9_cost(n_events, size, maps=3):
     return n_events * (8 + 4 * maps) + 4 * maps * size, n_events * maps
 
 
+def _device_ops_of_last_call(fn, only=None, calls=6):
+    """(name, device µs) of each device operation (kernel, fill, copy) the
+    last of ``calls`` calls of ``fn`` ran — of those whose names contain one
+    of ``only``, when given — in one ``torch.profiler`` trace: a
+    host-to-device copy, which ``fn`` never makes, runs before each call and
+    delimits it.  The trace may miss what runs while it starts, and may
+    drop records: one whose last two calls ran other operations (the calls
+    are the same) is taken again, up to three times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    one = torch.ones(1)
+    mark = torch.zeros(1, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                mark.copy_(one)
+                fn()
+                torch.cuda.synchronize()
+        ops = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(ops) if "HtoD" in e.name]
+        if len(marks) >= 2:
+            last, prev = ops[marks[-1] + 1:], ops[marks[-2] + 1:marks[-1]]
+            if [e.name for e in last] == [e.name for e in prev]:
+                return [(e.name, e.time_range.elapsed_us()) for e in last
+                        if only is None or any(k in e.name for k in only)]
+        print(f"profiler trace attempt {attempt + 1} saw fewer than two calls or two calls "
+              "of other operations")
+    raise RuntimeError("chip_smoke: no complete profiler trace of a call in 3 attempts")
+
+
 def _windows_2x2(maps, records, res, chunk):
     """The four windows of a 2×2 split of the table ``maps`` (and of K7's
     record table ``records``), each block extended by ``chunk`` cells
@@ -835,6 +874,22 @@ def descent_phase(rows, sim):
                          "k9", 20, k9_bytes, k9_ops,
                          lambda: [torch.zeros(cells, device="cuda").index_put_(
                              (got[1],), d, accumulate=True) for d in got[2:]])
+            # K9's device operations a call, into given maps and into fresh ones
+            given = [torch.zeros(cells, device="cuda") for _ in got[2:]]
+            ops_given = _device_ops_of_last_call(
+                lambda: PA.scatter_events(got[1], got[2:], cells, given))
+            ops_fresh = _device_ops_of_last_call(
+                lambda: PA.scatter_events(got[1], got[2:], cells))
+            _check(1 <= len(ops_given) <= 3 and len(ops_fresh) == len(ops_given) + 1,
+                   f"K9 device operations a call: {ops_given} (given), {ops_fresh} (fresh)")
+            live = int(torch.stack([d != 0 for d in got[2:]]).any(0).sum())
+            print(f"K9 by the profiler, {got[1].numel()} events ({live} with a nonzero delta): "
+                  f"into fresh maps {len(ops_fresh)} device operations, "
+                  f"{sum(t for _, t in ops_fresh):.1f} µs ("
+                  + "; ".join(f"{n[:40]} {t:.1f}" for n, t in ops_fresh)
+                  + f"); into given maps {len(ops_given)}, "
+                  f"{sum(t for _, t in ops_given):.1f} µs")
+            del given
         records_ms = _time_ms(lambda: DC.descent_table(world, params, hs), 20)
         k7_ms = _time_ms(lambda: DC.descend_steps(parts, table, *args, steps), 20)
         k9_ms = _time_ms(lambda: PA.scatter_events(got[1], got[2:], cells), 20)
@@ -1350,6 +1405,43 @@ def _plant_world(sim, n, key):
     return plants, root_ms, grow_ms, splat_ms
 
 
+def _stamps_scatter(plants, plant_map):
+    """K9 at the vegetation's shape: the density's neighbour stamps (8 a
+    plant, ``vegetation.splat_density``'s second scatter, magnitude 1 on
+    the live plants) into one given map, bit-equal to the CPU's
+    ``scatter_events`` (three passes of 8 bits: 256 tiles); its
+    CUDA-event time and its device operations a call (one kernel)."""
+    import torch
+
+    from noize_tpu_torch.erosion import particles as PA
+
+    res, cols = plant_map.shape
+    m = plants.alive.to(torch.float32)
+    row, col = plants.row.long(), plants.col.long()
+    cells, vals = [], []
+    for w, offs in ((0.6, ((1, 0), (0, 1), (-1, 0), (0, -1))),
+                    (0.4, ((1, 1), (-1, 1), (1, -1), (-1, -1)))):
+        for dr, dc in offs:
+            cells.append(torch.clamp(row + dr, 0, res - 1) * cols
+                         + torch.clamp(col + dc, 0, res - 1))
+            vals.append(m * w)
+    cells, vals = torch.cat(cells), [torch.cat(vals)]
+    base = plant_map.reshape(-1).contiguous()
+    size = base.numel()
+    got = PA.scatter_events(cells, vals, size, [base.clone()])
+    want = PA.scatter_events(cells.cpu(), [vals[0].cpu()], size, [base.cpu()])
+    _same_bits("K9 at the vegetation's neighbour stamps vs the CPU", [got[0].cpu()], want)
+    acc = [base.clone()]
+    ms = _time_ms(lambda: PA.scatter_events(cells, vals, size, acc), 20)
+    ops = _device_ops_of_last_call(lambda: PA.scatter_events(cells, vals, size, acc))
+    _check(len(ops) == 1 and "scatter_sort" in ops[0][0],
+           f"K9 device operations a call at the stamps: {ops}")
+    print(f"K9 at the vegetation's neighbour stamps: {cells.numel()} events into one given "
+          f"{res}² map, bit-equal to the CPU; {ms:.4f} ms a call (CUDA events); "
+          f"{len(ops)} device operations, {sum(t for _, t in ops):.1f} µs ("
+          + "; ".join(f"{n[:40]} {t:.1f}" for n, t in ops) + ")")
+
+
 def vegetation_phase():
     """The Quickstart 2048² ``ErosionSim`` with ``VEGETATION_FRICTION = 5``
     on a plant map from 65,536 rooted plants and one growth cycle, then one
@@ -1367,6 +1459,7 @@ def vegetation_phase():
     plants, root_ms, grow_ms, splat_ms = _plant_world(sim, 65536, PRNGKey(7, device="cuda"))
     alive = int(plants.alive.sum())
     _check(alive > 0 and float(sim.plant_map.max()) > 0, f"{alive} plants alive")
+    _stamps_scatter(plants, sim.plant_map)
     _reset_counts()
     _, step_ms = _timed(sim.step)
     counts = _read_counts()
@@ -1744,7 +1837,8 @@ def sharded_erosion_phase(sp, bm, rows):
     counts = _read_counts()
     _equal_maps("ShardedErosionSim.step", sharded.state, single.state)
     chunks = -(-(sharded.settings.MAXAGE + 1) // 8)
-    _check(counts["K3"] == 3 and counts["K5@window"] == 3 * sharded.settings.WATER_STEPS
+    groups = -(-sharded.settings.WATER_STEPS // SE.POOL_GROUP)  # one K5 window call a group
+    _check(counts["K3"] == 3 and counts["K5@window"] == 3 * groups
            and counts["K4"] == 0 and counts["K7@window"] == 3 * chunks and counts["K7"] == 0
            and counts["K8"] > 0 and counts["K8@randint"] > 0 and counts["K9"] > 0
            and counts["K7@records"] > 0, f"sharded sim launches {counts}")
@@ -1859,32 +1953,36 @@ def sharded_erosion_phase(sp, bm, rows):
     profile_path("ShardedErosionSim.step() 2048² (1×1 mesh, 3 cycles)", sharded.step)
 
 
-def _pool_stitch(window_fn, h, p, nx, ny, iters):
+def _pool_stitch(h, p, nx, ny, iters, group):
     """``iters`` water steps of the sharded pool's scheme on one card: each
-    block of an nx × ny split extended 8 cells toward its neighbours (an
-    exchange, emulated), one ``window_fn`` call (K5's window entry or its
-    plain version) a block a step with its drains carried in, the blocks
-    cropped and stitched."""
+    block of an nx × ny split extended 8 cells a step of a group toward its
+    neighbours (an exchange, emulated), one call of K5's window entry a
+    block a group of ``group`` steps with the block kept and its drains
+    carried in, the blocks cropped and stitched."""
     import torch
+
+    from noize_tpu_torch.erosion import pool_cuda as PC
 
     res = h.shape[0]
     lr, lc = res // nx, res // ny
+    halo = 8 * group
     wins = []
     for i in range(nx):
         for j in range(ny):
             r0, c0 = i * lr, j * lc
-            er0, ec0 = max(0, r0 - 8), max(0, c0 - 8)
-            er1, ec1 = min(res, r0 + lr + 8), min(res, c0 + lc + 8)
+            er0, ec0 = max(0, r0 - halo), max(0, c0 - halo)
+            er1, ec1 = min(res, r0 + lr + halo), min(res, c0 + lc + halo)
             wins.append(((slice(er0, er1), slice(ec0, ec1)),
                          (slice(r0 - er0, r0 - er0 + lr), slice(c0 - ec0, c0 - ec0 + lc)),
                          (slice(r0, r0 + lr), slice(c0, c0 + lc))))
     p, d = p.clone(), torch.zeros_like(p)
     hw = [h[w].contiguous() for w, _, _ in wins]
-    for _ in range(iters):
+    for done in range(0, iters, group):
         new_p, new_d = p.clone(), d.clone()
         for (w, core, block), hb in zip(wins, hw):
-            op, od = window_fn(hb, p[w].contiguous(), d[w].contiguous(), 1, True,
-                               (w[0].start, w[1].start), res)
+            op, od = PC.pool_automata_window(hb, p[w].contiguous(), d[w].contiguous(),
+                                             min(group, iters - done), True,
+                                             (w[0].start, w[1].start), res)
             new_p[block], new_d[block] = op[core], od[core]
         p, d = new_p, new_d
     return p, d
@@ -1892,13 +1990,14 @@ def _pool_stitch(window_fn, h, p, nx, ny, iters):
 
 def window_kernels_phase(rows):
     """K5's window entry stitched over 2×2 and 4×1 splits of a wet 2048²
-    pool and a 3×3 split of 2049², against K5 on the whole grid (the
-    stitched pool and drains bit-equal), timed a water step against a
-    whole-grid step; the row K5@window: one 1032² window of the 2×2 split,
-    one water step with drains carried in, against its plain version on
-    the cells it keeps.  Then K6 on the pile table of 64 of 100 tied piles
-    at radius 15 against its plain version and, committed, against K6 on
-    the map (the row K6@table)."""
+    pool and a 3×3 split of 2049², on the sharded pool's schedule (one call
+    a block a group of ``POOL_GROUP`` water steps, 8 cells of halo a step),
+    against K5 on the whole grid (the stitched pool and drains bit-equal),
+    timed against the whole-grid call; the row K5@window: one call of the
+    group's steps on the 2×2 split's first window, drains carried in,
+    against its plain version on the cells it keeps.  Then K6 on the pile
+    table of 64 of 100 tied piles at radius 15 against its plain version
+    and, committed, against K6 on the map (the row K6@table)."""
     import torch
 
     from noize_tpu_torch.erosion import pile_cuda as PL
@@ -1906,43 +2005,50 @@ def window_kernels_phase(rows):
     from noize_tpu_torch.erosion import pool_cuda as PC
     from noize_tpu_torch.erosion import sediment as SE
     from noize_tpu_torch.erosion.params import ErosionSettings
+    from noize_tpu_torch.parallel.sharded_erosion import POOL_GROUP
 
     steps = ErosionSettings().WATER_STEPS
+    group = min(POOL_GROUP, steps)
     for size, splits in ((2048, ((2, 2), (4, 1))), (2049, ((3, 3),))):
         _, h, p = _inputs(size)
         res = h.shape[0]
         want_p, want_d = PC.pool_automata_full_cuda(h, p, steps, True)
         whole_ms = _time_ms(lambda: PC.pool_automata_full_cuda(h, p, steps, True), 10)
         for nx, ny in splits:
-            got_p, got_d = _pool_stitch(PC.pool_automata_window, h, p, nx, ny, steps)
+            got_p, got_d = _pool_stitch(h, p, nx, ny, steps, group)
             torch.cuda.synchronize()
             _check(torch.equal(got_p, want_p) and torch.equal(got_d, want_d),
                    f"K5 windows of a {nx}×{ny} split of {res}² differ from K5 on the grid: "
                    f"{_max_abs(got_p, want_p)}, {_max_abs(got_d, want_d)}")
-            stitch_ms = _time_ms(lambda: _pool_stitch(PC.pool_automata_window, h, p, nx, ny,
-                                                      1), 10)
+            stitch_ms = _time_ms(lambda: _pool_stitch(h, p, nx, ny, steps, group), 10)
             print(f"K5 windows, {nx}×{ny} split of a wet {res}² pool: stitched over {steps} "
-                  f"water steps, bit-equal to K5 on the grid; a stitched water step "
-                  f"({nx * ny} launches, crops and stitch) {stitch_ms:.4f} ms, a whole-grid "
-                  f"step {whole_ms / steps:.4f} ms ({whole_ms:.4f} ms a {steps}-step call)")
+                  f"water steps in groups of {group} (halo {8 * group}), bit-equal to K5 on the "
+                  f"grid; the stitched steps ({nx * ny * -(-steps // group)} calls, crops and "
+                  f"stitch) {stitch_ms:.4f} ms, {stitch_ms / steps:.4f} ms a step; the "
+                  f"whole-grid call {whole_ms:.4f} ms, {whole_ms / steps:.4f} ms a step")
         _check(not torch.equal(want_p, p), f"K5 ran no phase on the wet {res}² pool")
-    # the row: the 2×2 split's first window, one water step, drains carried in
+    # the row: the 2×2 split's first window, a group of water steps, drains
+    # carried in, the block kept
     _, h, p = _inputs(2048)
     res = h.shape[0]
-    half, side = res // 2, res // 2 + 8
+    half, side = res // 2, res // 2 + 8 * group
     _, d0 = PC.pool_automata_full_cuda(h, p, 1, True)
     win, core = (slice(0, side), slice(0, side)), (slice(0, half), slice(0, half))
     hw, pw, dw = h[win].contiguous(), p[win].contiguous(), d0[win].contiguous()
-    got = PC.pool_automata_window(hw, pw, dw, 1, True, (0, 0), res)
-    _check(not torch.equal(got[1], dw), "K5's window added no drains")
-    cells = side * side
-    rows.compare("K5@window", f"K5 pool_automata_window, one water step on the {side}² window "
-                 f"of a 2×2 split of a wet {res}² pool, drains carried in (the {half}² block "
-                 "kept)", SRC["K5"], POOL_TPU + ":30", tuple(t[core] for t in got),
-                 lambda: PC.pool_automata_window(hw, pw, dw, 1, True, (0, 0), res),
-                 lambda: tuple(t[core] for t in PO._pool_automata_window(hw, pw, dw, 1, True,
+    got = PC.pool_automata_window(hw, pw, dw, group, True, (0, 0), res)
+    _check(not torch.equal(got[1][core], dw[core]), "K5's window added no drains")
+    # what step s leaves exact: the window less 8 (s + 1) at its inner edges
+    needed = sum((side - 8 * (s + 1)) ** 2 for s in range(group))
+    rows.compare("K5@window", f"K5 pool_automata_window, {group} water steps in one call on the "
+                 f"{side}² window of a 2×2 split of a wet {res}² pool, drains carried in (the "
+                 f"{half}² block kept; step s computes its tiles of the window less 8 (s + 1) at "
+                 "the inner edges)", SRC["K5"], POOL_TPU + ":30", tuple(t[core] for t in got),
+                 lambda: PC.pool_automata_window(hw, pw, dw, group, True, (0, 0), res),
+                 lambda: tuple(t[core] for t in PO._pool_automata_window(hw, pw, dw, group, True,
                                                                           (0, 0), res)),
-                 "window", 20, 20 * cells, POOL_OPS_PER_ITER * cells)
+                 "window", 20, 20 * side * side, POOL_OPS_PER_ITER * needed)
+    print(f"K5@window: {rows.rows['K5@window']['ms'] / group:.4f} ms a water step ({group} "
+          "a call)")
     del h, p, want_p, want_d, got_p, got_d, d0, got
 
     # K6 on the pile table
@@ -2008,27 +2114,6 @@ def profile_path(label, fn):
         f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms ×{e.count}" for e in top))
 
 
-def _traced_pool_kernels(fn):
-    """The pool kernels (init and step launches) that the last of three
-    calls of ``fn`` ran, in one ``torch.profiler`` trace; the first calls
-    take whatever the profiler misses while it starts, and a trace that saw
-    fewer than two of the calls' init kernels gives ``None``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            fn()
-            torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      and ("pool_init" in e.name or "pool_step" in e.name)),
-                     key=lambda e: e.time_range.start)
-    starts = [i for i, e in enumerate(kernels) if "pool_init" in e.name]
-    return kernels[starts[-1]:] if len(starts) >= 2 else None
-
-
 def pool_trace_phase():
     """One wet K4 call and one wet K5 call on the 2048² wet pool under
     ``torch.profiler``: the device kernels each runs (the init kernel and
@@ -2041,43 +2126,15 @@ def pool_trace_phase():
     _, blurred, pool = _inputs(2048)
     for key, fn in (("K4", PC.pool_automata_cuda), ("K5", PC.pool_automata_full_cuda)):
         before = _wet(fn)
-        # a trace that missed the calls' init kernels is taken again
-        for attempt in range(3):
-            kernels = _traced_pool_kernels(lambda: fn(blurred, pool, steps, True))
-            if kernels is not None:
-                break
-            print(f"{key} trace attempt {attempt + 1} saw fewer than two init kernels")
-        _check(kernels is not None, f"{key}: no complete profiler trace in 3 attempts")
-        _check(_wet(fn) == before + 3 * (attempt + 1), f"{key} traced calls' gate stayed closed")
+        fn(blurred, pool, steps, True)
+        _check(_wet(fn) == before + 1, f"{key} call's gate stayed closed")
+        kernels = _device_ops_of_last_call(lambda: fn(blurred, pool, steps, True),
+                                           ("pool_init", "pool_step"))
         print(f"{key} wet call under torch.profiler: {len(kernels)} device kernels, "
               f"1 + {steps} = {want} expected; "
-              f"{sum(e.self_device_time_total for e in kernels) / 1e3:.4f} ms of device time")
+              f"{sum(t for _, t in kernels) / 1e3:.4f} ms of device time")
         _check(len(kernels) == want, f"{key} wet call ran {len(kernels)} device kernels, "
                                      f"not {want}")
-
-
-def _traced_call_kernels(fn, name):
-    """The device kernels whose names contain ``name`` that the last of
-    eight calls of ``fn`` ran, in one ``torch.profiler`` trace.  A marker
-    kernel (an in-place add) runs before each call and delimits it; the
-    trace may miss what runs while the profiler starts (several short calls
-    at a time), and one that saw fewer than two markers gives ``None``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    marker = torch.zeros(1, device="cuda")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(8):
-            marker.add_(1.0)
-            fn()
-            torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      and (name in e.name or "elementwise" in e.name)),
-                     key=lambda e: e.time_range.start)
-    marks = [i for i, e in enumerate(kernels) if name not in e.name]
-    return kernels[marks[-1] + 1:] if len(marks) >= 2 else None
 
 
 def plan_trace_phase(rows):
@@ -2126,13 +2183,8 @@ def plan_trace_phase(rows):
             fn()
         host_ms = (time.perf_counter() - t0) * 1e3 / 10
         torch.cuda.synchronize()
-        for attempt in range(3):
-            kernels = _traced_call_kernels(fn, name)
-            if kernels is not None:
-                break
-            print(f"{key} trace attempt {attempt + 1} saw fewer than two markers")
-        _check(kernels is not None, f"{key}: no complete profiler trace in 3 attempts")
-        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        kernels = _device_ops_of_last_call(fn, (name,))
+        device_ms = sum(t for _, t in kernels) / 1e3
         print(f"{key} call under torch.profiler: {len(kernels)} device kernels, {want} "
               f"expected (its plan's launches); {device_ms:.4f} ms of device time, "
               f"{rows.rows[row]['ms']:.4f} ms by CUDA events ({row}), "

@@ -107,12 +107,9 @@ SIGNATURES = {
     # keys (u32 [K, 2]), K, draws a key, split first, minval, span, mult,
     # float32 out, out, stream (K8's draw)
     "noize_randint": (_P, _L, _L, _I, _I, _U, _U, _I, _P, _P),
-    # cells (i64), deltas (host array of k pointers), k, n, size, skip
-    # zeros, keys (i32), stream (K9's keys)
-    "noize_scatter_keys": (_P, _P, _I, _L, _L, _I, _P, _P),
-    # sorted keys (i32), permutation (i64), n, deltas, accumulators (host
-    # arrays of k pointers), k, stream (K9's runs)
-    "noize_scatter_runs": (_P, _P, _L, _P, _P, _I, _P),
+    # cells (i64), deltas, accumulators (host arrays of k pointers), k, n,
+    # size, skip zeros, passes, digit bits, scratch (i32), stream (K9)
+    "noize_scatter_in_order": (_P, _P, _P, _I, _L, _L, _I, _I, _I, _P, _P),
 }
 
 _LIB = None

@@ -14,9 +14,10 @@
 // masked phases of pool.py:_pool_automata_fullgrid / _spread_phase, which
 // the reference runs at odd sizes (Unity's 2^n + 1 heightmaps).  Its window
 // entry (noize_pool_automata_window) runs the same phases on a window of a
-// grid: the sharded pool's extended block, a water step a call between halo
-// exchanges (parallel/sharded_erosion._sharded_pool_automata, after
-// noize_tpu/parallel/sharded_erosion.py:446-522).  The two
+// grid: the sharded pool's extended block, a group of water steps a call
+// between halo exchanges (parallel/sharded_erosion._sharded_pool_automata,
+// after noize_tpu/parallel/sharded_erosion.py:446-522, which exchanges once
+// a step).  The two
 // share one kernel, templated on the add order in which a phase's transfers
 // land: _spread_phase scatters direction by direction (up, right, down, left),
 // each as the neighbour's transfer then the cell's own border self-return,
@@ -79,13 +80,21 @@
 // stale and the caller crops them.  The window's drains come in as the
 // starting sum: each phase's drains add onto them in phase order, as the
 // sharded pool adds each phase's cropped drain map onto its running sum.
+// After step s (from 0) only the cells more than 8(s+1) from an inner edge
+// are exact, so step s launches only the tiles that meet them: the stale
+// ring is not computed on its way to the caller's crop, and the cells
+// outside what the last step left exact are undefined.  The sharded pool
+// runs all of a cycle's water steps in one call on a halo of 8 a step: one
+// exchange, one init, k launches, instead of an exchange and a call a step.
 //
 // The wetness gate (pool.MIN_WATER) never syncs the host: the init launch
 // copies the pool, copies the drains in (or zeroes them) and raises a
 // device flag if any cell holds >= MIN_WATER; every later launch returns at
 // once when the flag is 0.  A map below the gate is a bit-exact fixed point
 // of the automata (a window's cells that are not stale depend on the
-// window alone).  A call is 1 + iterations kernels.
+// window alone; the exact cells of a dry window stay exact after any
+// number of steps, so one gate a call is exact).  A call is 1 + iterations
+// kernels.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -444,6 +453,9 @@ cudaError_t configure() {
 
 // iterations water steps, one launch each; the pool ping-pongs so that the
 // last launch writes pool_out.  drains_in: the starting sum (null: zeros).
+// Step s launches the tiles that meet what it can leave exact: the map less
+// Window::kHalo (s + 1) cells at each edge that is not the grid's (the
+// whole map when it is the grid); when that is empty, no later step runs.
 template <Order kOrder>
 int run_automata(const float* height, const float* pool_in, float* pool_out,
                  const float* drains_in, float* drains, int* flag, float* pool_tmp, Map map,
@@ -456,13 +468,26 @@ int run_automata(const float* height, const float* pool_in, float* pool_out,
   cudaMemsetAsync(flag, 0, sizeof(int), stream);
   pool_init<<<(n + 255) / 256, 256, 0, stream>>>(pool_in, pool_out, drains_in, drains, flag,
                                                  n);
-  const dim3 tiles((map.org_x + map.cols - map.tx + kTile - 1) / kTile,
-                   (map.org_z + map.rows - map.tz + kTile - 1) / kTile);
   const float* src = pool_in;
   for (int k = 0; k < iterations; ++k) {
     float* dst = ((iterations - 1 - k) % 2 == 0) ? pool_out : pool_tmp;
+    // the grid rows and columns this step leaves exact, and the tiles (from
+    // the map's first tile, map.tz / map.tx) that meet them
+    const long long cut = (long long)Window::kHalo * (k + 1);
+    const long long z0 = map.org_z + (map.org_z > 0 ? cut : 0);
+    const long long x0 = map.org_x + (map.org_x > 0 ? cut : 0);
+    const long long z1 = map.org_z + map.rows - (map.org_z + map.rows < map.res ? cut : 0);
+    const long long x1 = map.org_x + map.cols - (map.org_x + map.cols < map.res ? cut : 0);
+    if (z0 >= z1 || x0 >= x1) break;
+    const int bz = static_cast<int>((z0 - map.tz) / kTile);
+    const int bx = static_cast<int>((x0 - map.tx) / kTile);
+    const dim3 tiles(static_cast<unsigned>((x1 - map.tx + kTile - 1) / kTile - bx),
+                     static_cast<unsigned>((z1 - map.tz + kTile - 1) / kTile - bz));
+    Map step = map;
+    step.tz = map.tz + bz * kTile;
+    step.tx = map.tx + bx * kTile;
     pool_step<kOrder><<<tiles, kThreads, Window::kBytes, stream>>>(
-        height, src, dst, drains, flag, map, drain_particles);
+        height, src, dst, drains, flag, step, drain_particles);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     src = dst;
@@ -494,6 +519,8 @@ extern "C" int noize_pool_automata_full(const float* height, const float* pool_i
 
 // K5 on a window: height, pool_in, pool_out, drains_in, drains and pool_tmp
 // are rows x cols cells of a res^2 grid from (org_z, org_x) on, in the grid.
+// After k steps the cells within 8k of an edge that is not the grid's are
+// undefined in pool_out and drains.
 extern "C" int noize_pool_automata_window(const float* height, const float* pool_in,
                                           float* pool_out, const float* drains_in,
                                           float* drains, int* flag, float* pool_tmp, int rows,

@@ -12,8 +12,9 @@ the full-grid masked phases, at any size, odd included.  It stands in for
 ``pool_pallas._phase_call``; its JAX entry ``pool_automata_pallas`` runs on
 K5 here at every size, and ``pool_automata_cuda`` hands odd grids to it, as
 ``pool.pool_automata`` does.  ``pool_automata_window`` runs K5 on a window of
-a grid with its drains carried in: the sharded pool's extended block, one
-water step a call between halo exchanges.
+a grid with its drains carried in: the sharded pool's extended block, a
+group of water steps a call between halo exchanges (8 cells of halo a
+step); each step computes only the tiles that can still be exact.
 
 The TPU blocking arguments (``block``, ``phases_per_launch``, ``unroll``)
 are accepted and ignored: they choose Mosaic layouts, not results.
@@ -28,8 +29,10 @@ flag when any cell holds ``>= MIN_WATER`` and every step launch returns at
 once when it is down.  Each wrapper's ``wet_calls`` adds up those flags on
 the device (an int32 tensor; ``None`` until the first call on the card —
 set it back to ``None`` to reset), so a caller can count the calls that ran
-phases without stalling the main path; reading it syncs.  Every wrapper
-counts its calls on the card in ``launches``.
+phases without stalling the main path; reading it syncs.  A window call
+runs a whole group of the sharded pool's water steps, so its
+``wet_calls`` counts groups, not steps.  Every wrapper counts its calls on
+the card in ``launches``.
 """
 
 from __future__ import annotations
@@ -104,8 +107,10 @@ def pool_automata_window(height, pool, drains, iterations: int, drain_particles:
     on.  Returns (pool, drains), ``drains`` with each phase's drains added
     in phase order.  Cells within 2 a phase of a window edge that is not
     the grid's edge are stale (``pool._pool_automata_window``, its plain
-    version, says why).  A CPU tensor takes the plain version; a CUDA
-    tensor launches K5 or raises."""
+    version, says why); on the card each step computes only the tiles that
+    can still be exact, so those cells are undefined there after the call.
+    A CPU tensor takes the plain version; a CUDA tensor launches K5 or
+    raises."""
     if height.device.type == "cpu":
         return _pool._pool_automata_window(height, pool, drains, iterations,
                                            drain_particles, origin, res)

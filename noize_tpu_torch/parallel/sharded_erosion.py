@@ -29,10 +29,14 @@ Each rank holds its block of every map (a ``DTensor`` placed ``Shard(0)``,
   blocks only; ``EXACT_PILES`` gathers the ≤ K piles' slot values into a
   table every rank holds and solves it there (K6's table entry), each rank
   then committing to its own block.
-* pool automata — one exchange a water step: the pool extended 8 cells
-  toward the neighbours, one K5 window launch for the step's 4 phases
-  (global-coordinate masks and borders, the drains carried in), the block
-  cropped back.
+* pool automata — one exchange a group of ``POOL_GROUP`` water steps (all
+  of a cycle's at the default ``WATER_STEPS``): the pool extended 8 cells
+  a step of the group toward the neighbours (through as many neighbour
+  blocks as that reaches), one K5 window call for the group's steps
+  (global-coordinate masks and borders, the drains carried in, each step
+  computing only the cells that can still be exact), the block cropped
+  back.  The reference exchanges 8 cells once a step; the results are the
+  same.
 
 Equality with the port's single-device cycle (D8 in the reference's
 words): spawn, thermal, the pool phases (pool and drains), the tent and
@@ -358,24 +362,37 @@ def _sharded_write_sediment(mesh, height, sed_acc, params, height_scale):
 
 # --- pool automata -----------------------------------------------------------
 
+#: water steps a K5 window call runs between two exchanges of the pool: all
+#: of a cycle's at the default WATER_STEPS (10).  A step needs 8 cells of
+#: halo, so a group of k steps exchanges once at 8k cells; what a step costs
+#: is the exchange rounds and the call's host work, not the wider ring (each
+#: step computes only the tiles that can still be exact): on four cards
+#: (2×2 at 2048²) the sharded step ran faster at 10 steps a call than at 1
+#: (PERF.md, scripts/sharded_cards.py --pool-group).
+POOL_GROUP = 10
+
+
 def _pool_block(mesh, h, p, res: int, iterations: int, drain_particles: bool):
-    """``pool_automata`` on this rank's blocks: each water step extends the
-    pool 8 cells toward the neighbours (one exchange), runs its 4 phases
-    on the window (``pool_automata_window``: K5 on the card) with the
-    block's running drains, and crops the block back."""
-    halo = 8  # 2 cells of exactness a phase, 4 phases
+    """``pool_automata`` on this rank's blocks: each group of up to
+    ``POOL_GROUP`` water steps extends the pool 8 cells a step toward the
+    neighbours (one exchange), runs the steps' phases on the window
+    (``pool_automata_window``: K5 on the card, one call) with the block's
+    running drains, and crops the block back."""
+    group = max(1, min(POOL_GROUP, iterations))
+    halo = 8 * group  # 2 cells of exactness a phase, 4 phases a step
     lr, lc = h.shape
     row0, col0 = _origin(mesh, (lr, lc))
     ext_h, top, left = _extend_2d(h, halo, mesh=mesh)
     core = (slice(top, top + lr), slice(left, left + lc))
     origin = (row0 - top, col0 - left)
     drains = torch.zeros_like(p)
-    for _ in range(iterations):
+    for done in range(0, iterations, group):
         ext_p, _, _ = _extend_2d(p, halo, mesh=mesh)
         ext_d = torch.zeros_like(ext_p)
-        ext_d[core] = drains
-        ext_p, ext_d = pool_automata_window(ext_h, ext_p, ext_d, 1, drain_particles, origin,
-                                            res)
+        if done:
+            ext_d[core] = drains
+        ext_p, ext_d = pool_automata_window(ext_h, ext_p, ext_d, min(group, iterations - done),
+                                            drain_particles, origin, res)
         p, drains = ext_p[core].contiguous(), ext_d[core].contiguous()
     return p, drains
 
@@ -383,7 +400,8 @@ def _pool_block(mesh, h, p, res: int, iterations: int, drain_particles: bool):
 def _sharded_pool_automata(mesh, height, pool, res: int, iterations: int,
                            drain_particles: bool):
     """``erosion.pool.pool_automata`` over sharded blocks, one exchange a
-    water step (``_pool_block``); bit-equal to the single-device op.
+    group of water steps (``_pool_block``); bit-equal to the single-device
+    op.
     Returns (pool, drains), sharded."""
     h, shape = _local_block(height, mesh)
     p, _ = _local_block(pool, mesh)

@@ -19,9 +19,10 @@ rounds (copies in order, then in reverse).
 
 K9: on the Quickstart descent's events, the scatter into zeros (dead
 slots' zero events skipped) against the same scatter into given zero maps
-(nothing skipped), the stable sort of the keys alone, and the three
-``index_put_`` calls K9 replaced, by CUDA events; then the device time of
-each of K9's kernels (and of K7's) a call under ``torch.profiler``.
+(nothing skipped), ``torch.sort`` of the keys alone (the library sort K9
+once called), and the three ``index_put_`` calls K9 replaced, by CUDA
+events; then the device time and the launches a call of each of K9's
+device operations (and of K7's) under ``torch.profiler``.
 
 Prints the card's name and power limit first, then one line a reading.
 """
@@ -146,8 +147,8 @@ def time_ms(fn, reps):
 
 
 def device_us(fn, reps=10):
-    """Device time a call of each kernel ``fn`` launches (µs), under
-    ``torch.profiler``."""
+    """(device µs, launches) a call of each device operation ``fn`` runs,
+    under ``torch.profiler``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -158,14 +159,17 @@ def device_us(fn, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / reps for e in prof.key_averages()
+    return {e.key: (e.self_device_time_total / reps, e.count / reps)
+            for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
 
 
 def show(what, times):
-    total = sum(times.values())
-    print(f"{what}: device {total:.1f} µs a call: " + "; ".join(
-        f"{k[:50]} {v:.1f}" for k, v in sorted(times.items(), key=lambda kv: -kv[1])))
+    total = sum(t for t, _ in times.values())
+    ops = sum(n for _, n in times.values())
+    print(f"{what}: device {total:.1f} µs in {ops:g} device operations a call: " + "; ".join(
+        f"{k[:50]} {t:.1f} ×{n:g}" for k, (t, n) in sorted(times.items(),
+                                                         key=lambda kv: -kv[1][0])))
 
 
 def same(a, b):
@@ -234,7 +238,7 @@ def main():
             (cells,), d, accumulate=True) for d in deltas], reps)
         print(f"K9 {label}, {cells.numel()} events ({live} with a nonzero delta): zero events "
               f"skipped {t_fresh:.4f} ms, none skipped {t_given:.4f} ms (same bits); the stable "
-              f"sort of {cells.numel()} int32 keys alone {t_sort:.4f} ms; three index_put_ "
+              f"torch.sort of {cells.numel()} int32 keys alone {t_sort:.4f} ms; three index_put_ "
               f"{t_put:.4f} ms")
         show("K9 zero events skipped", device_us(lambda: PA.scatter_events(cells, deltas, size)))
         show("K9 none skipped", device_us(lambda: SCU.scatter_in_order(

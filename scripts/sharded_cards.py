@@ -2,6 +2,7 @@
 """The sharded erosion cycle on a 2-D mesh of cards, against one card.
 
     python3 scripts/sharded_cards.py [--ranks 4] [--res 2048] [--steps 3] [--device cuda]
+                                     [--pool-group K]
 
 Starts ``--ranks`` processes, one card each (NCCL; ``--device cpu`` runs
 gloo ranks on the CPU, for a rehearsal at a small ``--res``).  Every rank
@@ -14,6 +15,10 @@ across block borders: the largest difference is printed, and held to the
 reference's 2e-6).  Then
 ``dryrun_multichip(--ranks)``.  Prints the card's name and power limit
 first; times are host clock to ``torch.cuda.synchronize()`` and a barrier.
+Rank 0 also counts the rounds of neighbour traffic (``halo._shift`` calls)
+a cycle, all of them and the pool automata's.  ``--pool-group`` sets the
+water steps a K5 window call runs between two exchanges of the pool
+(``sharded_erosion.POOL_GROUP``) for the run, to compare schedules.
 """
 
 from __future__ import annotations
@@ -49,7 +54,32 @@ def _sync(device):
     dist.barrier()
 
 
-def _rank(rank: int, world: int, init: str, res: int, steps: int, device: str):
+def _count_rounds():
+    """Count ``halo._shift`` calls (one round of neighbour traffic each),
+    all and those inside the sharded pool automata: a dict the counts land
+    in."""
+    from noize_tpu_torch.parallel import halo, sharded_erosion
+
+    rounds = {"all": 0, "pool": 0}
+    shift, pool_block = halo._shift, sharded_erosion._pool_block
+
+    def counted_shift(*args, **kwargs):
+        rounds["all"] += 1
+        return shift(*args, **kwargs)
+
+    def counted_pool_block(*args, **kwargs):
+        before = rounds["all"]
+        out = pool_block(*args, **kwargs)
+        rounds["pool"] += rounds["all"] - before
+        return out
+
+    halo._shift = counted_shift
+    sharded_erosion._pool_block = counted_pool_block
+    return rounds
+
+
+def _rank(rank: int, world: int, init: str, res: int, steps: int, device: str,
+          pool_group=None):
     import torch
     import torch.distributed as dist
 
@@ -58,8 +88,12 @@ def _rank(rank: int, world: int, init: str, res: int, steps: int, device: str):
     from noize_tpu_torch.erosion.sim import ErosionSim
     from noize_tpu_torch.parallel import device_mesh as DM
     from noize_tpu_torch.parallel.distributed import initialize
+    from noize_tpu_torch.parallel import sharded_erosion as SE
     from noize_tpu_torch.parallel.sharded_erosion import ShardedErosionSim
 
+    if pool_group is not None:
+        SE.POOL_GROUP = pool_group
+    rounds = _count_rounds()
     initialize(f"file://{init}", world, rank, device=device)
     try:
         dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else "cpu"
@@ -74,6 +108,8 @@ def _rank(rank: int, world: int, init: str, res: int, steps: int, device: str):
             _sync(device)
             times.append((time.perf_counter() - t0) * 1e3)
             if i == 0:
+                cycles = sim.settings.CYCLES
+                per_cycle = {k: v / cycles for k, v in rounds.items()}
                 first = {k: getattr(sim.state.world, k).full_tensor() for k in
                          ("height", "pool", "flow", "track")}
                 first["drain"] = sim.state.drain_water.full_tensor()
@@ -84,7 +120,9 @@ def _rank(rank: int, world: int, init: str, res: int, steps: int, device: str):
                   f"{device} ranks (blocks {block}), 3 cycles: "
                   + ", ".join(f"{t:.3f}" for t in times) + " ms; K5 window launches on rank 0 "
                   f"{pool_automata_window.launches}, K7 window launches "
-                  f"{descend_steps_window.launches}")
+                  f"{descend_steps_window.launches}; pool group {SE.POOL_GROUP} water steps; "
+                  f"rounds of neighbour traffic a cycle on rank 0: {per_cycle['all']:g}, of "
+                  f"them the pool automata's {per_cycle['pool']:g}")
             single = ErosionSim(h)
             ones = []
             for i in range(steps):
@@ -129,11 +167,14 @@ def main(argv=None) -> int:
     ap.add_argument("--res", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--pool-group", type=int, default=None,
+                    help="water steps a K5 window call runs (default: POOL_GROUP)")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--init", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.rank is not None:
-        _rank(args.rank, args.ranks, args.init, args.res, args.steps, args.device)
+        _rank(args.rank, args.ranks, args.init, args.res, args.steps, args.device,
+              args.pool_group)
         return 0
     if args.device == "cuda":
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -145,7 +186,10 @@ def main(argv=None) -> int:
         procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r),
                                    "--ranks", str(args.ranks), "--init", init, "--res",
                                    str(args.res), "--steps", str(args.steps), "--device",
-                                   args.device], cwd=ROOT, env=env)
+                                   args.device]
+                                  + ([] if args.pool_group is None
+                                     else ["--pool-group", str(args.pool_group)]),
+                                  cwd=ROOT, env=env)
                  for r in range(args.ranks)]
         try:
             rcs = [p.wait(timeout=900) for p in procs]

@@ -762,6 +762,68 @@ def test_k5_window_matches_plain_with_drains_carried_in(cuda, origin, shape, ite
         PC.pool_automata_window(h, p, d, 1, True, (res - rows + 1, 0), res)
 
 
+def _k5_group_stitch(h, p, res, nx, ny, iters, group):
+    """The sharded pool's schedule on one card: each block of an nx × ny
+    split extended 8 cells a step of a group toward its neighbours, one K5
+    window call a group of ``group`` water steps with the drains carried
+    in, the blocks stitched after each group."""
+    got_p, got_d = p.clone(), torch.zeros_like(p)
+    for done in range(0, iters, group):
+        new_p, new_d = got_p.clone(), got_d.clone()
+        for win, core, block in _windows(res, nx, ny, 8 * group):
+            op, od = PC.pool_automata_window(h[win].contiguous(), got_p[win].contiguous(),
+                                             got_d[win].contiguous(), min(group, iters - done),
+                                             True, (win[0].start, win[1].start), res)
+            new_p[block], new_d[block] = op[core], od[core]
+        got_p, got_d = new_p, new_d
+    return got_p, got_d
+
+
+@pytest.mark.parametrize("res,nx,ny,iters,group", [
+    (2048, 2, 2, 10, 10), (2048, 4, 1, 10, 10), (2049, 3, 3, 10, 10), (2048, 2, 2, 10, 4),
+    (64, 4, 1, 3, 3), (66, 3, 2, 5, 2), (99, 3, 3, 10, 10), (130, 2, 5, 7, 7)])
+def test_k5_window_groups_stitch_to_full_grid(cuda, res, nx, ny, iters, group):
+    """K5 on the blocks of a split, one call a group of water steps on a
+    halo of 8 cells a step (64 = 4 × 1 at 3 steps: the 24-cell halo spans
+    three neighbour blocks), each step computing only the tiles that can
+    still be exact: the full-grid K5 call, pool and drains bit for
+    bit, in ceil(iters / group) calls a block."""
+    rng = np.random.default_rng(res + nx + group)
+    h = torch.from_numpy(_field(rng, res)).to(cuda)
+    p = torch.from_numpy(rng.uniform(-0.3, 0.1, (res, res)).clip(0).astype(np.float32)).to(cuda)
+    want_p, want_d = pool_automata_full_cuda(h, p, iters, True)
+    before = PC.pool_automata_window.launches
+    got_p, got_d = _k5_group_stitch(h, p, res, nx, ny, iters, group)
+    assert PC.pool_automata_window.launches == before + -(-iters // group) * nx * ny
+    torch.cuda.synchronize()
+    assert not torch.equal(want_p, p)
+    _equal(got_p, want_p)
+    _equal(got_d, want_d)
+
+
+@pytest.mark.parametrize("origin,shape,exact,iters", [
+    ((0, 0), (1104, 1104), (slice(0, 1024), slice(0, 1024)), 10),
+    ((944, 944), (1104, 1104), (slice(80, 1104), slice(80, 1104)), 10),
+    ((40, 20), (90, 100), (slice(24, 90), slice(24, 76)), 3),
+    ((0, 7), (130, 61), (slice(0, 130), slice(16, 45)), 2)])
+def test_k5_window_kept_cells_match_plain(cuda, origin, shape, exact, iters):
+    """One call of several water steps: the cells it leaves exact (8 a step
+    inside every inner window edge; the 2×2 split's blocks of 2048² at 10
+    steps) bit-equal to the plain window, which computes every cell, with
+    nonzero drains carried in."""
+    res = 2048 if shape[0] > 1000 else 130
+    rng = np.random.default_rng(sum(origin) + iters)
+    h = torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32)).to(cuda)
+    p = torch.from_numpy(rng.uniform(-0.3, 0.1, shape).clip(0).astype(np.float32)).to(cuda)
+    d = torch.from_numpy(rng.uniform(0, 0.01, shape).astype(np.float32)).to(cuda)
+    got = PC.pool_automata_window(h, p, d, iters, True, origin, res)
+    want = PO._pool_automata_window(h, p, d, iters, True, origin, res)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _equal(g[exact], w[exact])
+    assert not torch.equal(got[1][exact], d[exact])
+
+
 def _pile_table(h, pile_map, radius, max_piles=64):
     """The sharded EXACT_PILES table at world size 1: the piles, each
     slot's clamped cell and its value on ``h``."""
@@ -1215,6 +1277,151 @@ def test_k9_refuses_bad_input(cuda):
         SCU.scatter_in_order(c, [v.double()], 16)
     with pytest.raises(ValueError):
         SCU.scatter_in_order(c, [v], 16, [torch.zeros(15, device=cuda)])
+
+
+def _k9_case(size, n, seed, zero=0.3, nan=0.0):
+    """``n`` events on ``size`` cells: half on four hot cells (runs across
+    warps and tiles), the grid's first and last cells among them, three
+    N(0, 1) deltas with ``zero`` of the events all zero and ``nan`` of them
+    NaN."""
+    rng = np.random.default_rng(seed)
+    hot = rng.integers(0, size, 4)
+    cells = np.where(rng.uniform(0, 1, n) < 0.5, rng.choice(hot, n), rng.integers(0, size, n))
+    cells[: min(n, 2)] = [size - 1, 0][: min(n, 2)]
+    vals = rng.normal(0, 1, (3, n)).astype(np.float32)
+    vals[:, rng.uniform(0, 1, n) < zero] = 0.0
+    vals[0, rng.uniform(0, 1, n) < nan] = np.nan
+    return (torch.from_numpy(cells.astype(np.int64)).cuda(),
+            [torch.from_numpy(v).cuda() for v in vals])
+
+
+def _bits_or_nan(a, b):
+    """Bit-equality where ``b`` is a number, NaN where it is NaN: the card's
+    add of a NaN gives the canonical NaN, the CPU's keeps the operand's
+    payload."""
+    nan = torch.isnan(b)
+    assert torch.equal(torch.isnan(a), nan)
+    _bits(torch.where(nan, 0.0, a), torch.where(nan, 0.0, b))
+
+
+def _check_k9(size, c, v):
+    """K9 into fresh zeros and into maps of -0.0 against the CPU's
+    ``scatter_events``, bit for bit (NaN payloads aside)."""
+    from noize_tpu_torch.erosion import particles as PA
+    from noize_tpu_torch.erosion import scatter_cuda as SCU
+
+    before = SCU.scatter_in_order.launches
+    got = PA.scatter_events(c, v, size)
+    neg = [torch.full((size,), -0.0, device=c.device) for _ in v]
+    on = PA.scatter_events(c, v, size, [a.clone() for a in neg])
+    torch.cuda.synchronize()
+    assert SCU.scatter_in_order.launches == before + (2 if c.numel() else 0)
+    for g, w in zip(got, _cpu_scatter(c, v, size)):
+        _bits_or_nan(g.cpu(), w)
+    for g, w in zip(on, _cpu_scatter(c, v, size, neg)):
+        _bits_or_nan(g.cpu(), w)
+
+
+@pytest.mark.parametrize("size", [1, 2, 2**11, 2**11 + 1, 2**22, 2**22 + 1, 2049 * 2049])
+def test_k9_sizes_on_pass_edges_match_cpu(cuda, size):
+    """Sizes whose key widths fall on the sort's pass edges (1, 1, 11, 12,
+    22, 23, 23 bits: one, two and three passes), 20,000 events with zero
+    and NaN deltas."""
+    _check_k9(size, *_k9_case(size, 20_000, size, nan=0.05))
+
+
+@pytest.mark.parametrize("case", ["none", "one", "all-skipped", "run-1e5", "spread-1e6",
+                                  "spread-1e6-4-maps", "stamps-524288", "stamps-1-map"])
+def test_k9_event_counts_match_cpu(cuda, case):
+    """No event, one, every event all-zero (the fresh call skips them all),
+    one run of 10⁵ events on a cell, 10⁶ events spread over 2048² (three
+    and four maps), and the vegetation's 524,288 stamps (three maps and its
+    one): the last four past 128 tiles (three passes of 8 bits) and past
+    the resident grid (a thread walks several runs)."""
+    size = 2048 * 2048
+    if case == "none":
+        c, v = _k9_case(size, 0, 1)
+    elif case == "one":
+        c, v = _k9_case(size, 1, 2, zero=0.0)
+    elif case == "all-skipped":
+        c, v = _k9_case(size, 50_000, 3, zero=1.0)
+    elif case == "run-1e5":
+        c, v = _k9_case(size, 100_000, 4)
+        c = torch.full_like(c, 123_457)
+    elif case.startswith("spread-1e6"):
+        c, v = _k9_case(size, 1_000_000, 5)
+        if case.endswith("4-maps"):
+            v = v + [v[0] * 0.5]
+    else:
+        c, v = _k9_case(size, 524_288, 6, zero=0.0)
+        if case == "stamps-1-map":
+            v = v[:1]
+    _check_k9(size, c, v)
+
+
+def test_k9_traps_on_a_cell_outside_the_maps(cuda):
+    """A cell outside [0, size) traps on the card (a process of its own: a
+    trap ends the CUDA context)."""
+    import os
+    import subprocess
+    import sys
+
+    code = ("import torch\n"
+            "from noize_tpu_torch.erosion import scatter_cuda as SCU\n"
+            "c = torch.tensor([3, 16, 1], dtype=torch.int64, device='cuda')\n"
+            "SCU.scatter_in_order(c, [torch.ones(3, device='cuda')], 16)\n"
+            "torch.cuda.synchronize()\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode != 0, out.stdout
+
+
+def _device_ops_of_last_call(fn, calls=6):
+    """The device operations (kernels, fills, copies) the last of ``calls``
+    calls of ``fn`` ran, in one ``torch.profiler`` trace: a host-to-device
+    copy, which ``fn`` never makes, runs before each call and delimits it.
+    A trace that dropped records (the last two calls' operations differ) is
+    taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    one = torch.ones(1)
+    mark = torch.zeros(1, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                mark.copy_(one)
+                fn()
+                torch.cuda.synchronize()
+        ops = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(ops) if "HtoD" in e.name]
+        if len(marks) >= 2:
+            last = [e.name for e in ops[marks[-1] + 1:]]
+            if last == [e.name for e in ops[marks[-2] + 1:marks[-1]]]:
+                return last
+    raise AssertionError("no complete profiler trace of a call in 3 attempts")
+
+
+@pytest.mark.parametrize("n,maps", [(104_000, 3), (524_288, 1)])
+def test_k9_runs_one_kernel_a_call(cuda, n, maps):
+    """By the profiler: a call adding into given maps runs one device
+    kernel, K9's, at the descent's 104,000 events and at the vegetation's
+    524,288 (past the resident grid, three passes of 8 bits); into fresh
+    maps the fill comes before it."""
+    from noize_tpu_torch.erosion import particles as PA
+
+    size = 2048 * 2048
+    c, v = _k9_case(size, n, 7, zero=0.6)
+    v = v[:maps]
+    acc = [torch.zeros(size, device=cuda) for _ in v]
+    given = _device_ops_of_last_call(lambda: PA.scatter_events(c, v, size, acc))
+    fresh = _device_ops_of_last_call(lambda: PA.scatter_events(c, v, size))
+    assert len(given) == 1 and "scatter_sort" in given[0], given
+    assert len(fresh) == 2 and fresh[1] == given[0], fresh
 
 
 def test_k7_refuses_bad_input(cuda):

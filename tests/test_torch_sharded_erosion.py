@@ -285,22 +285,27 @@ def _windows(res, nx, ny, halo):
                                            (30, 3, 2, True), (33, 3, 3, True),
                                            (48, 2, 3, False)])
 @pytest.mark.parametrize("drain", [True, False])
-def test_pool_window_plain_stitches_to_full_grid(res, nx, ny, odd, drain):
-    """The K5 window's plain version on each block extended 8 cells (odd
-    origins at 30 = 3 × 2 and 33 = 3 × 3, non-square windows), one water
-    step a call with the drains carried in, stitched: the full-grid
-    phases, bit for bit."""
+@pytest.mark.parametrize("group", [1, 2, 3])
+def test_pool_window_plain_stitches_to_full_grid(res, nx, ny, odd, drain, group):
+    """The K5 window's plain version on each block extended 8 cells a step
+    of a group of ``group`` water steps (odd origins at 30 = 3 × 2 and 33 =
+    3 × 3, non-square windows; at 3 steps on 4×1 of 32² the 24-cell halo
+    spans three neighbour blocks), one call a group with the drains carried
+    in, the kept block's cells stitched: 3 steps of the full-grid phases, bit
+    for bit, whatever the grouping (the sharded pool's schedule)."""
     rng = np.random.default_rng(res + nx)
     h = T(rng.uniform(0, 1, (res, res)).astype(np.float32))
     p = T(rng.uniform(-0.3, 0.1, (res, res)).clip(0).astype(np.float32))
     want_p, want_d = PO._pool_automata_fullgrid(h, p, 3, drain)
     got_p, got_d = p.clone(), torch.zeros_like(p)
-    wins = _windows(res, nx, ny, 8)
-    assert any(w[0].start % 2 or w[1].start % 2 for w, _, _ in wins) == odd
-    for _ in range(3):
+    wins = _windows(res, nx, ny, 8 * group)
+    if group == 1:  # wider halos reach the grid's edge, an even origin
+        assert any(w[0].start % 2 or w[1].start % 2 for w, _, _ in wins) == odd
+    for done in range(0, 3, group):
         new_p, new_d = got_p.clone(), got_d.clone()
         for win, core, block in wins:
-            op, od = PO._pool_automata_window(h[win], got_p[win], got_d[win], 1, drain,
+            op, od = PO._pool_automata_window(h[win], got_p[win], got_d[win],
+                                              min(group, 3 - done), drain,
                                               (win[0].start, win[1].start), res)
             new_p[block], new_d[block] = op[core], od[core]
         got_p, got_d = new_p, new_d
