@@ -7,7 +7,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. device: requires CUDA; prints the card's name and
    ``nvidia-smi --query-gpu=name,power.limit``;
-2. build: compiles the CUDA kernels K1-K9 from ``noize_tpu_torch/csrc``
+2. build: compiles the CUDA kernels K1-K9 (K1 with K1@short and K1@rss)
+   from ``noize_tpu_torch/csrc``
    (K7 particle descent ``descent.cu``, K8 threefry ``threefry.cu``, K9 the
    in-order event scatter ``scatter.cu``);
 3. kernels: each kernel against its plain PyTorch version on the card at
@@ -48,15 +49,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 9. prng: the threefry PRNG on the card against the CPU, 10⁶ ``randint``
    draws (integers, exact), with the card's time for the draw, and K8
    against its plain version on the card (bit-equal);
-10. kernel filters: K1 with each non-Gauss filter's taps (distinct X and
-   Z taps, Smooth3's factor) and ``kernel_filter``'s Sobel3_2D at 2048²
-   against the plain version (tolerance 0), with CUDA-event times, the
-   bound and the same chain as ``conv2d`` calls with replicate padding;
-11. presets: the BasicDemo presets PerlinGenerator (K1), FlowMap (K2) and
-   Sobel (K1) at 2048² through ``Pipeline.run`` and ``compose.fuse``
-   (equal), and the Mesh preset on the PerlinGenerator output at the
-   Quickstart's mesh size; every preset at 256² on the card within 1e-4 of
-   the port on the CPU;
+10. kernel filters: K1@short with each non-Gauss filter's taps (distinct
+   X and Z taps, Smooth3's factor) and the presets' Gauss9_S1 ×2 and
+   Gauss3_S1 ×3, K1@rss as ``kernel_filter``'s Sobel3_2D and
+   ``edge_2d``'s Prewitt magnitude, at 2048² against the plain versions
+   (tolerance 0), with CUDA-event times, the bound, the same chain as
+   ``conv2d`` calls with replicate padding, the device operations of one
+   call (profiled: one kernel each, no elementwise pass after it) and the
+   host enqueue of one call;
+11. presets: the BasicDemo presets PerlinGenerator (K1@short), FlowMap (K2)
+   and Sobel (K1@short, K1@rss) at 2048² through ``Pipeline.run`` and
+   ``compose.fuse`` (equal; no ``chain_tile`` launch), and the Mesh preset
+   on the PerlinGenerator output at the Quickstart's mesh size; every
+   preset at 256² on the card against the port on the CPU (PerlinGenerator
+   and Sobel equal, FlowMap within 1e-4);
 12. tiles (this slice's main path): ``bench.py``'s config 5 (16 tiles of
    1024², 13 octaves, Gauss-5 ×17, one erosion cycle of 250 particles) as
    one ``tile_batch``, then with mesh planes, then the same grid's flow map
@@ -237,7 +243,8 @@ def _counters():
     from noize_tpu_torch.ops.cuda import thermal as TC
 
     return {
-        "K1": SC.separable_chain, "K2": FC.flow_map_fused,
+        "K1": SC.separable_chain, "K1@tile": SC.tile_chain, "K1@short": SC.short_chain,
+        "K1@rss": SC.root_sum_squares_chain, "K2": FC.flow_map_fused,
         "K3": TC.thermal_erosion_fused, "K4": PC.pool_automata_cuda,
         "K5": PC.pool_automata_full_cuda, "K6": PL.exact_piles,
         "K5@window": PC.pool_automata_window, "K6@table": PL.solve_pile_table,
@@ -332,7 +339,9 @@ def _conv_chain(taps, iterations, taps_z=None, factor=1.0):
 
 class Rows:
     """The kernels JSON line: one row per TPU kernel, K5 at 2049², K5 and
-    K3 at 1025² (odd sizes), K1 with each filter's taps, K1 and K2 on the
+    K3 at 1025² (odd sizes), K1 with each filter's taps and the presets'
+    Gauss chains (K1@short; Sobel3_2D on K1@rss), K1@rss on ``edge_2d``'s
+    Prewitt magnitude, K1 and K2 on the
     config-5 stack, K6 (the exact pile solver, no TPU kernel's port), K5 on
     a window and K6 on a pile table (the sharded cycle's), and K7 (particle
     descent), K7 on a window, K7's record table, K8 (threefry), K8's draw
@@ -378,7 +387,7 @@ class Rows:
     def line(self):
         order = (["#1", "#2", "#3", "#4", "#5", "#6", "#7", "#8", "#9", "#10", "K5", "K5@1025",
                   "K3@1025"] + [f"K1:{f}" for f in FILTERS]
-                 + ["K1@stack", "K2@stack", "K6", "K5@window", "K6@table", "K7", "K7@window",
+                 + [f"K1:{g}x{n}" for g, n in PRESET_CHAINS] + ["K1@rss", "K1@stack", "K2@stack", "K6", "K5@window", "K6@table", "K7", "K7@window",
                     "K7@records", "K8", "K8@randint", "K9"])
         _check(set(self.rows) == set(order), f"rows {sorted(self.rows)}")
         for k in order:
@@ -408,6 +417,8 @@ def _inputs(res):
 #: the non-Gauss KernelFilterStage filters, each timed on K1 at 2048²
 FILTERS = ("Smooth3", "Sobel3Horizontal", "Sobel3Vertical", "Sobel3_2D",
            "Prewitt3Horizontal", "Prewitt3Vertical")
+#: the BasicDemo presets' Gauss calls (app/presets.py: GAUSS_LF, GAUSS_HF)
+PRESET_CHAINS = (("Gauss9_S1", 2), ("Gauss3_S1", 3))
 
 SRC = {
     "K1": "noize_tpu_torch/csrc/stencil.cu", "K2": "noize_tpu_torch/csrc/flow.cu",
@@ -664,14 +675,15 @@ def _k9_cost(n_events, size, maps=3):
     return n_events * (8 + 4 * maps) + 4 * maps * size, n_events * maps
 
 
-def _device_ops_of_last_call(fn, only=None, calls=6):
-    """(name, device µs) of each device operation (kernel, fill, copy) the
-    last of ``calls`` calls of ``fn`` ran — of those whose names contain one
-    of ``only``, when given — in one ``torch.profiler`` trace: a
-    host-to-device copy, which ``fn`` never makes, runs before each call and
-    delimits it.  The trace may miss what runs while it starts, and may
-    drop records: one whose last two calls ran other operations (the calls
-    are the same) is taken again, up to three times."""
+def _device_ops_of_last_call(fn, only=None, calls=8):
+    """(name, device µs) of each device operation (kernel, fill, copy) of
+    one of ``calls`` calls of ``fn`` — of those whose names contain one of
+    ``only``, when given — in one ``torch.profiler`` trace: a host-to-device
+    copy, which ``fn`` never makes, runs before each call and delimits it.
+    The trace may miss what runs while it starts, and may drop records
+    (markers included), so the call read is the last one whose operations
+    another call of the trace ran too (the calls are the same); a trace
+    with no two such calls is taken again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -689,13 +701,14 @@ def _device_ops_of_last_call(fn, only=None, calls=6):
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
         marks = [i for i, e in enumerate(ops) if "HtoD" in e.name]
-        if len(marks) >= 2:
-            last, prev = ops[marks[-1] + 1:], ops[marks[-2] + 1:marks[-1]]
-            if [e.name for e in last] == [e.name for e in prev]:
-                return [(e.name, e.time_range.elapsed_us()) for e in last
+        each = [ops[a + 1:b] for a, b in zip(marks, marks[1:] + [len(ops)])]
+        names = [[e.name for e in c] for c in each]
+        for c, n in zip(reversed(each), reversed(names)):
+            if names.count(n) >= 2:
+                return [(e.name, e.time_range.elapsed_us()) for e in c
                         if only is None or any(k in e.name for k in only)]
-        print(f"profiler trace attempt {attempt + 1} saw fewer than two calls or two calls "
-              "of other operations")
+        print(f"profiler trace attempt {attempt + 1} saw no two calls of the same operations "
+              f"({len(marks)} calls marked)")
     raise RuntimeError("chip_smoke: no complete profiler trace of a call in 3 attempts")
 
 
@@ -950,42 +963,82 @@ def prng_phase():
           f"of 1000 particles {spawn_ms:.4f} ms")
 
 
-def filter_phase(rows):
-    """K1 with each non-Gauss KernelFilterStage filter's taps, one
-    iteration at 2048², against its plain version (tolerance 0), with the
-    same chain as cuDNN convolutions as the library yardstick."""
+def _host_us(fn, calls=20):
+    """Host µs to enqueue one call of ``fn``: ``calls`` calls back to back,
+    no sync between them."""
     import torch
 
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def filter_phase(rows):
+    """K1 with each non-Gauss KernelFilterStage filter's taps (one
+    iteration) and the presets' Gauss9_S1 ×2 and Gauss3_S1 ×3 calls at
+    2048², all on K1@short but Sobel3_2D (``kernel_filter``) and
+    ``edge_2d``'s Prewitt magnitude (the K1@rss row), on K1@rss; each
+    against its plain version (tolerance 0), with CUDA-event times, the
+    bound, the same chain as cuDNN ``conv2d`` calls with replicate padding,
+    the device operations of one call (profiled: one kernel, nothing
+    after it) and the host enqueue of one call."""
+    import torch
+
+    from noize_tpu_torch.ops import edge as ED
     from noize_tpu_torch.ops import kernels as KE
     from noize_tpu_torch.ops.cuda import stencil as SC
-    from noize_tpu_torch.ops.filters import root_sum_squares_tiles
 
     _, x, _ = _inputs(2048)
     cells = x.numel()
-    for name in FILTERS:
-        if name == "Sobel3_2D":
-            sob = [(KE._SOBEL3_HX, KE._SOBEL3_HZ), (KE._SOBEL3_VX, KE._SOBEL3_VZ)]
-            convs = [_conv_chain(tx, 1, tz) for tx, tz in sob]
-            kernel = lambda: (KE.kernel_filter(x, "Sobel3_2D", 1),)  # noqa: E731
-            plain = lambda: (root_sum_squares_tiles(*(  # noqa: E731
-                SC.separable_chain_plain(x, tx, 1, taps_z=tz) for tx, tz in sob)),)
-            library = lambda: (torch.sqrt(sum(c(x) ** 2 for c in convs)),)  # noqa: E731
+    pairs = {"SOBEL": [(KE._SOBEL3_HX, KE._SOBEL3_HZ), (KE._SOBEL3_VX, KE._SOBEL3_VZ)],
+             "PREWITT": [(KE._PREWITT3_HX, KE._PREWITT3_HZ),
+                         (KE._PREWITT3_VX, KE._PREWITT3_VZ)]}
+    cases = [(f"K1:{n}", n, 1) for n in FILTERS]
+    cases += [(f"K1:{g}x{m}", g, m) for g, m in PRESET_CHAINS] + [("K1@rss", "PREWITT", 1)]
+    for key, name, iters in cases:
+        if name in ("Sobel3_2D", "PREWITT"):
+            pair = pairs["SOBEL" if name == "Sobel3_2D" else name]
+            convs = [_conv_chain(tx, 1, tz) for tx, tz in pair]
+            if name == "Sobel3_2D":
+                kernel = lambda: (KE.kernel_filter(x, "Sobel3_2D", 1),)  # noqa: E731
+                label = "K1 Sobel3_2D taps (kernel_filter, 1 iteration, 2048², K1@rss)"
+            else:
+                kernel = lambda: (ED.edge_2d(x, "PREWITT"),)  # noqa: E731
+                label = "K1@rss edge_2d PREWITT (2048²)"
+            plain = lambda pair=pair: (  # noqa: E731
+                SC.root_sum_squares_chain_plain(x, *pair),)
+            library = lambda convs=convs: (  # noqa: E731
+                torch.sqrt(sum(c(x) ** 2 for c in convs)),)
             ops = 2 * 2 * 2 * 3 * cells + 4 * cells  # two series; squares, add, sqrt
         else:
             tx, tz, f = KE._SERIES_TABLE[name]
-            conv = _conv_chain(tx, 1, tz, f)
-            kernel = lambda tx=tx, tz=tz, f=f: (  # noqa: E731
-                SC.separable_chain(x, tx, 1, taps_z=tz, factor=f),)
-            plain = lambda tx=tx, tz=tz, f=f: (  # noqa: E731
-                SC.separable_chain_plain(x, tx, 1, taps_z=tz, factor=f),)
+            conv = _conv_chain(tx, iters, tz, f)
+            kernel = lambda name=name, iters=iters: (  # noqa: E731
+                KE.kernel_filter(x, name, iters),)
+            plain = lambda tx=tx, tz=tz, f=f, iters=iters: (  # noqa: E731
+                SC.separable_chain_plain(x, tx, iters, taps_z=tz, factor=f),)
             library = lambda conv=conv: (conv(x),)  # noqa: E731
-            ops = 2 * (2 * len(tx) + (f != 1.0)) * cells
+            ops = iters * 2 * (2 * len(tx) + (f != 1.0)) * cells
+            label = (f"K1 {name} taps (kernel_filter, {iters} iteration"
+                     f"{'s' if iters > 1 else ''}, 2048², K1@short)")
         got = kernel()
         torch.cuda.synchronize()
-        _check(all(bool(torch.isfinite(g).all()) for g in got), f"K1 {name} not finite")
-        rows.compare(f"K1:{name}", f"K1 {name} taps (kernel_filter, 1 iteration, 2048²)",
-                     SRC["K1"], TPU + "stencil.py:153", got, kernel, plain, f"filter:{name}",
-                     20, 8 * cells, ops, library)
+        _check(all(bool(torch.isfinite(g).all()) for g in got), f"{key} not finite")
+        rows.compare(key, label, SRC["K1"], TPU + "stencil.py:153", got, kernel, plain,
+                     f"filter:{key}", 20, 8 * cells, ops, library)
+        ops_of_call = _device_ops_of_last_call(kernel)
+        host_us = _host_us(kernel)
+        device_us = sum(t for _, t in ops_of_call)
+        print(f"{key} one call: {len(ops_of_call)} device operation(s) "
+              f"({', '.join(n[:40] for n, _ in ops_of_call)}), {device_us:.1f} µs of device "
+              f"time; host enqueue {host_us:.1f} µs a call")
+        _check(len(ops_of_call) == 1 and "short_tile" in ops_of_call[0][0],
+               f"{key} ran {[n for n, _ in ops_of_call]}, not one short_tile launch")
     del x
 
 
@@ -1031,7 +1084,8 @@ def presets_phase(rows):
         fused = fn(inputs[n], 0, 0)
         torch.cuda.synchronize()
         after = _read_counts()
-        per_preset[n] = {k: after[k] - before[k] for k in ("K1", "K2") if after[k] > before[k]}
+        per_preset[n] = {k: after[k] - before[k] for k in ("K1", "K1@tile", "K1@short", "K1@rss",
+                                                          "K2") if after[k] > before[k]}
         outs[n] = (run_out, fused)
     mesh_req = MeshStageData(uuid="m", resolution=r, inputResolution=res, marginPix=16,
                              tileHeight=1000, tileSize=float(r), xpos=0, zpos=0,
@@ -1040,9 +1094,15 @@ def presets_phase(rows):
     torch.cuda.synchronize()
     counts = _read_counts()
     print(f"presets 2048² launches {per_preset} (total {counts})")
-    _check(per_preset["PerlinGenerator"].get("K1", 0) > 0, "K1 not launched by PerlinGenerator")
-    _check(per_preset["Sobel"].get("K1", 0) > 0, "K1 not launched by Sobel")
+    _check(per_preset["PerlinGenerator"].get("K1@short", 0) > 0,
+           "K1@short not launched by PerlinGenerator")
+    _check(per_preset["Sobel"].get("K1@short", 0) > 0 and per_preset["Sobel"].get("K1@rss", 0) > 0,
+           "K1@short or K1@rss not launched by Sobel")
     _check(per_preset["FlowMap"].get("K2", 0) > 0, "K2 not launched by FlowMap")
+    _check(counts["K1@tile"] == 0, f"chain_tile ran on the presets path: {counts}")
+    for n in ("PerlinGenerator", "Sobel"):  # a Pipeline.run and a fuse call each
+        print(f"preset {n} launches a run: K1@short {per_preset[n].get('K1@short', 0) // 2}, "
+              f"K1@rss {per_preset[n].get('K1@rss', 0) // 2}")
     for n, (run_out, fused) in outs.items():
         _check(tuple(run_out.shape) == (res, res), f"{n} shape {tuple(run_out.shape)}")
         _check(bool(torch.isfinite(run_out).all()), f"{n} not finite")
@@ -1052,7 +1112,9 @@ def presets_phase(rows):
     _check(tuple(mesh.indices.shape) == (6 * r * r,), "Mesh preset indices shape")
     for f in ("positions", "normals", "tangents", "uvs"):
         _check(bool(torch.isfinite(getattr(mesh, f)).all()), f"Mesh preset {f} not finite")
-    rows.set_launches({f"K1:{f}": counts["K1"] for f in FILTERS})
+    rows.set_launches({f"K1:{f}": counts["K1@short"] for f in FILTERS})
+    rows.set_launches({f"K1:{g}x{m}": counts["K1@short"] for g, m in PRESET_CHAINS})
+    rows.set_launches({"K1:Sobel3_2D": counts["K1@rss"], "K1@rss": counts["K1@rss"]})
 
     times = {}
     for n in gens:
@@ -1077,7 +1139,8 @@ def presets_phase(rows):
                 GeneratorData(uuid=n, resolution=256, xpos=512, zpos=256, data=data)).data
         a, b = got["cuda"].cpu(), got["cpu"]
         gaps[n] = _max_abs(a, b) / max(float(b.abs().max()), 1e-30)
-        _check(gaps[n] <= CROSS_DEVICE_RTOL, f"preset {n} card vs cpu gap {gaps[n]}")
+        limit = CROSS_DEVICE_RTOL if n == "FlowMap" else 0.0  # K1's presets: bit for bit
+        _check(gaps[n] <= limit, f"preset {n} card vs cpu gap {gaps[n]}")
     print("presets 256², card vs cpu, max gap relative to scale: "
           + ", ".join(f"{k} {v!r}" for k, v in gaps.items()))
 
@@ -1777,7 +1840,7 @@ def sharded_phase(rows):
                        f"sharded {k} differs from the local op")
                 print(f"sharded {k} 2048² on a 1×1 mesh: first call {got[k][1]:.3f} ms, then "
                       f"{warm_ms:.3f} ms (local {local_ms:.3f} ms), equal")
-            for key, n in (("K1", 3), ("K2", 1), ("K3", 1)):
+            for key, n in (("K1", 1), ("K1@rss", 1), ("K2", 1), ("K3", 1)):
                 _check(counts[key] == n, f"sharded ops launched {key} {counts[key]} times")
             cfg, origins = config5()
             tiles, mesh_ms = _timed(lambda: TL.tile_batch(cfg, origins[:4], mesh=bm))

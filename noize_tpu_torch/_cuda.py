@@ -21,6 +21,7 @@ code.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -61,6 +62,10 @@ SIGNATURES = {
     # launches, tile rows, tile cols, threads, stream
     "noize_separable_chain": (_P, _P, _P, _I, _I, _I, _P, _P, _I, _F, _P, _I, _I, _I, _I,
                               _P),
+    # x, out, rows, cols, maps in the stack, the call's constants (host
+    # NoizeSeries: taps, factor, k, iterations, tile, threads, strip, rss),
+    # x's device, stream (K1@short and K1@rss)
+    "noize_series_chain": (_P, _P, _I, _I, _I, _P, _I, _P),
     # height, out, carry (2 x 5 stacks), rows, cols, maps in the stack,
     # iterations per launch (host i32[launches]), launches, window side,
     # norm_min, rng, stream
@@ -191,6 +196,22 @@ def call(name: str, *args) -> None:
 
 def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_device(device_index: int):
+    """A context in which ``device_index`` is the current CUDA device: a
+    ``torch.cuda.device`` where it is not already (that costs several µs of
+    host time a call), else nothing."""
+    if device_index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device_index)
+
+
+def raw_stream(device_index: int) -> int:
+    """The current stream of CUDA device ``device_index`` as a pointer, with
+    no ``torch.cuda.Stream`` made (the wrappers whose host enqueue is
+    measured take it so)."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def check_map(t: torch.Tensor, name: str, square: bool = True,

@@ -1,7 +1,8 @@
 """Edge detection — port of ``noize_tpu.ops.edge`` (EdgeDetection.cs:22-85,
 EdgeJob.cs:10-47): the Sobel / Prewitt taps selectable by (algorithm,
 direction), and the 2-D magnitude √(H² + V²) of the two 1-D passes.  On
-the card each pass is a K1 call (``kernels.kernel_filter``'s route)."""
+the card a 1-D pass is a K1 call (``kernels.kernel_filter``'s route) and
+the 2-D magnitude one K1@rss launch."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ from .kernels import (
     _SOBEL3_HX, _SOBEL3_HZ, _SOBEL3_VX, _SOBEL3_VZ,
     _chain,
 )
-from .filters import root_sum_squares_tiles
+from .cuda.stencil import root_sum_squares_chain
 
 EDGE_ALGORITHMS = ("SOBEL", "PREWITT")
 EDGE_DIRECTIONS = ("HORIZONTAL", "VERTICAL")
@@ -23,22 +24,26 @@ _KERNELS = {
 }
 
 
-def edge_1d(a, algorithm: str = "SOBEL", direction: str = "HORIZONTAL"):
-    """Edge1DFilter.Schedule: one separable X/Z series with the selected
-    taps (EdgeJob.cs:11-20)."""
+def _taps(algorithm, direction):
     try:
-        tx, tz = _KERNELS[(algorithm, direction)]
+        return _KERNELS[(algorithm, direction)]
     except KeyError:
         raise ValueError(
             f"unknown edge kernel ({algorithm!r}, {direction!r}); "
             f"algorithms {EDGE_ALGORITHMS}, directions {EDGE_DIRECTIONS}"
         )
+
+
+def edge_1d(a, algorithm: str = "SOBEL", direction: str = "HORIZONTAL"):
+    """Edge1DFilter.Schedule: one separable X/Z series with the selected
+    taps (EdgeJob.cs:11-20)."""
+    tx, tz = _taps(algorithm, direction)
     return _chain(a, tx, tz, 1.0, 1)
 
 
 def edge_2d(a, algorithm: str = "SOBEL"):
     """Edge2DFilter.Schedule: H and V passes on the same input combined by
-    √(H² + V²) (EdgeJob.cs:33-37 → ScheduleReduce<RootSumSquaresTiles>)."""
-    h = edge_1d(a, algorithm, "HORIZONTAL")
-    v = edge_1d(a, algorithm, "VERTICAL")
-    return root_sum_squares_tiles(h, v)
+    √(H² + V²) (EdgeJob.cs:33-37 → ScheduleReduce<RootSumSquaresTiles>);
+    one K1@rss launch on the card."""
+    return root_sum_squares_chain(a, _taps(algorithm, "HORIZONTAL"),
+                                  _taps(algorithm, "VERTICAL"))

@@ -10,17 +10,16 @@ in the reference's order, and each pass multiplies its sum by ``factor``.
 The min-filter window excludes the top tap (``k < k_off``): a 3-wide "min"
 looks at offsets {-1, 0}.
 
-On the card ``kernel_filter``, ``sobel2d`` and the edge filters run their
-series on kernel K1 (``ops.cuda.stencil.separable_chain``), which computes
-the same series bit for bit; a CPU tensor takes the plain passes.
+On the card ``kernel_filter`` and the edge filters run their series on
+kernel K1 (``ops.cuda.stencil.separable_chain``), and ``sobel2d`` on
+K1@rss (``ops.cuda.stencil.root_sum_squares_chain``), which compute the
+same numbers bit for bit; a CPU tensor takes the plain passes.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-
-from .filters import root_sum_squares_tiles
 
 _F32_MAX = float(np.finfo(np.float32).max)
 
@@ -143,26 +142,24 @@ _SERIES_TABLE = {
 
 def _chain(a, taps_x, taps_z, factor, iterations):
     """``iterations`` × ``separable_series`` on K1 (the plain passes for a
-    CPU tensor).  Imported here: ``ops.cuda.stencil`` imports this
-    module."""
-    from .cuda.stencil import separable_chain
-
-    return separable_chain(a, taps_x, iterations, taps_z=taps_z, factor=factor)
+    CPU tensor)."""
+    return _stencil.separable_chain(a, taps_x, iterations, taps_z=taps_z, factor=factor)
 
 
 def sobel2d(a):
     """Sobel3_2D: H and V separable series on the same input, combined by
-    root-sum-squares (ScheduleReduce, KernelJob.cs:187-215)."""
-    ha = _chain(a, _SOBEL3_HX, _SOBEL3_HZ, 1.0, 1)
-    va = _chain(a, _SOBEL3_VX, _SOBEL3_VZ, 1.0, 1)
-    return root_sum_squares_tiles(ha, va)
+    root-sum-squares (ScheduleReduce, KernelJob.cs:187-215); on the card
+    one K1@rss launch, on the CPU the two series and
+    ``filters.root_sum_squares_tiles``."""
+    return _stencil.root_sum_squares_chain(a, (_SOBEL3_HX, _SOBEL3_HZ),
+                                           (_SOBEL3_VX, _SOBEL3_VZ))
 
 
 def kernel_filter(a, filter_type: str, iterations: int = 1):
     """KernelFilterStage: apply ``filter_type`` ``iterations`` times
     (KernelFilterStage.cs:32-43).  On the card a series filter is one K1
-    call of ``iterations``; Sobel3_2D is two one-iteration K1 calls and
-    the root-sum-squares per iteration."""
+    call of ``iterations``; Sobel3_2D is one K1@rss launch an
+    iteration."""
     if filter_type not in KERNEL_FILTER_TYPES:
         raise ValueError(f"unknown filter {filter_type!r}")
     if filter_type == "Sobel3_2D":
@@ -171,3 +168,7 @@ def kernel_filter(a, filter_type: str, iterations: int = 1):
         return a
     tx, tz, factor = _SERIES_TABLE[filter_type]
     return _chain(a, tx, tz, factor, iterations)
+
+
+# K1's wrappers import this module's passes and taps, so they come last.
+from .cuda import stencil as _stencil  # noqa: E402

@@ -2,7 +2,7 @@
 """Measurements and sweeps behind the designs of K1 (``csrc/stencil.cu``)
 and K2 (``csrc/flow.cu``) on one NVIDIA GPU.
 
-    python3 scripts/stencil_flow_sweep.py [--reps N] [--json PATH]
+    python3 scripts/stencil_flow_sweep.py [--reps N] [--json PATH] [--parts 1234]
 
 1. The design K1 and K2 replaced (one launch a pass or sub-step), as a copy
    built here with three variants: "full" as it was, "nomem" reading and
@@ -18,8 +18,14 @@ and K2 (``csrc/flow.cu``) on one NVIDIA GPU.
 3. K2 with other windows (copies of ``flow.cu`` with their ``kThreads`` and
    ``kSlotsX``/``kSlotsZ`` lines rewritten) and other iterations a launch,
    on flow x8 at 2048².
+4. K1@short (``noize_series_chain``; tile, threads and strip are runtime
+   arguments): (a) other tiles, threads and strips on the presets' chains
+   (Sobel3Horizontal x1, Gauss3_S1 x3, Gauss9_S1 x2) at 2048²; (b) the
+   route's threshold: K1@short on its default tile against ``chain_tile``
+   on chains of total halo off*m from 1 to 16 (k = 3, 5, 9) and on the
+   flagship's Gauss-5 x17 (halo 34), at 2048².
 
-Every variant of 2 and 3 is held against its plain version (tolerance 0)
+Every variant of 2, 3 and 4 is held against its plain version (tolerance 0)
 and timed with CUDA events in two rounds (in order, then in reverse).
 Prints the card's name and power limit, one line per variant, and the same
 as one JSON line, also written to ``PATH`` with ``--json``.
@@ -165,6 +171,16 @@ K1_PLANS = [(8, 128, 128, 10, 768), (8, 128, 128, 10, 512), (8, 64, 64, 10, 256)
             (8, 128, 128, 10, 1024), (4, 128, 128, 10, 512),
             (16, 128, 128, 10, 512), ("plain loads", 128, 128, 10, 512)]
 
+# K1@short variants of part 4a: (tile rows, tile cols, threads, strip);
+# short_plan's SHORT_ONE and SHORT_MANY are among them
+SHORT_PLANS = [(32, 128, 128, 32), (32, 256, 256, 32), (64, 256, 512, 32), (64, 128, 256, 32),
+               (64, 64, 128, 32), (32, 64, 64, 32), (16, 256, 256, 16), (32, 128, 256, 16),
+               (64, 128, 128, 32), (32, 512, 512, 32)]
+SHORT_CHAINS = [("Sobel3Horizontal", 1), ("Gauss3_S1", 3), ("Gauss9_S1", 2)]
+# part 4b: (k, iterations) on K1@short and on chain_tile
+THRESHOLD_CHAINS = ([(3, m) for m in (1, 2, 3, 4, 6, 8, 10, 12, 16)] + [(5, m) for m in range(1, 9)]
+                    + [(9, m) for m in (1, 2, 3, 4)] + [(5, 17)])
+
 # K2 windows of part 3: (threads, slots x, slots z) -> window side 32 * slots x;
 # the first is the production build
 K2_WINDOWS = [(1024, 3, 3), (768, 3, 4), (512, 2, 4), (1024, 2, 2)]
@@ -236,6 +252,82 @@ def build():
     return libs
 
 
+def _rounds(runs, reps):
+    """Each (key, run, want) held bit-equal, then timed in two rounds (in
+    order, then in reverse): {index: [ms, ms]}."""
+    from chip_smoke import _max_abs, _time_ms
+
+    out = {}
+    for order in (range(len(runs)), reversed(range(len(runs)))):
+        for i in order:
+            key, run, want = runs[i]
+            err = _max_abs(run(), want)
+            if err != 0.0:
+                raise RuntimeError(f"variant {key}: max_abs_err {err}")
+            out.setdefault(i, []).append(_time_ms(run, reps))
+    return out
+
+
+def short_sweep(x, reps):
+    """Part 4: K1@short along other blockings, then against chain_tile."""
+    import ctypes
+
+    import torch
+
+    from noize_tpu_torch import _cuda
+    from noize_tpu_torch.ops import kernels as KE
+    from noize_tpu_torch.ops.blur import smooth_taps
+    from noize_tpu_torch.ops.cuda import stencil as SC
+
+    lib = _cuda.library()
+    rows, cols = x.shape
+    stream = _cuda.stream(x)
+    out_rows = []
+
+    def short(tx, tz, factor, m, plan):
+        s = SC._series(len(tx), plan, [(tx, tz)], factor)
+
+        def run():
+            out = torch.empty_like(x)
+            rc = lib.noize_series_chain(x.data_ptr(), out.data_ptr(), rows, cols, 1,
+                                        ctypes.addressof(s), x.device.index, stream)
+            if rc:
+                raise RuntimeError(f"noize_series_chain: CUDA error {rc}")
+            return out
+        return run
+
+    runs = []
+    for name, m in SHORT_CHAINS:
+        tx, tz, f = KE._SERIES_TABLE[name]
+        want = SC.separable_chain_plain(x, tx, m, taps_z=tz, factor=f)
+        for blocking in SHORT_PLANS:
+            plan = SC.short_plan(len(tx), m, blocking, halo=None)
+            runs.append(((name, m, *blocking), short(tx, tz, f, m, plan), want))
+    for i, ms in sorted(_rounds(runs, reps).items()):
+        (name, m, tzr, txr, n, strip), _, _ = runs[i]
+        print(f"K1@short {name} x{m} tile {tzr}x{txr} threads {n} strip {strip}: "
+              f"{ms[0]:.4f} / {ms[1]:.4f} ms, bit-equal")
+        out_rows.append({"part": "4a", "kernel": "K1@short", "chain": [name, m],
+                         "tile": [tzr, txr], "threads": n, "strip": strip, "ms": ms})
+    runs = []
+    for k, m in THRESHOLD_CHAINS:
+        t = smooth_taps(k) if k == 3 else KE.gaussian_taps(1.0, k)
+        want = SC.separable_chain_plain(x, t, m)
+        plan = SC.short_plan(k, m, halo=None)
+        runs.append(((k, m, "short"), short(t, t, 1.0, m, plan), want))
+        runs.append(((k, m, "tile"), lambda t=t, m=m: SC.tile_chain(x, t, m), want))
+    timed = _rounds(runs, reps)
+    for i in range(0, len(runs), 2):
+        (k, m, _), _, _ = runs[i]
+        s_ms, t_ms = timed[i], timed[i + 1]
+        print(f"k {k} x{m} (halo {(k - 1) // 2 * m}): K1@short {s_ms[0]:.4f} / {s_ms[1]:.4f} ms, "
+              f"chain_tile {t_ms[0]:.4f} / {t_ms[1]:.4f} ms "
+              f"({len(SC.chain_plan(k, m).launches)} launches), bit-equal")
+        out_rows.append({"part": "4b", "k": k, "iterations": m, "short_ms": s_ms,
+                         "tile_ms": t_ms})
+    return out_rows
+
+
 def main():
     import numpy as np
     import torch
@@ -251,6 +343,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--json", help="also write the results to this file")
+    ap.add_argument("--parts", default="1234", help="the parts to run (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("stencil_flow_sweep: no CUDA device")
@@ -258,16 +351,18 @@ def main():
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi)
     _cuda.library()
-    libs = build()
+    libs = build() if set(args.parts) & set("123") else {}
     res = 2048
     noise, blurred, _ = _inputs(res)
     taps = gaussian_taps(1.0, 5)
     rows = []
+    stream = _cuda.stream(noise)
+    if "4" in args.parts:
+        rows += short_sweep(blurred, args.reps)
 
     # 1. the replaced design, one launch of each kind
-    maps = [torch.rand((res, res), device="cuda") for _ in range(6)]
-    stream = _cuda.stream(noise)
-    for name in OLD_VARIANTS:
+    maps = [torch.rand((res, res), device="cuda") for _ in range(6)] if "1" in args.parts else []
+    for name in OLD_VARIANTS if "1" in args.parts else ():
         dll = libs[f"old_{name}"]
         dll.sweep_old.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [
             ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
@@ -290,7 +385,7 @@ def main():
     # 2. K1 along other plans and kSeg copies
     want = SC.separable_chain_plain(noise, taps, 17)
     k1_runs = []
-    for seg, tz, tx, h, n in K1_PLANS:
+    for seg, tz, tx, h, n in K1_PLANS if "2" in args.parts else ():
         fn = libs[f"stencil_seg{seg}"].noize_separable_chain
         fn.argtypes = list(_cuda.SIGNATURES["noize_separable_chain"])
         fn.restype = ctypes.c_int
@@ -328,7 +423,7 @@ def main():
     want = FL.flow_map(blurred, 8)
     lo, rng = FL.norm_params(-0.1, 0.1)
     runs = []
-    for threads, sx, sz in K2_WINDOWS:
+    for threads, sx, sz in K2_WINDOWS if "3" in args.parts else ():
         dll = libs[f"flow_n{threads}_x{sx}_z{sz}"]
         fn = dll.noize_flow_map
         fn.argtypes = list(_cuda.SIGNATURES["noize_flow_map"])

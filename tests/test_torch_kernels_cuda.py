@@ -464,15 +464,129 @@ def test_k1_unequal_tap_lengths_match_plain(cuda, tx, tz, factor, iters):
 
 @pytest.mark.parametrize("filter_type", KE.KERNEL_FILTER_TYPES)
 def test_kernel_filter_on_k1_matches_cpu(cuda, filter_type):
-    """``kernel_filter`` on the card (K1, Sobel3_2D two calls an iteration)
-    against the port on the CPU, bit for bit."""
+    """``kernel_filter`` on the card (K1, Sobel3_2D one K1@rss launch an
+    iteration) against the port on the CPU, bit for bit."""
     a = _map((256, 256), 5)
-    before = separable_chain.launches
+    before = (separable_chain.launches, SC.root_sum_squares_chain.launches)
     got = KE.kernel_filter(torch.from_numpy(a).to(cuda), filter_type, 2)
     want = KE.kernel_filter(torch.from_numpy(a), filter_type, 2)
     torch.cuda.synchronize()
     _equal(got, want)
-    assert separable_chain.launches == before + (4 if filter_type == "Sobel3_2D" else 1)
+    rss = filter_type == "Sobel3_2D"
+    assert (separable_chain.launches, SC.root_sum_squares_chain.launches) == (
+        before[0] + (0 if rss else 1), before[1] + (2 if rss else 0))
+
+
+# --- K1@short and K1@rss: every filter, shapes around the small tile --------
+
+SHORT_SHAPES = [(64, 64), (300, 257), (2049, 2049), (1, 2048), (2048, 1), (3, 300, 257)]
+
+
+def _short_input(shape, seed):
+    if len(shape) == 3:
+        return torch.from_numpy(_stack(shape[1:], shape[0], seed))
+    return torch.from_numpy(_map(shape, seed))
+
+
+@pytest.mark.parametrize("shape", SHORT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("iters", [1, 2, 3])
+@pytest.mark.parametrize("name", KE.KERNEL_FILTER_TYPES)
+def test_k1_short_and_rss_match_plain(cuda, name, iters, shape):
+    """K1@short (``short_chain``, one launch a call at any of these halos)
+    with each filter's taps, and K1@rss (Sobel3_2D, one launch an
+    iteration), bit-equal to their plain versions; ``separable_chain``
+    routes the short chains to K1@short."""
+    x = _short_input(shape, iters + len(shape))
+    xc = x.to(cuda)
+    if name == "Sobel3_2D":
+        taps = ((KE._SOBEL3_HX, KE._SOBEL3_HZ), (KE._SOBEL3_VX, KE._SOBEL3_VZ))
+        want = xc
+        for _ in range(iters):
+            want = SC.root_sum_squares_chain_plain(want, *taps)
+        before = SC.root_sum_squares_chain.launches
+        got = KE.kernel_filter(xc, name, iters)
+        torch.cuda.synchronize()
+        _equal(got, want)
+        assert SC.root_sum_squares_chain.launches == before + iters
+        return
+    tx, tz, factor = KE._SERIES_TABLE[name]
+    want = separable_chain_plain(xc, tx, iters, taps_z=tz, factor=factor)
+    before = SC.short_chain.launches
+    got = SC.short_chain(xc, tx, iters, taps_z=tz, factor=factor)
+    torch.cuda.synchronize()
+    _equal(got, want)
+    assert SC.short_chain.launches == before + 1
+    if SC.chain_route(len(tx), iters) == "short":
+        before = (SC.short_chain.launches, SC.tile_chain.launches)
+        _equal(separable_chain(xc, tx, iters, taps_z=tz, factor=factor), want)
+        assert (SC.short_chain.launches, SC.tile_chain.launches) == (before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("k,iters", [(1, 32), (3, 8), (5, 4), (17, 1), (3, 12), (9, 3)])
+def test_k1_short_halos_match_plain(cuda, k, iters):
+    """K1@short at the largest halo the route gives it (8) and beyond it
+    (12), where the window takes more than 48 KB, and at 1 and 17 taps."""
+    taps = smooth_taps(k)
+    x = torch.from_numpy(_map((1000, 999), k + iters)).to(cuda)
+    before = SC.short_chain.launches
+    got = SC.short_chain(x, taps, iters)
+    want = separable_chain_plain(x, taps, iters)
+    torch.cuda.synchronize()
+    _equal(got, want)
+    assert SC.short_chain.launches == before + 1
+
+
+@pytest.mark.parametrize("algorithm", ["SOBEL", "PREWITT"])
+@pytest.mark.parametrize("shape", SHORT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_edge_2d_on_k1_rss_matches_cpu(cuda, algorithm, shape):
+    """``edge.edge_2d`` on the card: one K1@rss launch, no other device
+    operation, bit-equal to the port on the CPU."""
+    from noize_tpu_torch.ops import edge as ED
+
+    x = _short_input(shape, 7)
+    before = (SC.root_sum_squares_chain.launches, separable_chain.launches)
+    got = ED.edge_2d(x.to(cuda), algorithm)
+    want = ED.edge_2d(x, algorithm)
+    torch.cuda.synchronize()
+    _equal(got, want)
+    assert (SC.root_sum_squares_chain.launches, separable_chain.launches) == (
+        before[0] + 1, before[1])
+
+
+def test_k1_rss_root_specials_match_plain(cuda):
+    """``__fsqrt_rn`` against the plain version's float64 root: values from
+    1e-30 to 1e30 put the sums of squares in every binade and past the
+    largest float (inf), rows of values below 1e-21 among the subnormals;
+    an inf and a NaN cell give NaN; zero rows give 0.  Then ``f32.sqrt`` on the card against NumPy's
+    correctly rounded float32 root on the specials themselves."""
+    from noize_tpu_torch.ops import f32
+
+    rng = np.random.default_rng(3)
+    a = (10.0 ** rng.uniform(-30, 30, (300, 257))).astype(np.float32)
+    a *= np.where(rng.uniform(0, 1, a.shape) < 0.5, -1, 1).astype(np.float32)
+    a[10:14] = 0.0
+    a[20:24] = rng.uniform(-1e-21, 1e-21, (4, 257)).astype(np.float32)  # subnormal sums
+    a[100, 100], a[200, 50] = np.inf, np.nan
+    x = torch.from_numpy(a).to(cuda)
+    taps = ((KE._SOBEL3_HX, KE._SOBEL3_HZ), (KE._SOBEL3_VX, KE._SOBEL3_VZ))
+    got = SC.root_sum_squares_chain(x, *taps)
+    want = SC.root_sum_squares_chain_plain(x, *taps)
+    torch.cuda.synchronize()
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    assert np.isinf(g).any() and np.isnan(g).any() and (g == 0).any()
+    assert ((g > 0) & (g < np.sqrt(np.finfo(np.float32).tiny))).any()  # of subnormal sums
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+    ok = ~np.isnan(w)
+    np.testing.assert_array_equal(g[ok].view(np.uint32), w[ok].view(np.uint32))
+    tiny = np.finfo(np.float32).smallest_subnormal
+    s = np.array([0.0, -0.0, tiny, 3 * tiny, np.finfo(np.float32).tiny, 2.0,
+                  np.finfo(np.float32).max, np.inf, -1.0, np.nan], np.float32)
+    with np.errstate(invalid="ignore"):
+        ref = np.sqrt(s)
+    r = f32.sqrt(torch.from_numpy(s).to(cuda)).cpu().numpy()
+    np.testing.assert_array_equal(np.isnan(r), np.isnan(ref))
+    np.testing.assert_array_equal(r[~np.isnan(ref)].view(np.uint32),
+                                  ref[~np.isnan(ref)].view(np.uint32))
 
 
 def test_threefry_on_card_matches_cpu(cuda):
