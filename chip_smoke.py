@@ -113,6 +113,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    K6 on the pile table of 64 of 100 tied piles at radius 15, bit-equal to
    its plain version and, committed, to K6 on the map (the kernels line's
    rows K5@window and K6@table);
+20b. examples: the user journeys ``examples/*_torch.py``, each loaded by
+   path and its ``main`` run into a temporary directory with the launch
+   counts reset just before it: at its full size on the card (wall time and
+   the launches it made; the kernels of its path must all launch), then at
+   its FAST size on the card and on the CPU from the same seeds.  Outputs
+   checked as the JAX examples' tests and asserts check them (full_tile:
+   the PNGs, the ``saves/`` checkpoint, the restore drawn; serving: both
+   waves served, a non-empty OBJ; multichip: the sharded checkpoint
+   restored bit-equal), and the card's FAST saved maps, served tile (its
+   heights and mesh) and sharded fields, restored field included, within
+   ``CROSS_DEVICE_RTOL`` of the CPU's.  The multichip example runs on the
+   sharded phase's one-rank NCCL group; its CPU run starts and ends a
+   one-rank gloo group of its own after that group is gone;
 21. profile: after every timed phase, one more run of each step path
    under ``torch.profiler`` (device busy time, idle share): the Quickstart
    ``ErosionSim.step()``, the flagship step, the 1025² sim step, config 5's
@@ -1796,7 +1809,9 @@ def sharded_phase(rows):
     """The field-level parallel layer on one card: a one-rank NCCL group,
     ``spatial_mesh`` and ``batch_mesh`` of 1, the five sharded field ops
     at 2048² against the local ops (bit-equal), and ``tile_batch(mesh=)``
-    of 4 of config 5's tiles against ``tile_batch``."""
+    of 4 of config 5's tiles against ``tile_batch``; then the sharded
+    erosion path and the multichip example on that group.  Returns the
+    example's FAST run on the card."""
     import torch
     import torch.distributed as dist
 
@@ -1850,6 +1865,7 @@ def sharded_phase(rows):
                   f"tiles {mesh_ms:.1f} ms (without mesh {local_ms:.1f} ms), equal")
             del tiles, want
             sharded_erosion_phase(sp, bm, rows)
+            return multichip_example_phase()
         finally:
             dist.destroy_process_group()
 
@@ -2433,6 +2449,168 @@ def cross_device_phase():
           f"round trip equal in {export_ms:.1f} ms; {nv} vertices")
 
 
+# --- the user journeys (examples/*_torch.py) ---------------------------------
+
+#: kernels each example must launch at its full size on the card
+EXAMPLE_KERNELS = {
+    "full_tile_workflow_torch": ("K1", "K1@tile", "K3", "K4", "K7", "K7@records", "K8",
+                                 "K8@randint", "K9"),
+    "serving_tiles_torch": ("K1", "K3", "K4", "K7", "K7@records", "K8", "K8@randint", "K9"),
+    "multichip_field_torch": ("K1", "K2", "K3", "K5@window", "K7@window", "K7@records", "K8",
+                              "K8@randint", "K9"),
+}
+
+
+def _example(name, fast):
+    """``examples/<name>.py`` as a fresh module, with NOIZE_EXAMPLE_FAST set
+    as asked while it is executed (the example reads it at import)."""
+    import importlib.util
+
+    old = os.environ.get("NOIZE_EXAMPLE_FAST")
+    os.environ["NOIZE_EXAMPLE_FAST"] = "1" if fast else "0"
+    try:
+        spec = importlib.util.spec_from_file_location(
+            f"examples_{name}", os.path.join(HERE, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    finally:
+        if old is None:
+            del os.environ["NOIZE_EXAMPLE_FAST"]
+        else:
+            os.environ["NOIZE_EXAMPLE_FAST"] = old
+    _check(mod.FAST == fast, f"{name}: FAST is {mod.FAST}")
+    return mod
+
+
+def _recording_server(mod, served):
+    """Swap ``mod.TileServer`` for a subclass whose orders also hand each
+    served tile to ``served`` (by tile id)."""
+    base = mod.TileServer
+
+    class Recording(base):
+        def submit(self, tile_id, pos, on_complete=None):
+            def done(st):
+                served[tile_id] = st
+                if on_complete is not None:
+                    on_complete(st)
+            super().submit(tile_id, pos, on_complete=done)
+
+    mod.TileServer = Recording
+
+
+def run_example(name, fast, device):
+    """Run one example's ``main`` into a temporary directory on ``device``
+    with every launch count reset just before it; check its outputs as the
+    JAX example's test does and return (what the card is compared on, wall
+    ms to the device's end, the launch counts)."""
+    import torch
+
+    from noize_tpu_torch.core.serde import SerdeManager
+    from noize_tpu_torch.ops.mesh import MeshPlanes, grid_indices
+
+    mod = _example(name, fast)
+    served = {}
+    if name == "serving_tiles_torch":
+        _recording_server(mod, served)
+    with tempfile.TemporaryDirectory() as d:
+        out_dir = os.path.join(d, "out")
+        _reset_counts()
+        t0 = time.perf_counter()
+        ret = mod.main(out_dir, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = _read_counts()
+        if name == "full_tile_workflow_torch":
+            pngs = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+            _check(len(pngs) == 10 and "restored_00_height.png" in pngs
+                   and "restored_00_water.png" in pngs, f"full_tile PNGs {pngs}")
+            data = os.path.join(out_dir, "saves", "save__island_v1", "data")
+            names = sorted(f[:-len(".data")] for f in os.listdir(data))
+            _check(len(names) == 13, f"full_tile saves {names}")
+            sm = SerdeManager(os.path.join(out_dir, "saves"), "island", "v1")
+            return {n: sm.load(n) for n in names}, wall, counts
+        if name == "serving_tiles_torch":
+            _check(len(served) == 16 and all(st.error is None for st in served.values()),
+                   f"serving: {len(served)} tiles served, errors "
+                   f"{[st.error for st in served.values() if st.error is not None]}")
+            obj = os.path.join(out_dir, "tile_1_0.obj")
+            _check(os.path.getsize(obj) > 0, "serving: empty OBJ")
+            st = served["tile_1_0_warm"]
+            planes = MeshPlanes(st.mesh_planes.cpu(),
+                                grid_indices(st.mesh_planes.shape[-1] - 1, device="cpu"))
+            return ({"heights": st.heights.cpu().numpy(),
+                     **{f"mesh.{f}": getattr(planes, f).numpy()
+                        for f in ("positions", "normals", "tangents", "uvs")}},
+                    wall, counts)
+    _check(bool((ret["restored"] == ret["eroded"]).all()),
+           "multichip: the sharded checkpoint did not restore bit-equal")
+    return ret, wall, counts
+
+
+def _example_on_card(name):
+    """``name`` at its full size on the card: print its wall time and the
+    launches it made, and check the kernels of its path all launched."""
+    _, wall, counts = run_example(name, False, "cuda")
+    for key in EXAMPLE_KERNELS[name]:
+        _check(counts[key] > 0, f"{key} was not launched by {name}: {counts}")
+    launched = {k: n for k, n in counts.items() if n}
+    print(f"example {name} (full size) on the card: {wall:.1f} ms; launches {launched}")
+
+
+def _examples_agree(name, card, cpu):
+    """The FAST outputs of ``name`` on the card against those on the CPU,
+    each map relative to the CPU's largest magnitude."""
+    import numpy as np
+
+    gaps = {}
+    for k, want in cpu.items():
+        if k == "origins":
+            _check(np.array_equal(card[k], want), f"{name}: origins differ")
+            continue
+        got = np.asarray(card[k], np.float64)
+        want = np.asarray(want, np.float64)
+        _check(got.shape == want.shape, f"{name}: {k} shape {got.shape} vs {want.shape}")
+        gaps[k] = float(np.abs(got - want).max()) / max(float(np.abs(want).max()), 1e-30)
+    print(f"example {name} (FAST) card vs cpu, max gap relative to scale: "
+          + ", ".join(f"{k} {v!r}" for k, v in gaps.items()))
+    for k, v in gaps.items():
+        _check(v <= CROSS_DEVICE_RTOL, f"{name}: card vs cpu {k} gap {v} > {CROSS_DEVICE_RTOL}")
+
+
+def examples_phase():
+    """The full-tile and serving journeys: each at its full size on the
+    card, then at its FAST size on the card and on the CPU from the same
+    seeds, the saved maps and the served tile within CROSS_DEVICE_RTOL."""
+    t0 = time.perf_counter()
+    for name in ("full_tile_workflow_torch", "serving_tiles_torch"):
+        _example_on_card(name)
+        card, _, _ = run_example(name, True, "cuda")
+        cpu, _, _ = run_example(name, True, "cpu")
+        _examples_agree(name, card, cpu)
+    print(f"examples phase, full_tile and serving: {time.perf_counter() - t0:.1f} s")
+
+
+def multichip_example_phase():
+    """The multichip journey on the existing one-rank NCCL group: at its
+    full size, then at its FAST size (returned, for the CPU to be held
+    against once the group is gone)."""
+    t0 = time.perf_counter()
+    _example_on_card("multichip_field_torch")
+    card, _, _ = run_example("multichip_field_torch", True, "cuda")
+    print(f"examples phase, multichip on the card: {time.perf_counter() - t0:.1f} s")
+    return card
+
+
+def multichip_example_cpu_phase(card):
+    """The multichip journey at its FAST size on the CPU (a one-rank gloo
+    group the example starts and ends), against the card's run."""
+    t0 = time.perf_counter()
+    cpu, _, _ = run_example("multichip_field_torch", True, "cpu")
+    _examples_agree("multichip_field_torch", card, cpu)
+    print(f"examples phase, multichip on the CPU: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     import torch
 
@@ -2460,7 +2638,9 @@ def main():
     exact_piles_phase(rows)
     native_io_phase(sim)
     window_kernels_phase(rows)
-    sharded_phase(rows)  # profiles the sharded sim step at its end
+    examples_phase()
+    multichip_card = sharded_phase(rows)  # profiles the sharded sim step at its end
+    multichip_example_cpu_phase(multichip_card)
     for label, fn in PROFILES:  # last: no timed phase runs after the profiler
         profile_path(label, fn)
     pool_trace_phase()

@@ -140,3 +140,14 @@ def test_chip_smoke_imports_no_jax_package():
     assert any(n.startswith("noize_tpu_torch") for n in names)
     bad = sorted(n for n in names if n.split(".")[0] in ("jax", "jaxlib", "noize_tpu"))
     assert not bad, bad
+
+
+@pytest.mark.parametrize("name", ["full_tile_workflow_torch", "serving_tiles_torch",
+                                  "multichip_field_torch"])
+def test_torch_examples_import_no_jax_package(name):
+    """The port's user journeys import ``noize_tpu_torch``, never ``jax``
+    nor any ``noize_tpu`` module."""
+    names = _imported_modules(REPO / "examples" / f"{name}.py")
+    assert any(n.startswith("noize_tpu_torch") for n in names)
+    bad = sorted(n for n in names if n.split(".")[0] in ("jax", "jaxlib", "noize_tpu"))
+    assert not bad, bad

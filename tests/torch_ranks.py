@@ -511,11 +511,27 @@ def _server(rank: int, out: dict, out_dir: str):
         out["uneven"] = np.asarray(errors)
 
 
+def _examples(rank: int, out: dict, out_dir: str):
+    """``examples/multichip_field_torch.py`` at its FAST sizes on this group
+    (tests/test_torch_examples.py)."""
+    import importlib.util
+
+    os.environ["NOIZE_EXAMPLE_FAST"] = "1"  # the example reads it at import
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "examples", "multichip_field_torch.py")
+    spec = importlib.util.spec_from_file_location("examples_multichip_field_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.FAST
+    out.update(mod.main(os.path.join(out_dir, "sharded_ckpt"), device="cpu"))
+
+
 SUITES = {
     "erosion": _erosion,
     "sim1": lambda rank, out, out_dir: _sim_one_rank(out, out_dir),
     "mesh": _mesh_suite,
     "server": _server,
+    "examples": _examples,
 }
 
 
