@@ -16,9 +16,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    of both, the card's least time for the same work (``bound_ms``) and,
    for K1, the cuDNN convolutions that compute the same chain; the
    expected result is bit-equality (tolerance 0);
-4. entries: the JAX-signature entries of the ten TPU kernels, each driven
-   once at 2048² with every launch count reset before and read after,
-   then held against its plain version (tolerance 0);
+4. entries: the JAX-signature entries of the ten TPU kernels and
+   ``erosion.pool.pool_automata_quad`` (K4), each driven once at 2048²
+   with every launch count reset before and read after, then held against
+   its plain version (tolerance 0);
+4b. fractal gain: the 2048² fractal (13 Simplex octaves) on the card
+   against the CPU at hurst 0.9 and 0.4, with the card's time;
 5. quickstart (the main path): README.md's Quickstart at 2048² through
    the port — buffer store, stage pipeline (K1, K2), ``ErosionSim.step()``
    with ``ErosionSettings()`` defaults (K3, K4), checkpoint and restore,
@@ -485,12 +488,18 @@ def kernel_phase(rows):
         "#8": PC.pool_automata_pallas_quad(blurred, pool, steps, True),
         "#9": PC.pool_automata_pallas_pair_fused(blurred, pool, steps, True),
     }
+    k4_entries = PC.pool_automata_cuda.launches
+    quad = PO.pool_automata_quad(blurred, pool, steps, True)
     torch.cuda.synchronize()
     counts = _read_counts()
-    print(f"entries path launches {counts}")
+    quad_k4 = counts["K4"] - k4_entries
+    print(f"entries path launches {counts}; pool_automata_quad launched K4 {quad_k4} time(s)")
     for key in got:
         _check(counts[key] == 1, f"entry {key} launched {counts[key]} times")
+    # #7, #8 and #9 run K4 once each, and the quadrant entry of erosion.pool
+    _check(quad_k4 == 1 and counts["K4"] == 4, f"K4 launched {counts['K4']} times")
     rows.set_launches({k: counts[k] for k in got})
+    rows.set_launches({"#8": counts["#8"] + quad_k4})
 
     plain_k1 = lambda: (SC.separable_chain_plain(noise, taps, 17),)  # noqa: E731
     plain_k2 = lambda: (FL.flow_map(blurred, 8),)  # noqa: E731
@@ -525,12 +534,19 @@ def kernel_phase(rows):
                  "full2048", 10, pool_bytes, pool_ops)
     for key, name, line, fn in (
             ("#7", "pool_automata_pallas_pair", 94, PC.pool_automata_pallas_pair),
-            ("#8", "pool_automata_pallas_quad", 229, PC.pool_automata_pallas_quad),
+            ("#8", "pool_automata_pallas_quad / pool_automata_quad", 229,
+             PC.pool_automata_pallas_quad),
             ("#9", "pool_automata_pallas_pair_fused", 324,
              PC.pool_automata_pallas_pair_fused)):
         rows.compare(key, f"{key} {name} (K4, wet)", SRC["K4"], f"{POOL_TPU}:{line}", got[key],
                      lambda fn=fn: fn(blurred, pool, steps, True), plain_pair, "pair", 10,
                      pool_bytes, pool_ops)
+    quad_err = max(_max_abs(g, w) for g, w in zip(quad, plain_pair()))
+    _check(quad_err <= KERNEL_TOL, f"pool_automata_quad disagrees with pool_automata: {quad_err}")
+    quad_ms = _time_ms(lambda: PO.pool_automata_quad(blurred, pool, steps, True), 10)
+    print(f"#8 pool_automata_quad (erosion.pool, K4, 2048² wet): max_abs_err {quad_err!r} "
+          f"(tol {KERNEL_TOL}) against pool_automata, {quad_ms:.4f} ms")
+    del quad
     mega = PC.pool_automata_pallas_mega(blurred, pool, steps, True)
     rows.compare("#10", "#10 pool_automata_pallas_mega / pool_automata_cuda (K4, wet)",
                  SRC["K4"], POOL_TPU + ":568", mega,
@@ -565,6 +581,32 @@ def kernel_phase(rows):
                  10, 16 * res5 * res5, POOL_OPS_PER_ITER * steps * res5 * res5)
     _check(int((got5[1] > 0).sum()) > 0, "K5 wet grid ran no drain")
     del blurred5, pool5, got5
+
+
+def fractal_gain_phase():
+    """The fractal at 2048², 13 Simplex octaves, on the card against the
+    CPU at hurst 0.9 (a gain PyTorch's exp2 rounds an ulp off the
+    reference's; the port's host-scalar ``f32.exp2`` gives both devices the
+    reference's) and at 0.4; CUDA-event times of the card's call."""
+    import numpy as np
+
+    from noize_tpu_torch.ops import f32 as F32
+    from noize_tpu_torch.ops.fractal import fractal
+
+    out = []
+    for hurst in (0.9, 0.4):
+        kw = dict(noise_type="Simplex", hurst=hurst, octaves=13, noise_size=1700.0)
+        card = fractal(2048, 0.0, 0.0, device="cuda", **kw)
+        cpu = fractal(2048, 0.0, 0.0, device="cpu", **kw)
+        _check(card.shape == (2048, 2048) and bool(card.isfinite().all()),
+               f"fractal at hurst {hurst} not finite")
+        err = _max_abs(card.cpu(), cpu)
+        _check(err <= CROSS_DEVICE_RTOL * float(cpu.abs().max()),
+               f"fractal at hurst {hurst}: card against CPU {err}")
+        ms = _time_ms(lambda kw=kw: fractal(2048, 0.0, 0.0, device="cuda", **kw), 5)
+        out.append(f"hurst {hurst}: G {F32.exp2(-np.float32(hurst))}, card against CPU "
+                   f"max_abs_err {err!r}, card {ms:.4f} ms")
+    print("fractal 2048² Simplex ×13 — " + "; ".join(out))
 
 
 def quickstart_phase(rows):
@@ -2620,6 +2662,7 @@ def main():
     build_phase()
     rows = Rows()
     kernel_phase(rows)
+    fractal_gain_phase()
     sim = quickstart_phase(rows)
     flagship_phase()
     odd_grid_phase(rows)

@@ -258,6 +258,24 @@ def pool_automata(height, pool, iterations: int = 10, drain_particles: bool = Tr
     return _halfrow_join(p_even, p_odd, 0), _halfrow_join(d_even, d_odd, 0)
 
 
+def pool_automata_quad(height, pool, iterations: int = 10, drain_particles: bool = True):
+    """``pool_automata`` under the reference's diagonal-quadrant entry.
+    The quadrant layout is a TPU layout; the reference states it bit-exact
+    with ``pool_automata`` and runs it only where the side is a multiple of
+    4, so the port takes those sizes and raises ``ValueError`` at any other
+    before any work.  The reference gates each step on ``any(pool > 0)``,
+    ``pool_automata`` each call on ``MIN_WATER``: both skip only fixed
+    points, so the results are equal.  A CPU tensor takes the plain
+    version; a CUDA tensor launches K4 (``pool_cuda.pool_automata_cuda``)
+    or raises."""
+    if height.dim() != 2 or height.shape[0] % 4:
+        raise ValueError("pool_automata_quad: the quadrant layout needs a 2-D map "
+                         f"whose side is a multiple of 4, got {tuple(height.shape)}")
+    from .pool_cuda import pool_automata_cuda  # pool_cuda imports this module
+
+    return pool_automata_cuda(height, pool, iterations, drain_particles)
+
+
 # --- odd grids: full-grid masked phases ------------------------------------
 
 def _phase_mask_from_coords(grow, gcol, xoff: int, zoff: int):

@@ -10,14 +10,22 @@ Same formulas and the same float32 accumulation order as the reference
 
 Every basis of ``NOISE_TYPES`` is ported (``ops/noise.py``); the scalar
 recurrences run on the host in float32, so the device sees the same
-constants on the CPU and the card.
+constants on the CPU and the card.  The gain G is ``f32.exp2``, the value
+XLA's CPU runtime gives ``jnp.exp2`` (eager JAX, and ``fractal`` with its
+traced hurst); PyTorch's exp2 is an ulp off it at ~20% of hurst values.
+A compiled reference program whose hurst is a constant (the sharded
+fractal under ``jax.jit``) folds G instead, another rounding, which differs
+from the runtime value at ~8% of hurst values (ROADMAP.md §3).
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from . import f32 as _f32
 from . import noise as _n
 
 _F32 = torch.float32
@@ -84,8 +92,11 @@ def fractal_norm_value(hurst: float, octaves: int) -> float:
     return t
 
 
-def _exp2_f32(v: float) -> np.float32:
-    return np.float32(torch.exp2(torch.tensor(v, dtype=_F32)).item())
+@functools.lru_cache(maxsize=256)
+def _gain(hurst: float) -> np.float32:
+    """G = exp2(-hurst), once a hurst (``f32.exp2`` is a few hundred µs
+    of NumPy scalar steps)."""
+    return _f32.exp2(-np.float32(hurst))
 
 
 def fractal(
@@ -138,7 +149,7 @@ def fractal_window(row0: int, col0: int, rows: int, cols: int, xpos, zpos, *,
     xi = (col + xpos) * inv_size
     zi = (row + zpos) * inv_size
 
-    g = _exp2_f32(-float(f32(hurst)))
+    g = _gain(float(f32(hurst)))
     stepdown = f32(stepdown)
     detune_rate = f32(detune_rate)
 

@@ -11,9 +11,12 @@ yz, yw, zw) and keeps its own corner.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from . import f32 as _f32
 from .flow import shift_clamped
 
 _PAIRS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))  # a,b,c,d indices
@@ -74,11 +77,20 @@ def thermal_phase_masked(d, x0: int, z0: int, origin_row: int, origin_col: int,
 def max_diff_value(talus, height_width_ratio, res: int) -> float:
     """maxDiff = tan((talus/90)·π/2)·heightRatio / res, as the TPU kernel
     computes it (thermal_pl.py:113-122): the angle in double, its tangent
-    in float32, the rest in float32."""
-    talus_rad = (float(talus) / 90.0) * 3.14159 / 2.0
-    t = torch.tan(torch.tensor(talus_rad, dtype=torch.float32))
-    md = (t * np.float32(height_width_ratio)) / torch.tensor(float(res), dtype=torch.float32)
-    return float(md)
+    in float32 as the reference's XLA runtime evaluates it (``f32.tan``,
+    the value ``ensure_compile_time_eval`` and eager JAX give), the rest
+    in float32.  XLA's constant folder rounds the tangent otherwise, so
+    a compiled program with a constant angle differs by an ulp at talus
+    21, 56 and 90 (ROADMAP.md §3)."""
+    return _max_diff(float(talus), float(height_width_ratio), int(res))
+
+
+@functools.lru_cache(maxsize=256)
+def _max_diff(talus: float, height_width_ratio: float, res: int) -> float:
+    # a few hundred µs of NumPy scalar steps: once a setting, not once a call
+    talus_rad = (talus / 90.0) * 3.14159 / 2.0
+    t = _f32.tan(np.float32(talus_rad))
+    return float((t * np.float32(height_width_ratio)) / np.float32(res))
 
 
 def thermal_erosion_window(data, talus, increment_ratio, height_width_ratio,

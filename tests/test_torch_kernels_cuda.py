@@ -112,6 +112,26 @@ def test_k4_pool_wet_matches_plain(cuda, res, drain):
     assert _wet_calls() == before + 1
 
 
+@pytest.mark.parametrize("res", [12, 128])
+def test_pool_automata_quad_runs_k4(cuda, res):
+    """erosion.pool.pool_automata_quad on CUDA tensors: one K4 launch,
+    bit-equal to the plain pool_automata; a side that is not a multiple of
+    4 raises before any launch."""
+    h, p = _wet_case(res, 6)
+    h = torch.from_numpy(h).to(cuda)
+    p = torch.from_numpy(p).to(cuda)
+    before = pool_automata_cuda.launches
+    gp, gd = PO.pool_automata_quad(h, p, 3, True)
+    wp, wd = PO.pool_automata(h, p, 3, True)
+    torch.cuda.synchronize()
+    _equal(gp, wp)
+    _equal(gd, wd)
+    assert pool_automata_cuda.launches == before + 1
+    with pytest.raises(ValueError, match="multiple of 4"):
+        PO.pool_automata_quad(h[:10, :10].contiguous(), p[:10, :10].contiguous(), 3, True)
+    assert pool_automata_cuda.launches == before + 1
+
+
 def test_k4_pool_dry_gate_is_fixed_point(cuda):
     rng = np.random.default_rng(5)
     h = torch.from_numpy(_field(rng, 256, 0.0, 0.5)).to(cuda)

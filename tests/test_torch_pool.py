@@ -89,3 +89,62 @@ def test_cpu_wrapper_launches_nothing():
     before = pool_automata_cuda.launches
     pool_automata_cuda(torch.from_numpy(h), torch.from_numpy(p), 1, True)
     assert pool_automata_cuda.launches == before
+
+
+def _quad_both(h, p, iters, drain):
+    wp, wd = JP.pool_automata_quad(jnp.asarray(h), jnp.asarray(p), iterations=iters,
+                                   drain_particles=drain)
+    gp, gd = TP.pool_automata_quad(torch.from_numpy(h), torch.from_numpy(p), iters, drain)
+    return (gp.numpy(), gd.numpy()), (np.asarray(wp), np.asarray(wd))
+
+
+@pytest.mark.parametrize("res", [8, 12, 64, 128])
+@pytest.mark.parametrize("drain", [True, False])
+def test_pool_automata_quad_bit_exact(res, drain):
+    """The quadrant entry against the reference's ``pool_automata_quad``
+    (its own diagonal-quadrant XLA path), wet, bit for bit."""
+    h, p = _wet(res, 40 + res)
+    (gp, gd), (wp, wd) = _quad_both(h, p, 3, drain)
+    np.testing.assert_array_equal(gp, wp)
+    np.testing.assert_array_equal(gd, wd)
+    assert not np.array_equal(gp, p)
+    if drain:
+        assert (wd > 0).sum() > 0
+
+
+@pytest.mark.parametrize("wetness", ["dry", "below-min-water"])
+def test_pool_automata_quad_gate(wetness):
+    """The reference gates each step on any(pool > 0), the port each call
+    on MIN_WATER: a dry pool and one whose every wet cell lies in
+    (0, MIN_WATER) are fixed points either way."""
+    rng = np.random.default_rng(13)
+    res = 32
+    h = rng.uniform(0, 0.5, (res, res)).astype(np.float32)
+    p = np.zeros((res, res), np.float32)
+    if wetness != "dry":
+        p = rng.uniform(0, JP.MIN_WATER, (res, res)).astype(np.float32)
+        p[rng.uniform(size=p.shape) < 0.3] = 0.0
+        assert (p > 0).any() and p.max() < JP.MIN_WATER
+    (gp, gd), (wp, wd) = _quad_both(h, p, 4, True)
+    np.testing.assert_array_equal(gp, wp)
+    np.testing.assert_array_equal(gd, wd)
+    np.testing.assert_array_equal(gp, p)
+    assert not gd.any()
+
+
+@pytest.mark.parametrize("res", [6, 7, 10])
+def test_pool_automata_quad_shape_rule(res):
+    """The reference runs only where the side is a multiple of 4 (it fails
+    in a reshape elsewhere); the port raises ValueError naming the rule."""
+    h, p = _wet(res, 5)
+    with pytest.raises(TypeError):
+        JP.pool_automata_quad(jnp.asarray(h), jnp.asarray(p), iterations=1)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        TP.pool_automata_quad(torch.from_numpy(h), torch.from_numpy(p), 1, True)
+
+
+def test_pool_automata_quad_cpu_launches_nothing():
+    h, p = _wet(16, 9)
+    before = pool_automata_cuda.launches
+    TP.pool_automata_quad(torch.from_numpy(h), torch.from_numpy(p), 2, True)
+    assert pool_automata_cuda.launches == before == 0

@@ -35,7 +35,6 @@ HOOKS = {
 
 #: reference callables the port does not have yet, and why
 NOT_PORTED = {
-    ("erosion.pool", "pool_automata_quad"): "the TPU quadrant layout of pool_automata",
     ("ops.mesh", "MeshArrays.tree_flatten"): "JAX pytree protocol",
     ("ops.mesh", "MeshArrays.tree_unflatten"): "JAX pytree protocol",
     ("ops.mesh", "MeshPlanes.tree_flatten"): "JAX pytree protocol",

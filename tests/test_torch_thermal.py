@@ -5,11 +5,14 @@ Tolerances:
   * bit-exact against JAX evaluated one primitive at a time
     (``jax.disable_jit()``), given the same ``max_diff``;
   * ``max_diff`` itself: the port takes the TPU kernel's recipe (angle in
-    double, float32 tan).  It equals the eager reference's value and the
-    value a compiled ``erosion_cycle`` folds in (talus is a constant
-    there), so those runs are bit-exact too.  Called with a traced talus,
-    the reference computes the angle in float32 and lands up to 2 ulp
-    away (ROADMAP.md §3);
+    double, float32 tan as XLA's runtime evaluates it, ``ops.f32.tan``).
+    It equals the eager reference's value and the one
+    ``ensure_compile_time_eval`` gives (thermal_pl.py:120) at every integer
+    talus.  XLA's constant folder rounds the tangent otherwise, so a
+    compiled program with a constant angle (a compiled ``erosion_cycle``)
+    differs by an ulp at talus 21, 56 and 90 and agrees elsewhere.  Called
+    with a traced talus, the reference computes the angle in float32 and
+    lands up to 2 ulp away (ROADMAP.md §3);
   * against the Pallas kernel in interpret mode, atol 2e-7 — the bound
     tests/test_pallas.py holds that kernel to.
 Here, on the CPU, the wrapper runs the plain version.
@@ -48,6 +51,21 @@ def test_max_diff_matches_reference(talus, hwr, res):
         lambda t: (jnp.tan((t / 90.0) * 3.14159 / 2.0) * hwr) / res)(jnp.float32(talus)))
     assert np.float32(got) == eager
     assert _ulps(got, traced) <= 2
+
+
+@pytest.mark.parametrize("talus", range(1, 91))
+def test_max_diff_equals_tpu_kernel_recipe_at_every_integer_talus(talus):
+    """Tolerance 0 against the eager recipe and thermal_pl's
+    ``ensure_compile_time_eval`` one, at ThermalStage's whole integer range
+    [1, 90] (PyTorch's tan is an ulp off at 21, 56 and 90)."""
+    talus_rad = (talus / 90.0) * 3.14159 / 2.0
+    for hwr, res in ((1.0, 64), (0.5, 128), (2.0, 100)):
+        with jax.disable_jit():
+            eager = np.float32((jnp.tan(talus_rad) * hwr) / res)
+        with jax.ensure_compile_time_eval():
+            kernel = np.float32((jnp.tan(jnp.float32(talus_rad)) * hwr) / res)
+        got = np.float32(TT.max_diff_value(float(talus), hwr, res))
+        assert got == eager == kernel, (hwr, res, got, eager, kernel)
 
 
 @pytest.mark.parametrize("res,talus,inc,hwr,iters", [
