@@ -7,10 +7,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. device: requires CUDA; prints the card's name and
    ``nvidia-smi --query-gpu=name,power.limit``;
-2. build: compiles the CUDA kernels K1-K9 (K1 with K1@short and K1@rss)
+2. build: compiles the CUDA kernels K1-K10 (K1 with K1@short and K1@rss)
    from ``noize_tpu_torch/csrc``
    (K7 particle descent ``descent.cu``, K8 threefry ``threefry.cu``, K9 the
-   in-order event scatter ``scatter.cu``);
+   in-order event scatter ``scatter.cu``, K10 the fBm ``fractal.cu``);
 3. kernels: each kernel against its plain PyTorch version on the card at
    the flagship's shapes (2048², and 2049² for K5), with CUDA-event times
    of both, the card's least time for the same work (``bound_ms``) and,
@@ -20,8 +20,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``erosion.pool.pool_automata_quad`` (K4), each driven once at 2048²
    with every launch count reset before and read after, then held against
    its plain version (tolerance 0);
-4b. fractal gain: the 2048² fractal (13 Simplex octaves) on the card
-   against the CPU at hurst 0.9 and 0.4, with the card's time;
+4b. fractal gain and K10: the 2048² fractal (13 Simplex octaves) on the
+   card against the CPU at hurst 0.9 and 0.4, and 13 Perlin octaves, each
+   max_abs_err 0.0, with the card's time; then K10 against its plain
+   version on the card, bit-equal: each of the eight bases at 2048², 4
+   octaves (timed), Simplex ×13 at hurst 0.9 and 0.4 (the kernels line's
+   K10 row: the flagship's fBm), a detuned call with a non-2 stepdown, and
+   a window away from the origin against the same slice of the whole tile;
+4c. config 1 (``bench.py:244-253``): the 512² Perlin fBm, 13 octaves,
+   through ``fractal`` (one K10 launch a call), timed, against its plain
+   version on the card and the CPU (row K10@config1);
+4d. config 6 (``bench.py:823-865``, the 8192² field): Simplex ×13 (K10),
+   Gauss-5 ×17 (K1), thermal with ``ErosionSettings()``'s cycles, talus and
+   step (K3), flow ×8 (K2), each kernel launched once and bit-equal to its
+   plain version at 8192², each stage timed, the peak device memory, and
+   256² windows of the fractal (a corner, an interior block) against
+   ``fractal_window`` on the CPU (row K10@config6);
 5. quickstart (the main path): README.md's Quickstart at 2048² through
    the port — buffer store, stage pipeline (K1, K2), ``ErosionSim.step()``
    with ``ErosionSettings()`` defaults (K3, K4), checkpoint and restore,
@@ -69,10 +83,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 12. tiles (this slice's main path): ``bench.py``'s config 5 (16 tiles of
    1024², 13 octaves, Gauss-5 ×17, one erosion cycle of 250 particles) as
    one ``tile_batch``, then with mesh planes, then the same grid's flow map
-   (×8, no erosion); every tile equals ``generate_tile`` of it alone; then
-   K1 and K2 on the [16, 1024, 1024] stack against their plain versions and
-   the 2-D kernel on each tile (tolerance 0), with the times of both and of
-   16 2-D calls;
+   (×8, no erosion), one K10 launch a batch; every tile equals
+   ``generate_tile`` of it alone; then K10, K1 and K2 on the [16, 1024,
+   1024] stack against their plain versions and the 2-D kernel on each tile
+   (tolerance 0), with the times of both and of 16 2-D calls;
 13. serve: ``TileServer(config 5, batch_size=4)`` serving the 16 tiles in a
    cold wave and a warm wave, each tile equal to ``tile_batch``'s;
 14. CLI: ``demo --resolution 2048`` and ``erode --resolution 2048 --cycles
@@ -145,10 +159,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    1025², and K1 and K2 on the config-5 stack, under ``torch.profiler``;
    each must run the device kernels its plan gives (one a launch, whatever
    the stack's depth), and prints its device time beside its CUDA-event
-   time and its host enqueue time.
+   time and its host enqueue time; one fractal call at 2048² must run one
+   device operation, K10.
 
 Each path phase resets every launch count just before it runs and fails
-if a kernel of its path was not launched: every erosion path runs K7 (the
+if a kernel of its path was not launched (the Quickstart and the flagship
+launch K10 once a step, config 5 once a batch): every erosion path runs K7 (the
 sharded one K7@window), its record table, K8, K8's draw entry and K9, and
 prints its step time and host syncs; a Quickstart cycle draws with at most
 two K8 launches.  Prints the per-kernel JSON
@@ -255,6 +271,7 @@ def _counters():
     from noize_tpu_torch.erosion import pool_cuda as PC
     from noize_tpu_torch.erosion import scatter_cuda as SCU
     from noize_tpu_torch.ops.cuda import flow as FC
+    from noize_tpu_torch.ops.cuda import fractal as FK
     from noize_tpu_torch.ops.cuda import stencil as SC
     from noize_tpu_torch.ops.cuda import thermal as TC
 
@@ -267,6 +284,7 @@ def _counters():
         "K7": DC.descend_steps, "K7@window": DC.descend_steps_window,
         "K7@records": DC.step_records, "K8": prng.threefry2x32,
         "K8@randint": prng._randint_cuda, "K9": SCU.scatter_in_order,
+        "K10": FK.fractal_fused,
         "#1": SC.fused_separable_chain, "#2": SC.fused_separable_chain_rows,
         "#3": FC.flow_map_pallas, "#6": PC.pool_automata_pallas,
         "#7": PC.pool_automata_pallas_pair, "#8": PC.pool_automata_pallas_quad,
@@ -319,10 +337,11 @@ def build_phase():
         _cuda.library()
         _check(host.result(), "the native IO runtime did not load")
     srcs = sorted(p.name for p in _cuda.CSRC.glob("*.cu"))
-    _check({"descent.cu", "threefry.cu", "scatter.cu"} <= set(srcs),
-           f"K7, K8 or K9 source missing: {srcs}")
+    _check({"descent.cu", "threefry.cu", "scatter.cu", "fractal.cu"} <= set(srcs),
+           f"K7, K8, K9 or K10 source missing: {srcs}")
     print(f"build: {path.relative_to(HERE)} ({len(srcs)} sources in parallel: "
-          f"{', '.join(srcs)}; K7 descent.cu, K8 threefry.cu, K9 scatter.cu) and "
+          f"{', '.join(srcs)}; K7 descent.cu, K8 threefry.cu, K9 scatter.cu, K10 "
+          "fractal.cu) and "
           f"{native.library_path().relative_to(HERE)} in {time.perf_counter() - t0:.1f} s")
 
 
@@ -361,8 +380,9 @@ class Rows:
     config-5 stack, K6 (the exact pile solver, no TPU kernel's port), K5 on
     a window and K6 on a pile table (the sharded cycle's), and K7 (particle
     descent), K7 on a window, K7's record table, K8 (threefry), K8's draw
-    entry and K9 (the in-order event scatter), none a TPU kernel's port,
-    filled as the phases run."""
+    entry and K9 (the in-order event scatter), and K10 (the fBm: the
+    flagship's, config 5's stack, configs 1 and 6), none a TPU kernel's
+    port, filled as the phases run."""
 
     def __init__(self):
         self.rows = {}
@@ -403,8 +423,10 @@ class Rows:
     def line(self):
         order = (["#1", "#2", "#3", "#4", "#5", "#6", "#7", "#8", "#9", "#10", "K5", "K5@1025",
                   "K3@1025"] + [f"K1:{f}" for f in FILTERS]
-                 + [f"K1:{g}x{n}" for g, n in PRESET_CHAINS] + ["K1@rss", "K1@stack", "K2@stack", "K6", "K5@window", "K6@table", "K7", "K7@window",
-                    "K7@records", "K8", "K8@randint", "K9"])
+                 + [f"K1:{g}x{n}" for g, n in PRESET_CHAINS]
+                 + ["K1@rss", "K1@stack", "K2@stack", "K6", "K5@window", "K6@table", "K7",
+                    "K7@window", "K7@records", "K8", "K8@randint", "K9", "K10", "K10@stack",
+                    "K10@config1", "K10@config6"])
         _check(set(self.rows) == set(order), f"rows {sorted(self.rows)}")
         for k in order:
             _check(self.launches.get(k, 0) > 0, f"{k} was launched on no path")
@@ -441,8 +463,11 @@ SRC = {
     "K3": "noize_tpu_torch/csrc/thermal.cu", "K4": "noize_tpu_torch/csrc/pool.cu",
     "K5": "noize_tpu_torch/csrc/pool.cu", "K6": "noize_tpu_torch/csrc/piles.cu",
     "K7": "noize_tpu_torch/csrc/descent.cu", "K8": "noize_tpu_torch/csrc/threefry.cu",
-    "K9": "noize_tpu_torch/csrc/scatter.cu",
+    "K9": "noize_tpu_torch/csrc/scatter.cu", "K10": "noize_tpu_torch/csrc/fractal.cu",
 }
+#: what K10 stands in for: no TPU kernel, the reference's XLA-fused fBm
+FBM_REF = ("none: the fBm, noize_tpu/ops/fractal.py:106-155 with ops/noise.py's bases, "
+           "XLA-fused on the TPU")
 TPU = "noize_tpu/ops/pallas/"
 POOL_TPU = "noize_tpu/erosion/pool_pallas.py"
 
@@ -583,30 +608,195 @@ def kernel_phase(rows):
     del blurred5, pool5, got5
 
 
-def fractal_gain_phase():
+def _fbm_cost(cells, noise_type, octaves):
+    """(bytes, f32 ops) of an fBm: the output written once (nothing is
+    read), K10's counted operations a cell (``OPS_PER_OCTAVE``)."""
+    from noize_tpu_torch.ops.cuda import fractal as FK
+
+    return 4 * cells, cells * (FK.OPS_PER_OCTAVE[noise_type] * octaves + FK.OPS_PER_CELL)
+
+
+def fractal_gain_phase(rows):
     """The fractal at 2048², 13 Simplex octaves, on the card against the
     CPU at hurst 0.9 (a gain PyTorch's exp2 rounds an ulp off the
     reference's; the port's host-scalar ``f32.exp2`` gives both devices the
-    reference's) and at 0.4; CUDA-event times of the card's call."""
+    reference's) and at 0.4, and 13 Perlin octaves; CUDA-event times of the
+    card's call.  Then K10 against its plain version on the card, bit for
+    bit: every basis, the flagship's fBm (the kernels line's K10 row), a
+    detuned call, a window."""
     import numpy as np
 
     from noize_tpu_torch.ops import f32 as F32
-    from noize_tpu_torch.ops.fractal import fractal
+    from noize_tpu_torch.ops import fractal as FR
+    from noize_tpu_torch.ops.cuda import fractal as FK
 
     out = []
-    for hurst in (0.9, 0.4):
-        kw = dict(noise_type="Simplex", hurst=hurst, octaves=13, noise_size=1700.0)
-        card = fractal(2048, 0.0, 0.0, device="cuda", **kw)
-        cpu = fractal(2048, 0.0, 0.0, device="cpu", **kw)
+    for noise_type, hurst in (("Simplex", 0.9), ("Simplex", 0.4), ("Perlin", 0.4)):
+        kw = dict(noise_type=noise_type, hurst=hurst, octaves=13, noise_size=1700.0)
+        before = FK.fractal_fused.launches
+        card = FR.fractal(2048, 0.0, 0.0, device="cuda", **kw)
+        _check(FK.fractal_fused.launches == before + 1, "a fractal call is not one K10 launch")
+        cpu = FR.fractal(2048, 0.0, 0.0, device="cpu", **kw)
         _check(card.shape == (2048, 2048) and bool(card.isfinite().all()),
-               f"fractal at hurst {hurst} not finite")
+               f"{noise_type} fractal at hurst {hurst} not finite")
         err = _max_abs(card.cpu(), cpu)
-        _check(err <= CROSS_DEVICE_RTOL * float(cpu.abs().max()),
-               f"fractal at hurst {hurst}: card against CPU {err}")
-        ms = _time_ms(lambda kw=kw: fractal(2048, 0.0, 0.0, device="cuda", **kw), 5)
-        out.append(f"hurst {hurst}: G {F32.exp2(-np.float32(hurst))}, card against CPU "
-                   f"max_abs_err {err!r}, card {ms:.4f} ms")
-    print("fractal 2048² Simplex ×13 — " + "; ".join(out))
+        _check(err <= KERNEL_TOL, f"{noise_type} fractal at hurst {hurst}: card against CPU "
+               f"{err}")
+        ms = _time_ms(lambda kw=kw: FR.fractal(2048, 0.0, 0.0, device="cuda", **kw), 20)
+        out.append(f"{noise_type} hurst {hurst}: G {F32.exp2(-np.float32(hurst))}, card "
+                   f"against CPU max_abs_err {err!r}, card {ms:.4f} ms")
+    print("fractal 2048² ×13 — " + "; ".join(out))
+
+    def held(what, window, origin, **kw):
+        got = FR.fractal_window(*window, *origin, device="cuda", **kw)
+        _same_bits(what, (got,), (FR.fractal_window_plain(*window, *origin, device="cuda",
+                                                           **kw),))
+        _check(bool(got.isfinite().all()) and float(got.max() - got.min()) > 0,
+               f"{what}: not finite or constant")
+        return got
+
+    whole = (0, 0, 2048, 2048)
+    bases = []
+    for kind in FR.NOISE_TYPES:
+        kw = dict(noise_type=kind, hurst=0.5, octaves=4, noise_size=300.0)
+        held(f"K10 {kind}", whole, (1234.0, -777.0), **kw)
+        ms = _time_ms(lambda kw=kw: FR.fractal(2048, 1234.0, -777.0, device="cuda", **kw), 10)
+        bases.append(f"{kind} {ms:.4f} ms")
+    print("K10 2048², 4 octaves, each basis bit-equal to its plain version: "
+          + ", ".join(bases))
+    flagship = dict(noise_type="Simplex", hurst=0.4, octaves=13, noise_size=1700.0)
+    held("K10 Simplex ×13, hurst 0.9", whole, (0.0, 0.0), **{**flagship, "hurst": 0.9})
+    held("K10 detuned Simplex ×13", whole, (5.0, 7.0), noise_type="Simplex", hurst=0.87,
+         octaves=13, stepdown=1.9607, detune_rate=0.04, noise_size=187.0)
+    tile = FR.fractal(2048, 10.0, 20.0, device="cuda", **flagship)
+    win = held("K10 window", (300, 1000, 512, 768), (10.0, 20.0), **flagship)
+    _same_bits("K10 window against the whole tile", (win,),
+               (tile[300:812, 1000:1768].contiguous(),))
+    print("K10: Simplex ×13 at hurst 0.9, a detuned call (stepdown 1.9607, detune 0.04) and "
+          "a 512 × 768 window at (300, 1000) bit-equal to the plain version; the window equal "
+          "to that slice of the whole tile")
+    got = FR.fractal(2048, 0.0, 0.0, device="cuda", **flagship)
+    nbytes, ops = _fbm_cost(2048 * 2048, "Simplex", 13)
+    rows.compare("K10", "K10 fractal, 2048² Simplex ×13 (the flagship's fBm)", SRC["K10"],
+                 FBM_REF, (got,),
+                 lambda: (FR.fractal(2048, 0.0, 0.0, device="cuda", **flagship),),
+                 lambda: (FR.fractal_window_plain(*whole, 0.0, 0.0, device="cuda",
+                                                  **flagship),),
+                 "k10", 20, nbytes, ops)
+
+
+def config1_phase(rows):
+    """``bench.py``'s config 1 (bench.py:244-253): the 512² Perlin fBm, 13
+    octaves, hurst 0.4, noise size 1700, at a seeded origin, through
+    ``fractal``: one K10 launch, against the plain version on the card
+    (row K10@config1) and the CPU."""
+    import numpy as np
+
+    from noize_tpu_torch.ops import fractal as FR
+
+    res = 512
+    x = float(np.random.default_rng(1).integers(0, 1000))
+    kw = dict(noise_type="Perlin", octaves=13, hurst=0.4, noise_size=1700.0)
+    FR.fractal(res, x, 0.0, device="cuda", **kw)
+    _reset_counts()
+    h, wall_ms = _timed(lambda: FR.fractal(res, x, 0.0, device="cuda", **kw))
+    counts = _read_counts()
+    _check(counts["K10"] == 1 and sum(counts.values()) == 1,
+           f"config 1 is not one K10 launch: {counts}")
+    _check(tuple(h.shape) == (res, res) and bool(h.isfinite().all()),
+           "config 1 misshapen or not finite")
+    err = _max_abs(h.cpu(), FR.fractal(res, x, 0.0, device="cpu", **kw))
+    _check(err <= KERNEL_TOL, f"config 1: card against CPU {err}")
+    nbytes, ops = _fbm_cost(res * res, "Perlin", 13)
+    rows.compare("K10@config1", f"K10 fractal, config 1: {res}² Perlin ×13 "
+                 "(bench.py:244-253)", SRC["K10"], FBM_REF, (h,),
+                 lambda: (FR.fractal(res, x, 0.0, device="cuda", **kw),),
+                 lambda: (FR.fractal_window_plain(0, 0, res, res, x, 0.0, device="cuda",
+                                                  **kw),),
+                 "k10c1", 50, nbytes, ops)
+    rows.set_launches({"K10@config1": counts["K10"]})
+    ms = rows.rows["K10@config1"]["ms"]
+    print(f"config 1: {res}² Perlin ×13 at x {x}: one K10 launch, {wall_ms:.3f} ms host to "
+          f"sync, {ms:.4f} ms by CUDA events ({res * res / ms / 1e6:.3f} Gcells/s); card "
+          f"against CPU max_abs_err {err!r}")
+
+
+def config6_phase(rows):
+    """``bench.py``'s config 6 (bench.py:823-865), the 8192² field on one
+    card: Simplex ×13 (K10), Gauss-5 ×17 (K1), thermal at
+    ``ErosionSettings()``'s cycles, talus and step (K3), flow ×8 (K2).  Each
+    kernel launched once, each bit-equal to its plain version at 8192²,
+    each stage timed, the peak device memory; 256² windows of the fractal
+    against ``fractal_window`` on the CPU (no CPU run at 8192²)."""
+    import numpy as np
+    import torch
+
+    from noize_tpu_torch.erosion.params import ErosionSettings
+    from noize_tpu_torch.ops import flow as FL
+    from noize_tpu_torch.ops import fractal as FR
+    from noize_tpu_torch.ops import thermal as TH
+    from noize_tpu_torch.ops.cuda import stencil as SC
+    from noize_tpu_torch.ops.cuda.flow import flow_map_fused
+    from noize_tpu_torch.ops.cuda.thermal import thermal_erosion_fused
+    from noize_tpu_torch.ops.kernels import gaussian_taps
+
+    t0 = time.perf_counter()
+    res, es = 8192, ErosionSettings()
+    x = float(np.random.default_rng(6).integers(0, 1000))
+    kw = dict(noise_type="Simplex", octaves=13, hurst=0.4, noise_size=1700.0)
+    thermal = (es.TALUS, es.THERMAL_STEP, 1.0, es.THERMAL_CYCLES)
+
+    def stages():
+        h = FR.fractal(res, x, 0.0, device="cuda", **kw)
+        b = SC.gauss_chain(h, 5, 1.0, 17)
+        t = thermal_erosion_fused(b, *thermal)
+        return h, b, t, flow_map_fused(t, iterations=8)
+
+    stages()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    (h, b, t, f), wall_ms = _timed(stages)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = _read_counts()
+    for k in ("K10", "K1", "K3", "K2"):
+        _check(counts[k] == 1, f"config 6 launched {k} {counts[k]} times")
+    for name, v in (("fractal", h), ("blur", b), ("thermal", t), ("flow", f)):
+        _check(tuple(v.shape) == (res, res) and bool(v.isfinite().all()),
+               f"config 6 {name} misshapen or not finite")
+    _check(int((t != b).sum()) > 0, "config 6: thermal changed no cell")
+    pipe_ms = _time_ms(stages, 3)
+    stage_ms = {
+        "K10 fBm": _time_ms(lambda: FR.fractal(res, x, 0.0, device="cuda", **kw), 5),
+        "K1 Gauss-5 ×17": _time_ms(lambda: SC.gauss_chain(h, 5, 1.0, 17), 5),
+        "K3 thermal": _time_ms(lambda: thermal_erosion_fused(b, *thermal), 5),
+        "K2 flow ×8": _time_ms(lambda: flow_map_fused(t, iterations=8), 5),
+    }
+    _same_bits("K1 at 8192²", (b,), (SC.separable_chain_plain(h, gaussian_taps(1.0, 5), 17),))
+    _same_bits("K3 at 8192²", (t,), (TH.thermal_erosion(b, *thermal),))
+    _same_bits("K2 at 8192²", (f,), (FL.flow_map(t, 8),))
+    errs = []
+    for r0, c0 in ((0, 0), (4000, 5000)):
+        cpu = FR.fractal_window(r0, c0, 256, 256, x, 0.0, device="cpu", **kw)
+        errs.append(_max_abs(h[r0:r0 + 256, c0:c0 + 256].cpu(), cpu))
+        _check(errs[-1] <= KERNEL_TOL, f"config 6 window at {(r0, c0)}: card against CPU "
+               f"{errs[-1]}")
+    nbytes, ops = _fbm_cost(res * res, "Simplex", 13)
+    rows.compare("K10@config6", f"K10 fractal, config 6: {res}² Simplex ×13 "
+                 "(bench.py:823-865)", SRC["K10"], FBM_REF, (h,),
+                 lambda: (FR.fractal(res, x, 0.0, device="cuda", **kw),),
+                 lambda: (FR.fractal_window_plain(0, 0, res, res, x, 0.0, device="cuda",
+                                                  **kw),),
+                 "k10c6", 5, nbytes, ops)
+    rows.set_launches({"K10@config6": counts["K10"]})
+    print(f"config 6: {res}² at x {x}, noise13 + gauss5×17 + thermal + flow8: one launch each "
+          f"of K10, K1, K3 and K2, each bit-equal to its plain version; host to sync "
+          f"{wall_ms:.3f} ms (first timed run), {pipe_ms:.3f} ms by CUDA events "
+          f"({res * res / pipe_ms / 1e6:.3f} Gcells/s); stages "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in stage_ms.items())
+          + f"; peak device memory {peak_gb:.3f} GB; 256² windows at (0, 0) and (4000, 5000) "
+          f"card against CPU max_abs_err {errs}; phase {time.perf_counter() - t0:.1f} s")
+    del h, b, t, f
 
 
 def quickstart_phase(rows):
@@ -657,8 +847,9 @@ def quickstart_phase(rows):
             _check(back.device.type == "cuda" and back.dtype == torch.float32,
                    f"restored {n} on {back.device} as {back.dtype}")
             _check(torch.equal(back, sm.get_buffer(n)), f"restored {n} differs")
-    for key in ("K1", "K2", "K3", "K4", "K7", "K8", "K7@records", "K8@randint", "K9"):
+    for key in ("K1", "K2", "K3", "K4", "K7", "K8", "K7@records", "K8@randint", "K9", "K10"):
         _check(counts[key] > 0, f"{key} was not launched on the Quickstart path")
+    _check(counts["K10"] == 1, f"the Quickstart's NoiseStage launched K10 {counts['K10']} times")
     cycles = sim.settings.CYCLES
     for key in ("K7", "K7@records", "K9"):
         _check(counts[key] == cycles, f"{key} launched {counts[key]} times in {cycles} cycles")
@@ -1254,6 +1445,7 @@ def tiles_phase(rows):
     import torch
 
     from noize_tpu_torch.ops import flow as FL
+    from noize_tpu_torch.ops import fractal as FR
     from noize_tpu_torch.ops.cuda import flow as FC
     from noize_tpu_torch.ops.cuda import stencil as SC
     from noize_tpu_torch.ops.kernels import gaussian_taps
@@ -1280,6 +1472,7 @@ def tiles_phase(rows):
           f"(Gauss-5 ×17 on the stack: {k1_plan} launches a batch, whatever its depth)")
     _check(counts["K1"] == 3 and k1_plan == 4, "K1 not one call of 4 launches a batch")
     _check(counts["K2"] == 1, "K2 not one call on the flow stack")
+    _check(counts["K10"] == 3, f"K10 launched {counts['K10']} times in 3 batches (1 a batch)")
     _check(counts["K3"] == 2 * n and counts["K4"] == 2 * n, "erosion not once a tile")
     _check(all(counts[k] == 2 * n for k in ("K7", "K7@records", "K9")) and counts["K8"] > 0
            and counts["K8@randint"] > 0, f"descent not one K7 and one K9 launch a tile: {counts}")
@@ -1297,12 +1490,23 @@ def tiles_phase(rows):
         one = TL.generate_tile(cfg, float(x), float(z), key)
         _check(torch.equal(one, heights[i]), f"tile {i} differs from generate_tile alone")
     print(f"config 5: each of the {n} tiles equals generate_tile of it alone")
-    rows.set_launches({"K1@stack": counts["K1"], "K2@stack": counts["K2"]})
+    rows.set_launches({"K1@stack": counts["K1"], "K2@stack": counts["K2"],
+                       "K10@stack": counts["K10"]})
     PROFILES.append(("config 5 tile_batch, 16 tiles of 1024²",
                      lambda: TL.tile_batch(cfg, origins)))
 
     noise, blurred = _stack_inputs()
     cells = noise.numel()
+    xs, zs = origins[:, 0].astype("float32"), origins[:, 1].astype("float32")
+    fbm = dict(noise_type=cfg.noise_type, hurst=cfg.hurst, octaves=cfg.octaves,
+               noise_size=cfg.noise_size)
+    nbytes, ops = _fbm_cost(cells, cfg.noise_type, cfg.octaves)
+    rows.compare("K10@stack", "K10 fractal on the config-5 stack [16, 1024, 1024] "
+                 "(Simplex ×13, 16 origins)", SRC["K10"], FBM_REF, (noise,),
+                 lambda: (FR.fractal(res, xs, zs, device="cuda", **fbm),),
+                 lambda: (FR.fractal_window_plain(0, 0, res, res, xs, zs, device="cuda",
+                                                  **fbm),),
+                 "k10stack", 20, nbytes, ops)
     taps = gaussian_taps(1.0, 5)
     conv = _conv_chain(taps, 17)
     got1 = SC.separable_chain(noise, taps, 17)
@@ -1362,7 +1566,7 @@ def serve_phase(heights):
     finally:
         srv.stop()
     counts = _read_counts()
-    for key in ("K1", "K3", "K4", "K7", "K8", "K7@records", "K8@randint", "K9"):
+    for key in ("K1", "K3", "K4", "K7", "K8", "K7@records", "K8@randint", "K9", "K10"):
         _check(counts[key] > 0, f"{key} was not launched on the serving path")
     for wave, wall, batches in waves:
         print(f"TileServer {wave} wave: 16 tiles in {batches} batches of 4, {wall:.3f} ms "
@@ -1400,7 +1604,7 @@ def cli_phase():
         _, erode_ms = _timed(lambda: cli.main(["erode", "--resolution", "2048", "--cycles", "3",
                                                "--mesh", "--heightmap16", "-o", out]))
         counts = _read_counts()
-        for key in ("K1", "K3", "K4", "K7", "K8", "K7@records", "K8@randint", "K9"):
+        for key in ("K1", "K3", "K4", "K7", "K8", "K7@records", "K8@randint", "K9", "K10"):
             _check(counts[key] > 0, f"{key} was not launched by the CLI's erode")
         _check(os.path.getsize(os.path.join(out, "eroded_height.raw")) == 2 * 2048 * 2048,
                "eroded_height.raw size")
@@ -1441,7 +1645,7 @@ def generator_phase():
         _, step_ms = _timed(lambda: gen.step_erosion(1))
         counts = _read_counts()
         _check(len(children) == 4, f"{len(children)} children")
-        for key in ("K1", "K3", "K4", "K7", "K8", "K7@records", "K8@randint", "K9"):
+        for key in ("K1", "K3", "K4", "K7", "K8", "K7@records", "K8@randint", "K9", "K10"):
             _check(counts[key] > 0, f"{key} was not launched by the tile generator")
         t0 = time.perf_counter()
         pngs = []
@@ -1997,7 +2201,7 @@ def sharded_erosion_phase(sp, bm, rows):
     for k, got in (("height", state.world.height), ("flow_velocity", flow_v),
                    ("pool", state.world.pool), ("stream", state.world.flow)):
         _check(torch.equal(got.full_tensor(), want[k]), f"sharded tile step: {k} differs")
-    for k in ("K1", "K2", "K3", "K5@window", "K7@window", "K8", "K8@randint", "K9"):
+    for k in ("K1", "K2", "K3", "K5@window", "K7@window", "K8", "K8@randint", "K9", "K10"):
         _check(counts[k] > 0, f"{k} not launched by the sharded tile step: {counts}")
     print(f"make_sharded_tile_step 2048² (1 cycle): {step_ms:.3f} ms (make_tile_step "
           f"{ref_ms:.3f} ms), equal; launches {counts}")
@@ -2265,10 +2469,12 @@ def plan_trace_phase(rows):
     kernel a launch of the call's plan, whatever the stack's depth.
     Prints each call's device time beside the CUDA-event time of its
     kernels row, and the host time to enqueue one call (mean of 10 calls
-    enqueued back to back)."""
+    enqueued back to back).  Then one K10 call at 2048²: one device
+    operation, the kernel."""
     import torch
 
     from noize_tpu_torch.app.flagship import default_meta, default_settings
+    from noize_tpu_torch.ops import fractal as FR
     from noize_tpu_torch.ops.cuda import flow as FC
     from noize_tpu_torch.ops.cuda import stencil as SC
     from noize_tpu_torch.ops.cuda import thermal as TC
@@ -2311,6 +2517,22 @@ def plan_trace_phase(rows):
               f"{rows.rows[row]['ms']:.4f} ms by CUDA events ({row}), "
               f"{host_ms:.4f} ms host enqueue a call")
         _check(len(kernels) == want, f"{key} call ran {len(kernels)} device kernels, not {want}")
+    # K10: a fractal call is one device operation, the kernel, and no plain noise op
+    flagship = dict(noise_type="Simplex", hurst=0.4, octaves=13, noise_size=1700.0)
+    fn = lambda: FR.fractal(2048, 0.0, 0.0, device="cuda", **flagship)  # noqa: E731
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 10
+    torch.cuda.synchronize()
+    ops = _device_ops_of_last_call(fn)
+    print(f"K10 call under torch.profiler (2048², Simplex ×13): {len(ops)} device operation(s) "
+          f"{[n[:40] for n, _ in ops]}, {sum(t for _, t in ops) / 1e3:.4f} ms of device time, "
+          f"{rows.rows['K10']['ms']:.4f} ms by CUDA events (K10), {host_ms:.4f} ms host "
+          "enqueue a call")
+    _check(len(ops) == 1 and "fractal" in ops[0][0],
+           f"a fractal call ran {len(ops)} device operations, not K10 alone")
 
 
 def _wet(wrapper):
@@ -2318,7 +2540,7 @@ def _wet(wrapper):
     return 0 if wrapper.wet_calls is None else int(wrapper.wet_calls.item())
 
 
-def flagship_phase(steps=2):
+def flagship_phase(rows, steps=2):
     """The 2048² flagship through make_tile_step."""
     import torch
 
@@ -2349,14 +2571,17 @@ def flagship_phase(steps=2):
     for f in ("positions", "normals", "tangents", "uvs"):
         _check(bool(torch.isfinite(getattr(m, f)).all()), f"mesh {f} not finite")
     _check(float(out["stream"].abs().max()) > 0, "erosion left no stream")
-    for key in ("K1", "K2", "K3", "K4", "K7", "K8", "K7@records", "K8@randint", "K9"):
+    for key in ("K1", "K2", "K3", "K4", "K7", "K8", "K7@records", "K8@randint", "K9", "K10"):
         _check(counts[key] > 0, f"{key} was not launched on the flagship path")
+    _check(counts["K10"] == steps + 1,
+           f"the flagship launched K10 {counts['K10']} times in {steps + 1} steps (1 a step)")
     _check("descent.alive" not in step.syncs, f"flagship host syncs {step.syncs}")
     timed = times[1:]
     print(f"flagship 2048² (3 cycles, mesh): warm-up {times[0]:.1f} ms, steps "
           f"{[round(t, 3) for t in timed]} ms, median {sorted(timed)[len(timed) // 2]:.3f} ms/step")
     print(f"flagship launches over {steps + 1} steps {counts}; K4 gate open in {wet} of "
           f"{counts['K4']} calls; host syncs per step {len(step.syncs)}")
+    rows.set_launches({"K10": counts["K10"] // (steps + 1)})
     PROFILES.append(("flagship step 2048² (3 cycles, mesh)",
                      lambda k=fold_in(PRNGKey(0, device="cuda"), steps + 1):
                      step(float(steps + 1) * 100, 0.0, k)))
@@ -2496,10 +2721,11 @@ def cross_device_phase():
 #: kernels each example must launch at its full size on the card
 EXAMPLE_KERNELS = {
     "full_tile_workflow_torch": ("K1", "K1@tile", "K3", "K4", "K7", "K7@records", "K8",
-                                 "K8@randint", "K9"),
-    "serving_tiles_torch": ("K1", "K3", "K4", "K7", "K7@records", "K8", "K8@randint", "K9"),
+                                 "K8@randint", "K9", "K10"),
+    "serving_tiles_torch": ("K1", "K3", "K4", "K7", "K7@records", "K8", "K8@randint", "K9",
+                            "K10"),
     "multichip_field_torch": ("K1", "K2", "K3", "K5@window", "K7@window", "K7@records", "K8",
-                              "K8@randint", "K9"),
+                              "K8@randint", "K9", "K10"),
 }
 
 
@@ -2662,9 +2888,11 @@ def main():
     build_phase()
     rows = Rows()
     kernel_phase(rows)
-    fractal_gain_phase()
+    fractal_gain_phase(rows)
+    config1_phase(rows)
+    config6_phase(rows)
     sim = quickstart_phase(rows)
-    flagship_phase()
+    flagship_phase(rows)
     odd_grid_phase(rows)
     cross_device_phase()
     descent_phase(rows, sim)

@@ -55,6 +55,22 @@ class Bcast(ctypes.Structure):
     _fields_ = [("ndim", _I), ("shape", Dims), ("key", Dims), ("x0", Dims), ("x1", Dims)]
 
 
+#: K10's octave table (fractal.cu's ``kMaxOctaves``), one value an octave
+MAX_OCTAVES = 32
+Octaves = _F * MAX_OCTAVES
+
+
+class Fractal(ctypes.Structure):
+    """K10's call, passed by value (fractal.cu's ``NoizeFractal``): the basis
+    (its index in ``NOISE_TYPES``), the octaves, the stack's depth, the
+    window, 1 / noise_size, the origin of a single tile, the norm and each
+    octave's frequency and amplitude."""
+
+    _fields_ = [("basis", _I), ("octaves", _I), ("tiles", _L), ("rows", _I), ("cols", _I),
+                ("row0", _I), ("col0", _I), ("inv_size", _F), ("x0", _F), ("z0", _F),
+                ("acc", _F), ("f", Octaves), ("a", Octaves)]
+
+
 #: argtypes of every C entry point (csrc/*.cu); all return int.
 SIGNATURES = {
     # x, out, tmp, rows, cols, maps in the stack, X taps and Z taps (host
@@ -115,6 +131,10 @@ SIGNATURES = {
     # cells (i64), deltas, accumulators (host arrays of k pointers), k, n,
     # size, skip zeros, passes, digit bits, scratch (i32), stream (K9)
     "noize_scatter_in_order": (_P, _P, _P, _I, _L, _L, _I, _I, _I, _P, _P),
+    # out, origins (f32 [T, 2] or null), the call (by value), stream (K10)
+    "noize_fractal": (_P, _P, Fractal, _P),
+    # x, sin(x), cos(x), n, stream (K10's sinf and cosf)
+    "noize_sin_cos": (_P, _P, _P, _L, _P),
 }
 
 _LIB = None

@@ -9,8 +9,13 @@ Same formulas and the same float32 accumulation order as the reference
   * normalisation: t / sum_{i<octaves} G^i  with G = exp2(-hurst)
 
 Every basis of ``NOISE_TYPES`` is ported (``ops/noise.py``); the scalar
-recurrences run on the host in float32, so the device sees the same
-constants on the CPU and the card.  The gain G is ``f32.exp2``, the value
+recurrences run on the host in float32 (``octave_table``), so the device
+sees the same constants on the CPU and the card.  On the card a call is
+one launch of K10 (``ops/cuda/fractal``, ``csrc/fractal.cu``: every octave
+of a cell in registers); ``fractal_window_plain``, one elementwise pass an
+operation, is its plain version and the CPU's path.
+
+The gain G is ``f32.exp2``, the value
 XLA's CPU runtime gives ``jnp.exp2`` (eager JAX, and ``fractal`` with its
 traced hurst); PyTorch's exp2 is an ulp off it at ~20% of hurst values.
 A compiled reference program whose hurst is a constant (the sharded
@@ -124,6 +129,46 @@ def fractal(
                           starting_amplitude=starting_amplitude, device=device)
 
 
+def octave_table(hurst, octaves: int, stepdown, detune_rate, starting_amplitude):
+    """The fBm's host scalars in float32, the reference's recurrence
+    (fractal.py:142-155): each octave's frequency f and amplitude a (two
+    read-only float32 arrays of ``max(octaves, 0)``) and the norm ``acc`` =
+    sum of G^i, i < octaves, with G = ``_gain(hurst)``; computed once a
+    setting."""
+    f32 = np.float32
+    return _octave_table(float(f32(hurst)), int(octaves), float(f32(stepdown)),
+                         float(f32(detune_rate)), float(f32(starting_amplitude)))
+
+
+@functools.lru_cache(maxsize=256)
+def _octave_table(hurst, octaves, stepdown, detune_rate, starting_amplitude):
+    f32 = np.float32
+    g = _gain(hurst)
+    stepdown = f32(stepdown)
+    detune_rate = f32(detune_rate)
+    fs, amps = [], []
+    f = f32(1.0)
+    a = f32(starting_amplitude)
+    detune = f32(0.0)
+    for _ in range(octaves):
+        fs.append(f)
+        amps.append(a)
+        detune = f32(detune + detune_rate)
+        f = f32(f * f32(stepdown - detune))
+        a = f32(a * g)
+
+    # norm value with the same accumulation (amplitude 1 start)
+    norm = f32(1.0)
+    acc = f32(0.0)
+    for _ in range(octaves):
+        acc = f32(acc + norm)
+        norm = f32(norm * g)
+    fs, amps = np.asarray(fs, f32), np.asarray(amps, f32)
+    fs.setflags(write=False)
+    amps.setflags(write=False)
+    return fs, amps, acc
+
+
 def fractal_window(row0: int, col0: int, rows: int, cols: int, xpos, zpos, *,
                    noise_type: str = "Perlin", hurst=0.0, octaves: int = 1, stepdown=2.0,
                    detune_rate=0.0, noise_size=1000.0, starting_amplitude=1.0,
@@ -131,10 +176,30 @@ def fractal_window(row0: int, col0: int, rows: int, cols: int, xpos, zpos, *,
     """Rows ``row0 .. row0 + rows`` and columns ``col0 .. col0 + cols`` of
     the ``fractal`` tile at (``xpos``, ``zpos``), bit-equal to that slice of
     the whole tile (a shard's block, ``parallel.sharded_ops``): the grid
-    coordinates are exact float32 integers either way."""
+    coordinates are exact float32 integers either way.  On a CUDA device
+    one launch of K10 (``ops.cuda.fractal.fractal_fused``), whatever the
+    stack's depth; elsewhere the plain version."""
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("fractal(device='cuda'): no CUDA device")
+    kw = dict(noise_type=noise_type, hurst=hurst, octaves=octaves, stepdown=stepdown,
+              detune_rate=detune_rate, noise_size=noise_size,
+              starting_amplitude=starting_amplitude, device=device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("fractal(device='cuda'): no CUDA device")
+        from .cuda.fractal import fractal_fused
+
+        return fractal_fused(row0, col0, rows, cols, xpos, zpos, **kw)
+    return fractal_window_plain(row0, col0, rows, cols, xpos, zpos, **kw)
+
+
+def fractal_window_plain(row0: int, col0: int, rows: int, cols: int, xpos, zpos, *,
+                         noise_type: str = "Perlin", hurst=0.0, octaves: int = 1,
+                         stepdown=2.0, detune_rate=0.0, noise_size=1000.0,
+                         starting_amplitude=1.0, device="cuda"):
+    """``fractal_window`` as PyTorch elementwise passes on ``device``, one
+    basis evaluation an octave over the whole window: K10's plain version
+    (the CPU's path; on the card only to hold K10 against it)."""
+    device = torch.device(device)
     f32 = np.float32
     xs = np.asarray(xpos, f32)
     zs = np.asarray(zpos, f32)
@@ -149,26 +214,10 @@ def fractal_window(row0: int, col0: int, rows: int, cols: int, xpos, zpos, *,
     xi = (col + xpos) * inv_size
     zi = (row + zpos) * inv_size
 
-    g = _gain(float(f32(hurst)))
-    stepdown = f32(stepdown)
-    detune_rate = f32(detune_rate)
-
+    fs, amps, acc = octave_table(hurst, octaves, stepdown, detune_rate, starting_amplitude)
     t = torch.zeros(xi.shape, dtype=_F32, device=device)
-    f = f32(1.0)
-    a = f32(starting_amplitude)
-    detune = f32(0.0)
-    for _ in range(octaves):
+    for f, a in zip(fs, amps):
         t = t + float(a) * noise_value(noise_type, float(f) * xi, float(f) * zi)
-        detune = f32(detune + detune_rate)
-        f = f32(f * f32(stepdown - detune))
-        a = f32(a * g)
-
-    # norm value with the same accumulation (amplitude 1 start)
-    norm = f32(1.0)
-    acc = f32(0.0)
-    for _ in range(octaves):
-        acc = f32(acc + norm)
-        norm = f32(norm * g)
     # a device tensor divisor: CUDA turns division by a host scalar into a
     # reciprocal multiply, which would differ from the CPU by an ulp
     return t / torch.tensor(float(acc), dtype=_F32, device=device)

@@ -1,4 +1,4 @@
-"""noize_tpu_torch CUDA kernels K1-K9 and the JAX-signature entries on
+"""noize_tpu_torch CUDA kernels K1-K10 and the JAX-signature entries on
 them against their plain PyTorch versions on the card.
 
 Every test here needs an NVIDIA GPU (and nvcc to build the kernels); on a
@@ -1692,3 +1692,93 @@ def test_erosion_cycle_draws_with_two_k8_launches(cuda):
     after = counts()
     assert after[0] - before[0] == 2 * cycles
     assert after[1] - before[1] == cycles and after[2] - before[2] == cycles
+
+
+# --- K10: the fBm (csrc/fractal.cu) ------------------------------------------
+
+K10_KW = dict(hurst=0.4, octaves=4, noise_size=170.0)
+
+
+@pytest.mark.parametrize("kind", ["Sin", "Perlin", "PeriodicPerlin", "Simplex",
+                                  "RotatedSimplex", "Cellular", "DomainRotatedPerlin",
+                                  "DomainRotatedSimplex"])
+def test_k10_matches_plain_for_every_basis(cuda, kind):
+    """One launch a call, bit-equal to the plain version on the card."""
+    from noize_tpu_torch.ops import fractal as FR
+    from noize_tpu_torch.ops.cuda import fractal as FK
+
+    before = FK.fractal_fused.launches
+    got = FR.fractal(256, 1234.0, -777.0, noise_type=kind, device=cuda, **K10_KW)
+    assert FK.fractal_fused.launches == before + 1
+    want = FR.fractal_window_plain(0, 0, 256, 256, 1234.0, -777.0, noise_type=kind,
+                                   device=cuda, **K10_KW)
+    torch.cuda.synchronize()
+    _bits(got, want)
+    assert float(got.max() - got.min()) > 0
+
+
+@pytest.mark.parametrize("kw", [dict(noise_type="Simplex", hurst=0.9, octaves=13),
+                                dict(noise_type="Perlin", hurst=0.4, octaves=13),
+                                dict(noise_type="Simplex", hurst=0.123, octaves=24,
+                                     stepdown=1.9607, detune_rate=0.04,
+                                     starting_amplitude=0.7),
+                                dict(noise_type="Cellular", hurst=0.5, octaves=32)])
+def test_k10_octaves_match_plain(cuda, kw):
+    from noize_tpu_torch.ops import fractal as FR
+
+    got = FR.fractal(300, 5.0, 7.0, noise_size=1700.0, device=cuda, **kw)
+    want = FR.fractal_window_plain(0, 0, 300, 300, 5.0, 7.0, noise_size=1700.0,
+                                   device=cuda, **kw)
+    torch.cuda.synchronize()
+    _bits(got, want)
+
+
+def test_k10_stack_and_window_match_plain(cuda):
+    """A stack of T origins in one launch, each tile its own call's; a
+    window equal to that slice of the whole tile."""
+    from noize_tpu_torch.ops import fractal as FR
+    from noize_tpu_torch.ops.cuda import fractal as FK
+
+    kw = dict(noise_type="Simplex", hurst=0.4, octaves=13, noise_size=1700.0)
+    xs, zs = [0.0, 992.0, 1984.0, 0.0, 992.0], [0.0, 0.0, 0.0, 992.0, 992.0]
+    before = FK.fractal_fused.launches
+    stack = FR.fractal(200, xs, zs, device=cuda, **kw)
+    assert FK.fractal_fused.launches == before + 1 and tuple(stack.shape) == (5, 200, 200)
+    _bits(stack, FR.fractal_window_plain(0, 0, 200, 200, xs, zs, device=cuda, **kw))
+    for i, (x, z) in enumerate(zip(xs, zs)):
+        _bits(stack[i], FR.fractal(200, x, z, device=cuda, **kw))
+    whole = FR.fractal(200, 10.0, 20.0, device=cuda, **kw)
+    win = FR.fractal_window(37, 101, 60, 99, 10.0, 20.0, device=cuda, **kw)
+    _bits(win, whole[37:97, 101:200].contiguous())
+    _bits(win, FR.fractal_window_plain(37, 101, 60, 99, 10.0, 20.0, device=cuda, **kw))
+
+
+def test_k10_refuses_too_many_octaves(cuda):
+    from noize_tpu_torch.ops import fractal as FR
+    from noize_tpu_torch.ops.cuda import fractal as FK
+
+    with pytest.raises(ValueError, match="octaves"):
+        FR.fractal(16, 0.0, 0.0, octaves=FK.MAX_OCTAVES + 1, device=cuda)
+
+
+def test_k10_sin_cos_match_torch(cuda):
+    """K10's sinf and cosf (built with -fmad=false, as every source) against
+    torch.sin and torch.cos on ~10^6 inputs: the PeriodicPerlin and
+    RotatedSimplex gradient angles [0, 2π), the Sin basis' coordinates,
+    wide magnitudes, subnormals and the special values, bit for bit."""
+    from noize_tpu_torch.ops.cuda import fractal as FK
+
+    rng = np.random.default_rng(10)
+    mags = 10.0 ** rng.uniform(-40, 38, 200_000)
+    x = np.concatenate([
+        rng.uniform(0.0, 2 * np.pi, 400_000),
+        rng.uniform(-1e4, 1e4, 200_000),
+        np.where(rng.uniform(0, 1, 200_000) < 0.5, -mags, mags),
+        rng.uniform(-1e-3, 1e-3, 100_000),
+        [0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45, 1.17549435e-38, 3.4028235e38],
+    ]).astype(np.float32)
+    t = torch.from_numpy(x).to(cuda)
+    s, c = FK.sin_cos(t)
+    torch.cuda.synchronize()
+    _bits_or_nan(s, torch.sin(t))
+    _bits_or_nan(c, torch.cos(t))
