@@ -1,0 +1,9 @@
+"""The device's idle time a step, ms, in gaps whose middle lies in a
+``field.*`` span (the fractal, the blur chain, the flow map), over the
+window's ``step`` spans (the program's spans, ``h100bench/spans.py``)."""
+
+from h100bench import spans
+
+
+def read(tr):
+    return spans.idle_ms_per(tr, lambda n: n.startswith("field."), "step")

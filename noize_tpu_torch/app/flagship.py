@@ -3,6 +3,10 @@
 Simplex fBm (13 octaves) → Gauss-5 ×17 (kernel K1) → flow map ×8 (K2) →
 erosion cycles (thermal on K3, particle descent, sediment, pool automata
 on K4) → mesh emission, for one generator tile on one device.
+
+Spans (``utils.tracking``): ``step`` around a call, ``field.fractal``,
+``field.blur`` and ``field.flow`` around the field stages; the erosion
+cycles and the mesh record their own.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from ..ops import mesh as _mesh
 from ..ops.cuda.flow import flow_map_fused
 from ..ops.cuda.stencil import gauss_chain
 from ..ops.fractal import fractal
+from ..utils.tracking import span
 
 
 def default_meta(generator_res: int = 2048, margin: int = 16) -> TileSetMeta:
@@ -71,30 +76,34 @@ def make_tile_step(
     res = meta.generator_res
 
     def step(xpos, zpos, key, *, fresh=None):
-        syncs = []
-        h = fractal(res, xpos, zpos, noise_type=noise_type, hurst=hurst,
-                    octaves=octaves, noise_size=noise_size, device=device)
-        h = gauss_chain(h, 5, 1.0, blur_iterations)
-        flow_v = flow_map_fused(h, iterations=flow_iterations)
-        state = init_state(h, key)
-        for c in range(erosion_cycles):
-            state = erosion_cycle(state, settings, meta,
-                                  fresh=None if fresh is None else fresh[c],
-                                  syncs=syncs)
-        out = {
-            "height": state.world.height,
-            "flow_velocity": flow_v,
-            "pool": state.world.pool,
-            "stream": state.world.flow,
-        }
-        if emit_mesh:
-            mesher = (_mesh.heightmap_mesh_overshoot_planes
-                      if mesh_layout == "planes"
-                      else _mesh.heightmap_mesh_overshoot)
-            out["mesh"] = mesher(state.world.height, meta.tile_res, res,
-                                 float(meta.height), float(meta.tile_size))
-        step.syncs = syncs
-        return out
+        with span("step"):
+            syncs = []
+            with span("field.fractal"):
+                h = fractal(res, xpos, zpos, noise_type=noise_type, hurst=hurst,
+                            octaves=octaves, noise_size=noise_size, device=device)
+            with span("field.blur"):
+                h = gauss_chain(h, 5, 1.0, blur_iterations)
+            with span("field.flow"):
+                flow_v = flow_map_fused(h, iterations=flow_iterations)
+            state = init_state(h, key)
+            for c in range(erosion_cycles):
+                state = erosion_cycle(state, settings, meta,
+                                      fresh=None if fresh is None else fresh[c],
+                                      syncs=syncs)
+            out = {
+                "height": state.world.height,
+                "flow_velocity": flow_v,
+                "pool": state.world.pool,
+                "stream": state.world.flow,
+            }
+            if emit_mesh:
+                mesher = (_mesh.heightmap_mesh_overshoot_planes
+                          if mesh_layout == "planes"
+                          else _mesh.heightmap_mesh_overshoot)
+                out["mesh"] = mesher(state.world.height, meta.tile_res, res,
+                                     float(meta.height), float(meta.tile_size))
+            step.syncs = syncs
+            return out
 
     step.syncs = []
     return step, meta, settings

@@ -23,6 +23,13 @@ origins on the mesh's group (a heartbeat while idle, a stop message on
 ``drain`` when the controller stops.  Only the controller takes orders and
 delivers results.  A batch size the mesh does not divide raises
 ``tile_batch``'s error, delivered per order.
+
+Spans (``utils.tracking``): ``serve.queue``, one an order, from ``submit``
+(the caller's thread) to the start of the batch that takes it (the
+worker's), with the order's id and the batch's; ``serve.collect`` around
+each batch's formation; ``serve.batch`` around its run and the wait on its
+CUDA event, and ``serve.deliver`` around its callbacks, with the batch's
+id (the ``batch_id`` its ``ServedTile``s carry).
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import logging
 import queue
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -42,6 +49,7 @@ import torch.distributed as dist
 from ..core.tiles import TileRequest
 from ..parallel import tiled as TL
 from ..parallel.halo import _mesh_device
+from ..utils.tracking import close_span, open_span, span
 
 log = logging.getLogger(__name__)
 
@@ -50,6 +58,8 @@ log = logging.getLogger(__name__)
 class TileOrder:
     request: TileRequest
     on_complete: Optional[Callable] = None
+    #: the order's ``serve.queue`` span, open from ``submit`` to its batch
+    queued: object = field(default=None, init=False, repr=False, compare=False)
 
 
 @dataclass
@@ -107,7 +117,9 @@ class TileServer:
         if not self.controller:
             raise RuntimeError("TileServer(mesh=...): orders go to the controller rank "
                                "(batch coordinate 0)")
-        self.queue.put(TileOrder(TileRequest(uuid=tile_id, pos=pos), on_complete))
+        order = TileOrder(TileRequest(uuid=tile_id, pos=pos), on_complete)
+        order.queued = open_span("serve.queue", order=tile_id)
+        self.queue.put(order)
 
     def start(self):
         if self._thread is None or not self._thread.is_alive():
@@ -148,17 +160,18 @@ class TileServer:
 
     def _collect_batch(self) -> List[TileOrder]:
         orders: List[TileOrder] = []
-        try:
-            orders.append(self.queue.get(timeout=0.05))
-        except queue.Empty:
-            return orders
-        deadline = time.time() + self.max_wait_ms / 1e3
-        while len(orders) < self.batch_size and time.time() < deadline:
+        with span("serve.collect"):
             try:
-                orders.append(self.queue.get_nowait())
+                orders.append(self.queue.get(timeout=0.05))
             except queue.Empty:
-                time.sleep(0.0005)
-        return orders
+                return orders
+            deadline = time.time() + self.max_wait_ms / 1e3
+            while len(orders) < self.batch_size and time.time() < deadline:
+                try:
+                    orders.append(self.queue.get_nowait())
+                except queue.Empty:
+                    time.sleep(0.0005)
+            return orders
 
     def _origins(self, orders: List[TileOrder]) -> np.ndarray:
         return np.asarray([self.config.meta.tile_origin(o.request.pos) for o in orders],
@@ -234,30 +247,35 @@ class TileServer:
                 origins = self._origins(orders)
             if not len(origins):
                 continue
+            batch_id = self.batches + 1
+            for order in orders:
+                close_span(order.queued, batch=batch_id)
             try:
                 t0 = time.perf_counter()
-                heights_arr, planes_arr = self._run_batch(origins)
+                with span("serve.batch", batch=batch_id):
+                    heights_arr, planes_arr = self._run_batch(origins)
                 dt = (time.perf_counter() - t0) * 1e3
                 self.batches += 1
-                for i, order in enumerate(orders):
-                    self.served += 1
-                    if order.on_complete is not None:
-                        # one order's raising callback must not starve the
-                        # rest of the batch of their results
-                        try:
-                            order.on_complete(ServedTile(
-                                request=order.request,
-                                heights=heights_arr[i],
-                                batch_id=self.batches,
-                                latency_ms=dt,
-                                mesh_planes=(None if planes_arr is None
-                                             else planes_arr[i]),
-                            ))
-                        except Exception as e:
-                            self.errors.append(e)
-                            log.exception(
-                                "on_complete raised for tile %s",
-                                order.request.pos)
+                with span("serve.deliver", batch=batch_id):
+                    for i, order in enumerate(orders):
+                        self.served += 1
+                        if order.on_complete is not None:
+                            # one order's raising callback must not starve
+                            # the rest of the batch of their results
+                            try:
+                                order.on_complete(ServedTile(
+                                    request=order.request,
+                                    heights=heights_arr[i],
+                                    batch_id=self.batches,
+                                    latency_ms=dt,
+                                    mesh_planes=(None if planes_arr is None
+                                                 else planes_arr[i]),
+                                ))
+                            except Exception as e:
+                                self.errors.append(e)
+                                log.exception(
+                                    "on_complete raised for tile %s",
+                                    order.request.pos)
             except Exception as e:
                 self.errors.append(e)
                 log.exception("TileServer batch failed (%d orders dropped)",

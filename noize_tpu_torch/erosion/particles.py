@@ -34,6 +34,7 @@ import torch
 
 from ..ops.f32 import recip, sqrt
 from ..prng import _randint_of_split
+from ..utils.tracking import sync_bool
 from .world import NEIGHBOR_OFFSETS, WorldState
 
 _F32 = torch.float32
@@ -383,9 +384,7 @@ def _descend_all_plain(p: Particles, state: WorldState, params, height_scale, pa
     acc = [torch.zeros(shape[0] * shape[1], dtype=_F32, device=state.height.device)
            for _ in range(3)]
     for _ in range(n_chunks):
-        if syncs is not None:
-            syncs.append("descent.alive")
-        if not bool(p.alive.any()):
+        if not sync_bool("descent.alive", p.alive.any(), syncs):
             break
         p, cells, *deltas = descend_steps_plain(p, maps, params, height_scale, patch_res,
                                                 res, chunk)

@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.tracking import sync_bool
+
 # ErodeHeightMaps kernel5 (MultiThreadErosionJob.cs:449-455)
 KERNEL5 = np.array(
     [0.12007838424321349, 0.23388075658535032, 0.29208171834287244,
@@ -282,14 +284,10 @@ def write_sediment_map(height, sed_acc, params, height_scale, *, syncs: list = N
         new_height = height + delta
         ok = (new_height >= 0.0) & (new_height <= 1.0)
         new_height = torch.where(ok, new_height, height)
-        if syncs is not None:
-            syncs.append("sediment.piles")
-        if bool((pile_part > 0.0).any()):
+        if sync_bool("sediment.piles", (pile_part > 0.0).any(), syncs):
             new_height = exact_pile_deposit(new_height, pile_part, params, height_scale)
         return new_height
-    if syncs is not None:
-        syncs.append("sediment.piles")
-    if bool((pile_part > 0.0).any()):
+    if sync_bool("sediment.piles", (pile_part > 0.0).any(), syncs):
         delta = delta + pile_deposit(pile_part, params.PILING_RADIUS)
     new_height = height + delta
     ok = (new_height >= 0.0) & (new_height <= 1.0)

@@ -19,6 +19,11 @@ Host syncs: unlike the reference, whose gates are device-side
 ``lax.cond``/``while_loop``, the eager port reads a few flags on the host
 each cycle (drains present, descent chunks alive, piles present).  Pass a
 list as ``syncs`` to have each one recorded.
+
+Spans (``utils.tracking``): ``erosion.cycle`` around a cycle, and in it one
+span a phase: ``erosion.thermal``, ``erosion.spawn``, ``erosion.descent``,
+``erosion.deposit``, ``erosion.flow``, ``erosion.pool``; each host sync is
+the span ``sync.<site>`` inside its phase.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from ..core.tiles import TileSetMeta
 from ..ops.cuda.thermal import thermal_erosion_fused
 from .params import ErosionMode, ErosionSettings
 from ..prng import PRNGKey, split
-from ..utils.tracking import StandAloneJobHandler
+from ..utils.tracking import StandAloneJobHandler, span, sync_bool
 from .particles import Particles, descend_all, spawn
 from .pool_cuda import pool_automata_cuda
 from .sediment import write_sediment_map
@@ -71,9 +76,7 @@ def _spawn_with_drains(key, n: int, res: int, drain_water, *,
     if fresh is None:
         fresh = spawn(k1, n, res)
     flat = drain_water.reshape(-1)
-    if syncs is not None:
-        syncs.append("spawn.drains")
-    if not bool((flat > 0.0).any()):
+    if not sync_bool("spawn.drains", (flat > 0.0).any(), syncs):
         return fresh, drain_water, k2
     # exact top-k with ties to the lower index: a stable ascending sort of
     # -flat keeps equal values in index order
@@ -106,6 +109,12 @@ def erosion_cycle(state: SimState, settings: ErosionSettings, meta: TileSetMeta,
     particles still take the first slots; the key advances as without
     them) — a test hook.
     ``syncs``: a list that records the cycle's host syncs."""
+    with span("erosion.cycle"):
+        return _cycle(state, settings, meta, tuned, fresh, syncs)
+
+
+def _cycle(state: SimState, settings: ErosionSettings, meta: TileSetMeta, tuned, fresh,
+           syncs) -> SimState:
     params = settings.as_parameters()
     if tuned is not None:
         params = replace(params, **{k: float(np.float32(v)) for k, v in tuned.items()})
@@ -117,38 +126,45 @@ def erosion_cycle(state: SimState, settings: ErosionSettings, meta: TileSetMeta,
 
     if settings.ENABLE_THERMAL and behavior != ErosionMode.ONLY_FLOW_WATER:
         hw_ratio = float(meta.tile_size) / float(meta.height)
-        world = replace(world, height=thermal_erosion_fused(
-            world.height, settings.TALUS, settings.THERMAL_STEP, hw_ratio,
-            iterations=settings.THERMAL_CYCLES))
+        with span("erosion.thermal"):
+            world = replace(world, height=thermal_erosion_fused(
+                world.height, settings.TALUS, settings.THERMAL_STEP, hw_ratio,
+                iterations=settings.THERMAL_CYCLES))
 
     drain_water = state.drain_water
     key = state.key
     if behavior != ErosionMode.ONLY_FLOW_WATER:
-        parts, drain_water, key = _spawn_with_drains(
-            key, settings.PARTICLES_PER_CYCLE, res, drain_water,
-            fresh=fresh, syncs=syncs)
-        # unconverted drain water re-enters the pool map
-        world = replace(world, pool=world.pool + drain_water)
-        drain_water = torch.zeros_like(drain_water)
+        with span("erosion.spawn"):
+            parts, drain_water, key = _spawn_with_drains(
+                key, settings.PARTICLES_PER_CYCLE, res, drain_water,
+                fresh=fresh, syncs=syncs)
+            # unconverted drain water re-enters the pool map
+            world = replace(world, pool=world.pool + drain_water)
+            drain_water = torch.zeros_like(drain_water)
 
-        _, track_acc, pool_acc, sed_acc = descend_all(
-            parts, world, params, height_scale, patch_res, res, syncs=syncs)
+        with span("erosion.descent"):
+            _, track_acc, pool_acc, sed_acc = descend_all(
+                parts, world, params, height_scale, patch_res, res, syncs=syncs)
 
-        world = replace(
-            world,
-            pool=world.pool + pool_acc * params.POOL_PLACEMENT_MULTIPLIER,
-            track=world.track + track_acc * params.TRACK_PLACEMENT_MULTIPLIER,
-        )
-        world = replace(world, height=write_sediment_map(
-            world.height, sed_acc, params, height_scale, syncs=syncs))
+        with span("erosion.deposit"):
+            world = replace(
+                world,
+                pool=world.pool + pool_acc * params.POOL_PLACEMENT_MULTIPLIER,
+                track=world.track + track_acc * params.TRACK_PLACEMENT_MULTIPLIER,
+            )
+            world = replace(world, height=write_sediment_map(
+                world.height, sed_acc, params, height_scale, syncs=syncs))
 
-    world = update_flow_from_track(world, params, height_scale)
+    with span("erosion.flow"):
+        world = update_flow_from_track(world, params, height_scale)
 
-    pool, drains = pool_automata_cuda(
-        world.height, world.pool, settings.WATER_STEPS,
-        behavior != ErosionMode.ONLY_FLOW_WATER)
-    world = replace(world, pool=pool)
-    return SimState(world=world, drain_water=drain_water + drains, key=key)
+    with span("erosion.pool"):
+        pool, drains = pool_automata_cuda(
+            world.height, world.pool, settings.WATER_STEPS,
+            behavior != ErosionMode.ONLY_FLOW_WATER)
+        world = replace(world, pool=pool)
+        drain_water = drain_water + drains
+    return SimState(world=world, drain_water=drain_water, key=key)
 
 
 class ErosionSim:
@@ -223,8 +239,9 @@ class ErosionSim:
         test hook ``make_tile_step`` has too)."""
         n = self.settings.CYCLES if cycles is None else cycles
         self.syncs = []
-        for c in range(n):
-            self._run_cycle(None if fresh is None else fresh[c])
+        with span("sim.step"):
+            for c in range(n):
+                self._run_cycle(None if fresh is None else fresh[c])
         return self.state
 
     # --- continuous mode (LiveErosion.updateContinuous, :363-370) -----------
@@ -235,10 +252,10 @@ class ErosionSim:
         recorded after the batch's work tracks it.
 
         Unlike the reference, whose dispatch returns at once, the eager
-        port blocks here on each cycle's host syncs (``syncs``; 45 in a
-        3-cycle step at 2048², PERF.md) and returns when the last cycle's
-        work is enqueued; ``update`` then reports the states the reference
-        reports for the same calls."""
+        port blocks here on each cycle's host syncs (``syncs``; h100bench's
+        ``erosion.syncs_per_cycle.step`` counts them a cycle) and returns
+        when the last cycle's work is enqueued; ``update`` then reports the
+        states the reference reports for the same calls."""
         if self._job is None:
             self._job = StandAloneJobHandler()
         if self._job.is_running:

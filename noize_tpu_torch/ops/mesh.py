@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.tracking import span
 from .f32 import recip, sqrt
 
 NORMAL_STRENGTH = 8.0  # HeightMapMeshJob.cs:41
@@ -228,12 +229,14 @@ def heightmap_mesh_overshoot(heights, resolution: int, input_resolution: int,
                              height, tile_size) -> MeshArrays:
     """OvershootSquareGridHeightMap: center-crop ``heights`` to
     ``resolution`` cells, reading real margin samples for the neighbour
-    taps; returns ``MeshArrays`` of (resolution+1)² vertices."""
+    taps; returns ``MeshArrays`` of (resolution+1)² vertices.  Recorded
+    as the span ``mesh`` (``utils.tracking``)."""
     r = resolution
     off = (input_resolution - r) // 2
-    t, l, rgt, u, d = _tap_slices(heights, r, off)
-    return _assemble(r, t, l, rgt, u, d, tile_size, height, float(r) - 0.5,
-                     heights.device)
+    with span("mesh"):
+        t, l, rgt, u, d = _tap_slices(heights, r, off)
+        return _assemble(r, t, l, rgt, u, d, tile_size, height, float(r) - 0.5,
+                         heights.device)
 
 
 def heightmap_mesh_overshoot_planes(heights, resolution: int,
@@ -242,12 +245,14 @@ def heightmap_mesh_overshoot_planes(heights, resolution: int,
     """``heightmap_mesh_overshoot`` in the component-major ``MeshPlanes``
     layout (same math).  A stack of heights ``[T, n, n]`` gives planes
     ``[T, 12, r+1, r+1]``, each tile's those of its own call (the batch axis
-    in front, as ``parallel.tiled`` emits them)."""
+    in front, as ``parallel.tiled`` emits them).  Recorded as the span
+    ``mesh``."""
     r = resolution
     off = (input_resolution - r) // 2
-    t, l, rgt, u, d = _tap_slices(heights, r, off)
-    return _assemble_planes(r, t, l, rgt, u, d, tile_size, height, float(r) - 0.5,
-                            heights.device)
+    with span("mesh"):
+        t, l, rgt, u, d = _tap_slices(heights, r, off)
+        return _assemble_planes(r, t, l, rgt, u, d, tile_size, height, float(r) - 0.5,
+                                heights.device)
 
 
 def flat_water_mesh(resolution: int, *, device="cuda") -> MeshArrays:

@@ -20,6 +20,10 @@ The sharded batch (``mesh=``): whole tiles per rank of the mesh's
 ``batch`` axis, each rank running its share through the one-device path
 above, no communication; the stack comes back as a ``DTensor`` sharded on
 the tile axis (``.full_tensor()`` gathers it on every rank).
+
+Spans (``utils.tracking``): ``tile_batch`` around a batch on one device,
+``field.fractal``, ``field.blur`` and ``field.flow`` around the field
+stages, ``tile.erode`` around each tile's erosion.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from ..ops.cuda.flow import flow_map_fused
 from ..ops.cuda.stencil import gauss_chain
 from ..ops.fractal import fractal
 from ..prng import PRNGKey, fold_in_stack
+from ..utils.tracking import span
 from .device_mesh import tile_batch_sharding
 from .halo import _mesh_device
 
@@ -66,21 +71,25 @@ class TilePipelineConfig:
 def _tile_height(cfg: TilePipelineConfig, xpos, zpos, *, device="cuda"):
     """Field stages: noise → blur chain → optional flow map, of one tile
     (scalar origins) or of a stack (sequences of T origins)."""
-    h = fractal(cfg.meta.generator_res, xpos, zpos, noise_type=cfg.noise_type,
-                hurst=cfg.hurst, octaves=cfg.octaves, stepdown=cfg.stepdown,
-                detune_rate=cfg.detune_rate, noise_size=cfg.noise_size, device=device)
-    h = gauss_chain(h, cfg.blur_width, cfg.blur_sigma, cfg.blur_iterations)
+    with span("field.fractal"):
+        h = fractal(cfg.meta.generator_res, xpos, zpos, noise_type=cfg.noise_type,
+                    hurst=cfg.hurst, octaves=cfg.octaves, stepdown=cfg.stepdown,
+                    detune_rate=cfg.detune_rate, noise_size=cfg.noise_size, device=device)
+    with span("field.blur"):
+        h = gauss_chain(h, cfg.blur_width, cfg.blur_sigma, cfg.blur_iterations)
     if cfg.flow_iterations:
-        h = flow_map_fused(h, iterations=cfg.flow_iterations)
+        with span("field.flow"):
+            h = flow_map_fused(h, iterations=cfg.flow_iterations)
     return h
 
 
 def _tile_erode(cfg: TilePipelineConfig, h, key):
     """Erosion stage of one tile: cfg.erosion_cycles particle cycles."""
-    state = init_state(h, key)
-    for _ in range(cfg.erosion_cycles):
-        state = erosion_cycle(state, cfg.erosion, cfg.meta)
-    return state.world.height
+    with span("tile.erode"):
+        state = init_state(h, key)
+        for _ in range(cfg.erosion_cycles):
+            state = erosion_cycle(state, cfg.erosion, cfg.meta)
+        return state.world.height
 
 
 def _tile_mesh_planes(cfg: TilePipelineConfig, h):
@@ -113,12 +122,13 @@ def generate_tile(cfg: TilePipelineConfig, xpos, zpos, key):
 def _local_batch(cfg: TilePipelineConfig, xs, zs, keys):
     """A batch of whole tiles on one device: the field stages on the stack,
     erosion tile by tile, the mesh planes on the stack."""
-    h = _tile_height(cfg, xs, zs, device=keys.device)
-    if _eroding(cfg):
-        h = torch.stack([_tile_erode(cfg, h[i], keys[i]) for i in range(h.shape[0])])
-    if cfg.emit_mesh:
-        return {"height": h, "mesh_planes": _tile_mesh_planes(cfg, h)}
-    return h
+    with span("tile_batch"):
+        h = _tile_height(cfg, xs, zs, device=keys.device)
+        if _eroding(cfg):
+            h = torch.stack([_tile_erode(cfg, h[i], keys[i]) for i in range(h.shape[0])])
+        if cfg.emit_mesh:
+            return {"height": h, "mesh_planes": _tile_mesh_planes(cfg, h)}
+        return h
 
 
 def tile_batch(cfg: TilePipelineConfig, origins: np.ndarray, mesh=None, seed: int = 0, *,
