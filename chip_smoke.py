@@ -7,10 +7,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. device: requires CUDA; prints the card's name and
    ``nvidia-smi --query-gpu=name,power.limit``;
-2. build: compiles the CUDA kernels K1-K10 (K1 with K1@short and K1@rss)
+2. build: compiles the CUDA kernels K1-K11 (K1 with K1@short and K1@rss)
    from ``noize_tpu_torch/csrc``
    (K7 particle descent ``descent.cu``, K8 threefry ``threefry.cu``, K9 the
-   in-order event scatter ``scatter.cu``, K10 the fBm ``fractal.cu``);
+   in-order event scatter ``scatter.cu``, K10 the fBm ``fractal.cu``, K11
+   the sediment write-back ``sediment.cu``);
 3. kernels: each kernel against its plain PyTorch version on the card at
    the flagship's shapes (2048², and 2049² for K5), with CUDA-event times
    of both, the card's least time for the same work (``bound_ms``) and,
@@ -108,6 +109,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    visits that case walks before its pile is placed (read from the plain
    solve's inputs); a 2048² ``step()`` with ``EXACT_PILES`` (K6 one launch
    a cycle);
+18b. sediment: K11 against ``write_sediment_map_plain`` at 2048², 1024² and
+   1025², with piles on the corners and edges (the tent of radius 15) and
+   without, bit for bit; the kernel timed beside its bound and the plain
+   version (the kernels line's K11@2048, K11@1024 and K11@1025 rows), the
+   device operations of one ``write_sediment_map`` call (one K11 kernel),
+   and one ``ErosionSim`` step at each size (K11 once a cycle);
 19. native IO: the Quickstart state checkpointed synchronously and queued
    (``async_``, ``flush``), restored equal, a corrupted payload refused;
 20. sharded: a one-rank NCCL group, ``spatial_mesh`` and ``batch_mesh`` of
@@ -165,7 +172,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 Each path phase resets every launch count just before it runs and fails
 if a kernel of its path was not launched (the Quickstart and the flagship
 launch K10 once a step, config 5 once a batch): every erosion path runs K7 (the
-sharded one K7@window), its record table, K8, K8's draw entry and K9, and
+sharded one K7@window), its record table, K8, K8's draw entry and K9 (the
+Quickstart also K11 once a cycle), and
 prints its step time and host syncs; a Quickstart cycle draws with at most
 two K8 launches.  Prints the per-kernel JSON
 line, then as its last line
@@ -270,6 +278,7 @@ def _counters():
     from noize_tpu_torch.erosion import pile_cuda as PL
     from noize_tpu_torch.erosion import pool_cuda as PC
     from noize_tpu_torch.erosion import scatter_cuda as SCU
+    from noize_tpu_torch.erosion import sediment_cuda as SK
     from noize_tpu_torch.ops.cuda import flow as FC
     from noize_tpu_torch.ops.cuda import fractal as FK
     from noize_tpu_torch.ops.cuda import stencil as SC
@@ -284,7 +293,7 @@ def _counters():
         "K7": DC.descend_steps, "K7@window": DC.descend_steps_window,
         "K7@records": DC.step_records, "K8": prng.threefry2x32,
         "K8@randint": prng._randint_cuda, "K9": SCU.scatter_in_order,
-        "K10": FK.fractal_fused,
+        "K10": FK.fractal_fused, "K11": SK.write_sediment_cuda,
         "#1": SC.fused_separable_chain, "#2": SC.fused_separable_chain_rows,
         "#3": FC.flow_map_pallas, "#6": PC.pool_automata_pallas,
         "#7": PC.pool_automata_pallas_pair, "#8": PC.pool_automata_pallas_quad,
@@ -294,9 +303,11 @@ def _counters():
 
 def _reset_counts():
     from noize_tpu_torch.erosion import pool_cuda as PC
+    from noize_tpu_torch.erosion import sediment_cuda as SK
 
     for w in _counters().values():
         w.launches = 0
+    SK.write_sediment_cuda.tent_launches = 0
     PC.pool_automata_cuda.wet_calls = None
     PC.pool_automata_full_cuda.wet_calls = None
     PC.pool_automata_window.wet_calls = None
@@ -337,11 +348,11 @@ def build_phase():
         _cuda.library()
         _check(host.result(), "the native IO runtime did not load")
     srcs = sorted(p.name for p in _cuda.CSRC.glob("*.cu"))
-    _check({"descent.cu", "threefry.cu", "scatter.cu", "fractal.cu"} <= set(srcs),
-           f"K7, K8, K9 or K10 source missing: {srcs}")
+    _check({"descent.cu", "threefry.cu", "scatter.cu", "fractal.cu", "sediment.cu"}
+           <= set(srcs), f"K7, K8, K9, K10 or K11 source missing: {srcs}")
     print(f"build: {path.relative_to(HERE)} ({len(srcs)} sources in parallel: "
           f"{', '.join(srcs)}; K7 descent.cu, K8 threefry.cu, K9 scatter.cu, K10 "
-          "fractal.cu) and "
+          "fractal.cu, K11 sediment.cu) and "
           f"{native.library_path().relative_to(HERE)} in {time.perf_counter() - t0:.1f} s")
 
 
@@ -426,7 +437,7 @@ class Rows:
                  + [f"K1:{g}x{n}" for g, n in PRESET_CHAINS]
                  + ["K1@rss", "K1@stack", "K2@stack", "K6", "K5@window", "K6@table", "K7",
                     "K7@window", "K7@records", "K8", "K8@randint", "K9", "K10", "K10@stack",
-                    "K10@config1", "K10@config6"])
+                    "K10@config1", "K10@config6", "K11@2048", "K11@1024", "K11@1025"])
         _check(set(self.rows) == set(order), f"rows {sorted(self.rows)}")
         for k in order:
             _check(self.launches.get(k, 0) > 0, f"{k} was launched on no path")
@@ -464,6 +475,7 @@ SRC = {
     "K5": "noize_tpu_torch/csrc/pool.cu", "K6": "noize_tpu_torch/csrc/piles.cu",
     "K7": "noize_tpu_torch/csrc/descent.cu", "K8": "noize_tpu_torch/csrc/threefry.cu",
     "K9": "noize_tpu_torch/csrc/scatter.cu", "K10": "noize_tpu_torch/csrc/fractal.cu",
+    "K11": "noize_tpu_torch/csrc/sediment.cu",
 }
 #: what K10 stands in for: no TPU kernel, the reference's XLA-fused fBm
 FBM_REF = ("none: the fBm, noize_tpu/ops/fractal.py:106-155 with ops/noise.py's bases, "
@@ -847,11 +859,12 @@ def quickstart_phase(rows):
             _check(back.device.type == "cuda" and back.dtype == torch.float32,
                    f"restored {n} on {back.device} as {back.dtype}")
             _check(torch.equal(back, sm.get_buffer(n)), f"restored {n} differs")
-    for key in ("K1", "K2", "K3", "K4", "K7", "K8", "K7@records", "K8@randint", "K9", "K10"):
+    for key in ("K1", "K2", "K3", "K4", "K7", "K8", "K7@records", "K8@randint", "K9", "K10",
+                "K11"):
         _check(counts[key] > 0, f"{key} was not launched on the Quickstart path")
     _check(counts["K10"] == 1, f"the Quickstart's NoiseStage launched K10 {counts['K10']} times")
     cycles = sim.settings.CYCLES
-    for key in ("K7", "K7@records", "K9"):
+    for key in ("K7", "K7@records", "K9", "K11"):
         _check(counts[key] == cycles, f"{key} launched {counts[key]} times in {cycles} cycles")
     _check(counts["K8"] + counts["K8@randint"] <= 2 * cycles,
            f"the spawn's draws took {counts['K8']} + {counts['K8@randint']} K8 launches in "
@@ -1900,6 +1913,87 @@ def _sweep_walks(vals0, valid, amount, inc, radius):
     return walks
 
 
+#: what K11 stands in for: no TPU kernel, the reference's XLA-fused write-back
+SEDIMENT_REF = ("none: the sediment write-back, noize_tpu/erosion/sediment.py "
+                "write_sediment_map, XLA-fused on the TPU")
+
+
+def _sediment_case(res, radius):
+    """A smooth ``res``² height (cells at the breaker's edges among it) and
+    sediment of both signs with piles on the corners, on each edge and
+    inside, on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(res)
+    y, x = np.mgrid[0:res, 0:res].astype(np.float32) / np.float32(res)
+    h = (0.5 + 0.3 * np.sin(6.283 * 3 * x) * np.cos(6.283 * 2 * y)).astype(np.float32)
+    h.flat[rng.choice(h.size, h.size // 50, replace=False)] = np.float32(0.99999)
+    h.flat[rng.choice(h.size, h.size // 50, replace=False)] = np.float32(1e-6)
+    sed = rng.normal(0.0, 1e-4, (res, res)).astype(np.float32)
+    for r, c in [(0, 0), (0, res - 1), (res - 1, 0), (res - 1, res - 1), (0, res // 2),
+                 (res // 2, 0), (res - 1, res // 3), (res // 3, res - 1), (1, 5),
+                 (radius - 1, radius), (res // 2, res // 2)]:
+        sed[r, c] = rng.uniform(0.005, 0.05)
+    return torch.from_numpy(h).cuda(), torch.from_numpy(sed).cuda()
+
+
+def sediment_phase(rows):
+    """K11 (the sediment write-back) against ``write_sediment_map_plain`` on
+    the card at 2048², 1024² and 1025² with piles on the corners and edges
+    (the tent of radius 15 on), and without piles: bit for bit, timed (the
+    kernels line's K11 rows: the launch alone, against the plain version's
+    whole write-back); the device operations of one ``write_sediment_map``
+    call; then one ErosionSim step at each size (K11 once a cycle)."""
+    import torch
+
+    from noize_tpu_torch.erosion import sediment as SE
+    from noize_tpu_torch.erosion import sediment_cuda as SK
+    from noize_tpu_torch.erosion.params import ErosionSettings
+    from noize_tpu_torch.erosion.sim import ErosionSim
+
+    params = ErosionSettings().as_parameters()
+    radius = params.PILING_RADIUS
+    thresh = float(torch.tensor(params.PILE_THRESHOLD / 1000.0, dtype=torch.float32))
+    for res in (2048, 1024, 1025):
+        h, sed = _sediment_case(res, radius)
+        calm = torch.clamp(sed, max=0.0)  # no pile: the tent is off
+        for what, s in (("piles", sed), ("no pile", calm)):
+            got = SE.write_sediment_map(h, s, params, 1000.0)
+            _same_bits(f"K11 {res}² ({what})", (got,),
+                       (SE.write_sediment_map_plain(h, s, params, 1000.0),))
+            _check(not torch.equal(got, h), f"K11 {res}² ({what}) changed nothing")
+        key = f"K11@{res}"
+        ops, nbytes = SK.cost(res, res, radius)
+        rows.compare(key, f"K11 write_sediment_cuda, {res}² with piles (tent radius {radius})",
+                     SRC["K11"], SEDIMENT_REF, (SK._launch(h, sed, thresh, radius),),
+                     lambda: SK._launch(h, sed, thresh, radius),
+                     lambda: (SE.write_sediment_map_plain(h, sed, params, 1000.0),), key, 20,
+                     nbytes, ops)
+        calm_ms = _time_ms(lambda: SK._launch(h, calm, thresh, 0), 20)
+        whole_ms = _time_ms(lambda: SE.write_sediment_map(h, sed, params, 1000.0), 20)
+        host_us = _host_us(lambda: SK._launch(h, sed, thresh, radius))
+        dev = _device_ops_of_last_call(lambda: SE.write_sediment_map(h, sed, params, 1000.0))
+        k11 = [us for name, us in dev if "sediment_tile" in name]
+        _check(len(k11) == 1, f"write_sediment_map ran {len(k11)} K11 kernels: {dev}")
+        bound_calm, by_calm = _bound(*reversed(SK.cost(res, res)))
+        print(f"K11 {res}²: bit-equal to the plain version with piles and without; the kernel "
+              f"{rows.rows[key]['ms']:.4f} ms with the tent (device {k11[0]:.1f} µs, host "
+              f"enqueue {host_us:.1f} µs), {calm_ms:.4f} ms without (bound {bound_calm:.4f} ms, "
+              f"{by_calm}); write_sediment_map with its sync {whole_ms:.4f} ms in "
+              f"{len(dev)} device operations {[n[:40] for n, _ in dev]}")
+        _reset_counts()
+        sim = ErosionSim(h)
+        sim.step()
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        _check(counts["K11"] == sim.settings.CYCLES,
+               f"a {res}² step launched K11 {counts['K11']} times")
+        rows.set_launches({key: counts["K11"]})
+        print(f"K11 {res}² step: {counts['K11']} launches, "
+              f"{SK.write_sediment_cuda.tent_launches} with the tent")
+
+
 def exact_piles_phase(rows):
     """K6 against its plain version (bit-equal) at 256² with overlapping
     and border piles, radius 4 and 15; K6 and its table entry on 64
@@ -2907,6 +3001,7 @@ def main():
     continuous_phase()
     vegetation_phase()
     exact_piles_phase(rows)
+    sediment_phase(rows)
     native_io_phase(sim)
     window_kernels_phase(rows)
     examples_phase()

@@ -71,6 +71,21 @@ class Fractal(ctypes.Structure):
                 ("acc", _F), ("f", Octaves), ("a", Octaves)]
 
 
+#: K11's widest stamp (sediment.cu's ``kMaxTaps``, radius 31) and its folds
+MAX_SEDIMENT_TAPS = 63
+Taps = _F * MAX_SEDIMENT_TAPS
+Folds = _F * ((MAX_SEDIMENT_TAPS - 1) // 2)
+
+
+class Sediment(ctypes.Structure):
+    """K11's constants, passed by value (sediment.cu's ``NoizeSediment``): the
+    threshold as float32, the dispersal's and the tent's tap counts (0: no
+    tent), and each stamp's product and fold weights."""
+
+    _fields_ = [("thresh", _F), ("kd", _I), ("kt", _I), ("wd", Taps), ("fd", Folds),
+                ("wt", Taps), ("ft", Folds)]
+
+
 #: argtypes of every C entry point (csrc/*.cu); all return int.
 SIGNATURES = {
     # x, out, tmp, rows, cols, maps in the stack, X taps and Z taps (host
@@ -135,6 +150,9 @@ SIGNATURES = {
     "noize_fractal": (_P, _P, Fractal, _P),
     # x, sin(x), cos(x), n, stream (K10's sinf and cosf)
     "noize_sin_cos": (_P, _P, _P, _L, _P),
+    # height, sediment, out, rows, cols, the call's constants (by value),
+    # stream (K11)
+    "noize_sediment": (_P, _P, _P, _I, _I, Sediment, _P),
 }
 
 _LIB = None

@@ -8,7 +8,9 @@ destination cell on the summed delta.  Piles (cells banking more than
 PILE_THRESHOLD metres) are deposited as a separable tent of radius
 PILING_RADIUS, or, with ``EXACT_PILES``, by the reference's serial
 PileSolver transcription (``exact_pile_deposit``: kernel K6 on the card,
-``erosion.pile_cuda``).
+``erosion.pile_cuda``).  On the card the write-back (split, dispersal, tent
+and breaker) is kernel K11 (``erosion.sediment_cuda``); its plain version
+is ``write_sediment_map_plain``.
 """
 
 from __future__ import annotations
@@ -26,26 +28,35 @@ KERNEL5 = np.array(
 )
 
 
+def axis_weights(taps):
+    """The float32 weights of ``_disperse_axis``: (product weights, fold
+    weights).  Product i multiplies the zero-padded source at offset i by
+    ``taps[k - 1 - i]``; fold j adds source j (n - 1 - j) to the low (high)
+    edge cell times ``cumsum(taps)[off - 1 - j]``, off = (k − 1) // 2."""
+    taps = np.asarray(taps, np.float32)
+    off = (len(taps) - 1) // 2
+    t_lo = np.cumsum(taps)
+    return taps[::-1].copy(), np.array([t_lo[off - j - 1] for j in range(off)], np.float32)
+
+
 def _disperse_axis(s, taps, axis: int):
     """Clamped-scatter 1-D dispersal: every source cell stamps taps at
     clamp(c+d); out-of-range taps accumulate on the edge cell."""
-    taps = np.asarray(taps, np.float32)
-    k = len(taps)
+    w, folds = axis_weights(taps)
+    k = len(w)
     off = (k - 1) // 2
     n = s.shape[axis]
     s = torch.movedim(s, axis, -1)
     zpad = torch.nn.functional.pad(s, (off, off))
     out = None
     for i in range(k):
-        piece = zpad[..., i:i + n] * float(taps[k - 1 - i])
+        piece = zpad[..., i:i + n] * float(w[i])
         out = piece if out is None else out + piece
-    if off > 0:
-        # fold: source col j (< off) sends Σ_{i<off-j} taps[i] to col 0
-        t_lo = np.cumsum(taps)
-        for j in range(off):
-            w_lo = float(t_lo[off - j - 1])
-            out[..., 0] = out[..., 0] + s[..., j] * w_lo
-            out[..., n - 1] = out[..., n - 1] + s[..., n - 1 - j] * w_lo
+    # fold: source col j (< off) sends Σ_{i<off-j} taps[i] to col 0
+    for j in range(off):
+        w_lo = float(folds[j])
+        out[..., 0] = out[..., 0] + s[..., j] * w_lo
+        out[..., n - 1] = out[..., n - 1] + s[..., n - 1 - j] * w_lo
     return torch.movedim(out, -1, axis)
 
 
@@ -275,7 +286,17 @@ def write_sediment_map(height, sed_acc, params, height_scale, *, syncs: list = N
     the [0,1] breaker.  With ``EXACT_PILES`` the breaker applies to the
     dispersal only and the exact solver commits heights directly, as
     PileSolver.CommitChanges does.  The pile pass runs only when a pile
-    exists (one host sync, counted in ``syncs`` when given)."""
+    exists (one host sync, counted in ``syncs`` when given).  A CPU tensor
+    runs the plain version (``write_sediment_map_plain``); a CUDA tensor
+    kernel K11 (``sediment_cuda.write_sediment_cuda``) or raises."""
+    from .sediment_cuda import write_sediment_cuda
+
+    return write_sediment_cuda(height, sed_acc, params, height_scale, syncs=syncs)
+
+
+def write_sediment_map_plain(height, sed_acc, params, height_scale, *, syncs: list = None):
+    """The plain version of kernel K11: ``write_sediment_map`` as PyTorch
+    operations on any device."""
     thresh = params.PILE_THRESHOLD / height_scale
     disperse_part = torch.where(sed_acc <= thresh, sed_acc, 0.0)
     pile_part = torch.where(sed_acc > thresh, sed_acc, 0.0)

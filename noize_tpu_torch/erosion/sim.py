@@ -5,7 +5,8 @@
   → spawn particles (queued drain particles first, then fresh ones)
   → simultaneous descent (scatter-add events)
   → per-cell event reduce: pool/track placement multipliers
-  → sediment write-back (disperse / pile deposit + [0,1] breaker)
+  → sediment write-back (disperse / pile deposit + [0,1] breaker; kernel
+    K11 on the card)
   → track→flow decay + pool surface evaporation
   → pool automata (kernel K4 on the card, K5 on odd grids), emitting
     drain water

@@ -1782,3 +1782,135 @@ def test_k10_sin_cos_match_torch(cuda):
     torch.cuda.synchronize()
     _bits_or_nan(s, torch.sin(t))
     _bits_or_nan(c, torch.cos(t))
+
+
+# --- K11: the sediment write-back (csrc/sediment.cu) -------------------------
+
+def _sediment_case(shape, seed, radius, piles, negative=False):
+    """Height with cells at the breaker's edges, sediment of both signs with
+    values on and beside the threshold, and (``piles``) piles on the four
+    corners, on each edge, one stamp reach in and inside."""
+    rng = np.random.default_rng(seed)
+    rows, cols = shape
+    h = rng.uniform(0.2, 0.8, shape).astype(np.float32)
+    h.flat[rng.choice(h.size, h.size // 50, replace=False)] = np.float32(0.99999)
+    h.flat[rng.choice(h.size, h.size // 50, replace=False)] = np.float32(1e-6)
+    sed = rng.normal(-1e-3 if negative else 0.0, 3e-4 if negative else 1e-4,
+                     shape).astype(np.float32)
+    thresh = np.float32(2.0 / 1000.0)
+    edge = [thresh, np.nextafter(thresh, np.float32(0)), -thresh, 0.0, -0.0]
+    if piles:
+        edge.append(np.nextafter(thresh, np.float32(1)))
+        for r, c in [(0, 0), (0, cols - 1), (rows - 1, 0), (rows - 1, cols - 1),
+                     (0, cols // 2), (rows // 2, 0), (rows - 1, cols // 3),
+                     (rows // 3, cols - 1), (1, 5), (radius - 1, radius),
+                     (rows - radius, cols - 2), (rows // 2, cols // 2)]:
+            sed[r, c] = rng.uniform(0.005, 0.05)
+    sed.flat[rng.choice(sed.size, len(edge), replace=False)] = edge
+    return torch.from_numpy(h).to("cuda"), torch.from_numpy(sed).to("cuda")
+
+
+def _raw_equal(got, want):
+    """``assert_array_equal`` on the raw float32 bits (signs of zero too)."""
+    np.testing.assert_array_equal(got.view(torch.int32).cpu().numpy(),
+                                  want.view(torch.int32).cpu().numpy())
+
+
+@pytest.mark.parametrize("case", ["piles", "no_piles", "negative"])
+@pytest.mark.parametrize("radius", [6, 8, 15])
+@pytest.mark.parametrize("shape", [(2048, 2048), (1024, 1024), (1025, 1025), (48, 48),
+                                   (97, 150)])
+def test_k11_write_sediment_matches_plain(cuda, shape, radius, case):
+    """K11 against ``write_sediment_map_plain`` on the card, bit for bit:
+    one launch a call, the tent on exactly when a pile exists."""
+    from noize_tpu_torch.erosion import sediment as SE
+    from noize_tpu_torch.erosion import sediment_cuda as SK
+    from noize_tpu_torch.erosion.params import ErosionSettings
+
+    params = ErosionSettings(PILING_RADIUS=radius).as_parameters()
+    h, sed = _sediment_case(shape, radius, radius, case == "piles", case == "negative")
+    before = (SK.write_sediment_cuda.launches, SK.write_sediment_cuda.tent_launches)
+    syncs = []
+    got = SE.write_sediment_map(h, sed, params, 1000.0, syncs=syncs)
+    assert syncs == ["sediment.piles"]
+    assert (SK.write_sediment_cuda.launches, SK.write_sediment_cuda.tent_launches) == \
+        (before[0] + 1, before[1] + (case == "piles"))
+    want = SE.write_sediment_map_plain(h, sed, params, 1000.0)
+    torch.cuda.synchronize()
+    _raw_equal(got, want)
+    assert not torch.equal(got, h)
+
+
+@pytest.mark.parametrize("shape", [(1024, 1024), (1025, 1025), (48, 48)])
+def test_k11_exact_piles_matches_plain(cuda, shape):
+    """``EXACT_PILES``: K11 without the tent, then K6 commits the piles, as
+    the plain version does."""
+    from noize_tpu_torch.erosion import pile_cuda as PL
+    from noize_tpu_torch.erosion import sediment as SE
+    from noize_tpu_torch.erosion import sediment_cuda as SK
+    from noize_tpu_torch.erosion.params import ErosionSettings
+
+    params = ErosionSettings(PILING_RADIUS=8, EXACT_PILES=True).as_parameters()
+    h, sed = _sediment_case(shape, 11, 8, True)
+    before = (SK.write_sediment_cuda.launches, SK.write_sediment_cuda.tent_launches,
+              PL.exact_piles.launches)
+    got = SE.write_sediment_map(h, sed, params, 1000.0)
+    assert (SK.write_sediment_cuda.launches, SK.write_sediment_cuda.tent_launches,
+            PL.exact_piles.launches) == (before[0] + 1, before[1], before[2] + 1)
+    want = SE.write_sediment_map_plain(h, sed, params, 1000.0)
+    torch.cuda.synchronize()
+    _raw_equal(got, want)
+
+
+def test_k11_refuses_bad_input(cuda):
+    from noize_tpu_torch.erosion import sediment_cuda as SK
+    from noize_tpu_torch.erosion.params import ErosionSettings
+
+    params = ErosionSettings().as_parameters()
+    h, sed = _sediment_case((64, 64), 1, 15, True)
+    with pytest.raises(ValueError, match="float32"):
+        SK.write_sediment_cuda(h.double(), sed, params, 1000.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        SK.write_sediment_cuda(h.t(), sed, params, 1000.0)
+    with pytest.raises(ValueError, match="match"):
+        SK.write_sediment_cuda(h, sed[:32], params, 1000.0)
+    with pytest.raises(ValueError, match="2-D"):
+        SK.write_sediment_cuda(h[None], sed[None], params, 1000.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        SK.write_sediment_cuda(h, sed.cpu(), params, 1000.0)
+    with pytest.raises(ValueError, match="PILING_RADIUS"):
+        SK.write_sediment_cuda(h, sed, ErosionSettings(PILING_RADIUS=SK.MAX_RADIUS + 1)
+                               .as_parameters(), 1000.0)
+    with pytest.raises(ValueError, match="smaller"):
+        SK.write_sediment_cuda(h[:10, :10].contiguous(), sed[:10, :10].contiguous(), params,
+                               1000.0)
+
+
+@pytest.mark.parametrize("piles", [True, False])
+def test_k11_one_launch_a_cycle(cuda, monkeypatch, piles):
+    """One ``erosion_cycle`` launches K11 once, with the tent exactly when
+    the cycle banks a pile (PILE_THRESHOLD a micrometre, or a kilometre),
+    and leaves the state the plain write-back leaves."""
+    from dataclasses import replace
+
+    from noize_tpu_torch.erosion import sediment as SE
+    from noize_tpu_torch.erosion import sediment_cuda as SK
+    from noize_tpu_torch.erosion import sim as SIM
+    from noize_tpu_torch.erosion.params import ErosionSettings
+
+    settings = ErosionSettings(PILE_THRESHOLD=1e-6 if piles else 1e6)
+    sim = SIM.ErosionSim(_descent_world(256, 7).height, settings=settings)
+    before = (SK.write_sediment_cuda.launches, SK.write_sediment_cuda.tent_launches)
+    syncs = []
+    got = SIM.erosion_cycle(sim.state, settings, sim.meta, syncs=syncs)
+    torch.cuda.synchronize()
+    assert (SK.write_sediment_cuda.launches, SK.write_sediment_cuda.tent_launches) == \
+        (before[0] + 1, before[1] + piles)
+    assert syncs == ["spawn.drains", "sediment.piles"]
+    monkeypatch.setattr(SIM, "write_sediment_map", SE.write_sediment_map_plain)
+    want = SIM.erosion_cycle(replace(sim.state), settings, sim.meta)
+    torch.cuda.synchronize()
+    assert SK.write_sediment_cuda.launches == before[0] + 1
+    for name in ("height", "pool", "track", "flow"):
+        _raw_equal(getattr(got.world, name), getattr(want.world, name))
+    _raw_equal(got.drain_water, want.drain_water)
