@@ -16,8 +16,9 @@ from typing import Optional
 import torch
 
 from ..core.tiles import TileSetMeta
+from ..erosion import sim as _sim
+from ..erosion.graphs import CycleGraphs
 from ..erosion.params import ErosionSettings
-from ..erosion.sim import erosion_cycle, init_state
 from ..ops import mesh as _mesh
 from ..ops.cuda.flow import flow_map_fused
 from ..ops.cuda.stencil import gauss_chain
@@ -74,6 +75,7 @@ def make_tile_step(
     if mesh_layout not in ("arrays", "planes"):
         raise ValueError(f"unknown mesh layout {mesh_layout!r}")
     res = meta.generator_res
+    graphs = CycleGraphs()  # the step's erosion cycles, replayed as CUDA graphs
 
     def step(xpos, zpos, key, *, fresh=None):
         with span("step"):
@@ -85,11 +87,9 @@ def make_tile_step(
                 h = gauss_chain(h, 5, 1.0, blur_iterations)
             with span("field.flow"):
                 flow_v = flow_map_fused(h, iterations=flow_iterations)
-            state = init_state(h, key)
-            for c in range(erosion_cycles):
-                state = erosion_cycle(state, settings, meta,
-                                      fresh=None if fresh is None else fresh[c],
-                                      syncs=syncs)
+            state = _sim.erosion_cycles(_sim.init_state(h, key), settings, meta,
+                                        erosion_cycles, fresh=fresh, syncs=syncs,
+                                        graphs=graphs)
             out = {
                 "height": state.world.height,
                 "flow_velocity": flow_v,

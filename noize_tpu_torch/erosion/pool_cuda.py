@@ -44,8 +44,9 @@ from . import pool as _pool
 
 
 def _launch(wrapper, entry: str, height, pool, iterations: int,
-            drain_particles: bool):
-    """Launch ``entry`` (K4 or K5) on CUDA tensors; returns (pool, drains)
+            drain_particles: bool, out=None):
+    """Launch ``entry`` (K4 or K5) on CUDA tensors; returns (pool, drains),
+    the pool in ``out`` (a map apart from both inputs; None: a new one),
     and adds the call's gate flag to ``wrapper.wet_calls``."""
     _cuda.check_map(height, wrapper.__name__)
     _cuda.check_map(pool, wrapper.__name__)
@@ -53,7 +54,14 @@ def _launch(wrapper, entry: str, height, pool, iterations: int,
         raise ValueError(f"{wrapper.__name__}: height and pool must match in "
                          "shape and device")
     res = height.shape[0]
-    out = torch.empty_like(pool)
+    if out is None:
+        out = torch.empty_like(pool)
+    else:
+        _cuda.check_map(out, wrapper.__name__)
+        if out.shape != pool.shape or out.device != pool.device \
+                or out.data_ptr() in (height.data_ptr(), pool.data_ptr()):
+            raise ValueError(f"{wrapper.__name__}: out must be a map of the pool's shape "
+                             "and device apart from height and pool")
     drains = torch.empty_like(pool)
     flag = torch.empty((1,), dtype=torch.int32, device=pool.device)
     tmp = torch.empty_like(pool)  # the pool's ping-pong partner
@@ -69,6 +77,12 @@ def _count(wrapper, flag):
     """One launch of ``wrapper``'s kernel, and its gate flag added to
     ``wrapper.wet_calls`` on the device."""
     wrapper.launches += 1
+    add_wet(wrapper, flag)
+
+
+def add_wet(wrapper, flag):
+    """Add a call's gate flag (an int32 [1] device tensor) to
+    ``wrapper.wet_calls``."""
     wet = wrapper.wet_calls
     if wet is None or wet.device != flag.device:
         wrapper.wet_calls = flag.clone()
@@ -77,27 +91,29 @@ def _count(wrapper, flag):
 
 
 def pool_automata_full_cuda(height, pool, iterations: int = 10,
-                            drain_particles: bool = True):
+                            drain_particles: bool = True, *, out=None):
     """``pool._pool_automata_fullgrid`` on K5, any square size.  A CPU
-    tensor takes the plain version; a CUDA tensor launches K5 or raises."""
+    tensor takes the plain version; a CUDA tensor launches K5 or raises.
+    ``out`` (CUDA only): the map to write the pool into."""
     if height.device.type == "cpu":
         return _pool._pool_automata_fullgrid(height, pool, iterations,
                                              drain_particles)
     return _launch(pool_automata_full_cuda, "noize_pool_automata_full",
-                   height, pool, iterations, drain_particles)
+                   height, pool, iterations, drain_particles, out)
 
 
 def pool_automata_cuda(height, pool, iterations: int = 10,
-                       drain_particles: bool = True):
+                       drain_particles: bool = True, *, out=None):
     """``pool_automata``: K4 on an even grid, K5 on an odd one (the
     reference's full-grid fallback).  A CPU tensor takes the plain
-    version; a CUDA tensor launches a kernel or raises."""
+    version; a CUDA tensor launches a kernel or raises.  ``out`` (CUDA
+    only): the map to write the pool into."""
     if height.device.type == "cpu":
         return _pool.pool_automata(height, pool, iterations, drain_particles)
     if height.dim() == 2 and height.shape[0] % 2:
-        return pool_automata_full_cuda(height, pool, iterations, drain_particles)
+        return pool_automata_full_cuda(height, pool, iterations, drain_particles, out=out)
     return _launch(pool_automata_cuda, "noize_pool_automata", height, pool,
-                   iterations, drain_particles)
+                   iterations, drain_particles, out)
 
 
 def pool_automata_window(height, pool, drains, iterations: int, drain_particles: bool,

@@ -13,6 +13,9 @@ JAX package leaves this path to XLA's fusion.
 The wrapper adapts to what it can observe: the taps from ``params``
 (KERNEL5 and ``_triangle_taps(PILING_RADIUS)``), the tent on when the
 existing ``sediment.piles`` host sync finds a pile, and the grid's shape.
+``piles_flag`` and ``write_sediment_piles`` are the two halves around that
+sync, which the erosion cycle's CUDA graphs (``erosion.graphs``) capture
+apart.
 With ``EXACT_PILES`` K11 runs the dispersal and the breaker without the
 tent, and K6 (``erosion.pile_cuda``) commits the piles after it.
 
@@ -70,15 +73,23 @@ def cost(rows: int, cols: int, radius: int = 0):
     return ops, 12 * cells
 
 
-def _launch(height, sed_acc, thresh: float, radius: int):
+def _launch(height, sed_acc, thresh: float, radius: int, out=None):
     """One K11 launch: the new height of ``height`` with ``sed_acc``
-    written back, with the tent of ``radius`` (0: none)."""
+    written back, with the tent of ``radius`` (0: none), into ``out`` (a
+    map apart from both; None: a new one)."""
     rows, cols = height.shape
     need = max(2, radius)
     if rows < need or cols < need:
         raise ValueError(f"write_sediment_cuda: a {rows} × {cols} grid is smaller than the "
                          f"stamps' reach; need at least {need} × {need}")
-    out = torch.empty_like(height)
+    if out is None:
+        out = torch.empty_like(height)
+    else:
+        _cuda.check_map(out, "write_sediment_cuda", square=False)
+        if out.shape != height.shape or out.device != height.device \
+                or out.data_ptr() in (height.data_ptr(), sed_acc.data_ptr()):
+            raise ValueError("write_sediment_cuda: out must be a map of the height's shape "
+                             "and device apart from height and sed_acc")
     index = height.device.index
     with _cuda.on_device(index):
         _cuda.call("noize_sediment", height.data_ptr(), sed_acc.data_ptr(), out.data_ptr(), rows,
@@ -86,6 +97,31 @@ def _launch(height, sed_acc, thresh: float, radius: int):
     write_sediment_cuda.launches += 1
     write_sediment_cuda.tent_launches += bool(radius)
     return out
+
+
+def _threshold(params, height_scale) -> float:
+    # the plain version's comparisons with the Python scalar round it to float32
+    return float(np.float32(params.PILE_THRESHOLD / height_scale))
+
+
+def piles_flag(sed_acc, params, height_scale):
+    """Whether a cell of ``sed_acc`` piles, where(sed > thresh, sed, 0) > 0:
+    a device bool, the value the ``sediment.piles`` host sync reads."""
+    return (sed_acc > max(_threshold(params, height_scale), 0.0)).any()
+
+
+def write_sediment_piles(height, sed_acc, params, height_scale, piles: bool, *, out=None):
+    """One K11 launch on CUDA tensors, with the pile tent when ``piles``
+    (the ``sediment.piles`` sync's answer), into ``out`` (None: a new
+    map)."""
+    thresh = _threshold(params, height_scale)
+    if not piles:
+        return _launch(height, sed_acc, thresh, 0, out)
+    radius = int(params.PILING_RADIUS)
+    if not 1 <= radius <= MAX_RADIUS:
+        raise ValueError(f"write_sediment_cuda: PILING_RADIUS must be in [1, {MAX_RADIUS}], "
+                         f"got {radius}")
+    return _launch(height, sed_acc, thresh, radius, out)
 
 
 def write_sediment_cuda(height, sed_acc, params, height_scale, *, syncs: list = None):
@@ -101,22 +137,15 @@ def write_sediment_cuda(height, sed_acc, params, height_scale, *, syncs: list = 
     _cuda.check_map(sed_acc, name, square=False)
     if sed_acc.shape != height.shape or sed_acc.device != height.device:
         raise ValueError(f"{name}: height and sed_acc must match in shape and device")
-    # the plain version's comparisons with the Python scalar round it to float32
-    thresh = float(np.float32(params.PILE_THRESHOLD / height_scale))
     if params.EXACT_PILES:
-        new_height = _launch(height, sed_acc, thresh, 0)
+        new_height = _launch(height, sed_acc, _threshold(params, height_scale), 0)
         pile_part = torch.where(sed_acc > params.PILE_THRESHOLD / height_scale, sed_acc, 0.0)
         if sync_bool("sediment.piles", (pile_part > 0.0).any(), syncs):
             new_height = _sediment.exact_pile_deposit(new_height, pile_part, params,
                                                       height_scale)
         return new_height
-    radius = int(params.PILING_RADIUS)
-    # a cell piles where where(sed > thresh, sed, 0) > 0
-    if not sync_bool("sediment.piles", (sed_acc > max(thresh, 0.0)).any(), syncs):
-        return _launch(height, sed_acc, thresh, 0)
-    if not 1 <= radius <= MAX_RADIUS:
-        raise ValueError(f"{name}: PILING_RADIUS must be in [1, {MAX_RADIUS}], got {radius}")
-    return _launch(height, sed_acc, thresh, radius)
+    piles = sync_bool("sediment.piles", piles_flag(sed_acc, params, height_scale), syncs)
+    return write_sediment_piles(height, sed_acc, params, height_scale, piles)
 
 
 write_sediment_cuda.launches = 0

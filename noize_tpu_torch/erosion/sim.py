@@ -1,5 +1,6 @@
 """Live erosion — port of ``noize_tpu.erosion.sim``: one erosion cycle
-(``erosion_cycle``) and the per-tile host driver (``ErosionSim``).
+(``erosion_cycle``), the loop of cycles all its callers share
+(``erosion_cycles``) and the per-tile live simulation (``ErosionSim``).
 
   thermal erosion (kernel K3 on the card)
   → spawn particles (queued drain particles first, then fresh ones)
@@ -19,12 +20,15 @@ pool map.
 Host syncs: unlike the reference, whose gates are device-side
 ``lax.cond``/``while_loop``, the eager port reads a few flags on the host
 each cycle (drains present, descent chunks alive, piles present).  Pass a
-list as ``syncs`` to have each one recorded.
+list as ``syncs`` to have each one recorded.  On the card
+``erosion_cycles`` replays a dry cycle's device work between those syncs as
+CUDA graphs (``erosion.graphs``); ``erosion_cycle`` is the eager cycle.
 
-Spans (``utils.tracking``): ``erosion.cycle`` around a cycle, and in it one
-span a phase: ``erosion.thermal``, ``erosion.spawn``, ``erosion.descent``,
-``erosion.deposit``, ``erosion.flow``, ``erosion.pool``; each host sync is
-the span ``sync.<site>`` inside its phase.
+Spans (``utils.tracking``): ``erosion.cycle`` around a cycle, and in an
+eager one one span a phase: ``erosion.thermal``, ``erosion.spawn``,
+``erosion.descent``, ``erosion.deposit``, ``erosion.flow``,
+``erosion.pool``; each host sync is the span ``sync.<site>`` inside its
+phase (a graph cycle's: inside ``erosion.cycle`` and ``erosion.graph``).
 """
 
 from __future__ import annotations
@@ -67,18 +71,35 @@ def init_state(height, key=None) -> SimState:
     )
 
 
-def _spawn_with_drains(key, n: int, res: int, drain_water, *,
-                       fresh: Optional[Particles] = None, syncs: list = None):
-    """Fill the particle buffer: drain particles first (top-K wettest
-    drain cells), particles spawned from the first half of ``key`` (or
-    ``fresh``) in the remaining slots.  Returns (particles, leftover drain
-    water, the second half of ``key``), as the reference does."""
+def _draw(key, n: int, res: int, fresh: Optional[Particles] = None):
+    """The spawn's particles from the first half of ``key`` (or ``fresh``),
+    and the second half of ``key``."""
     k1, k2 = split(key)
     if fresh is None:
         fresh = spawn(k1, n, res)
-    flat = drain_water.reshape(-1)
-    if not sync_bool("spawn.drains", (flat > 0.0).any(), syncs):
+    return fresh, k2
+
+
+def _drains_flag(drain_water):
+    """Whether any drain water is queued: the device bool the
+    ``spawn.drains`` host sync reads."""
+    return (drain_water.reshape(-1) > 0.0).any()
+
+
+def _spawn_with_drains(key, n: int, res: int, drain_water, *,
+                       fresh: Optional[Particles] = None, syncs: list = None,
+                       wet: Optional[bool] = None):
+    """Fill the particle buffer: drain particles first (top-K wettest
+    drain cells), particles spawned from the first half of ``key`` (or
+    ``fresh``) in the remaining slots.  Returns (particles, leftover drain
+    water, the second half of ``key``), as the reference does.  ``wet``:
+    the ``spawn.drains`` sync's answer when the caller has read it already."""
+    fresh, k2 = _draw(key, n, res, fresh)
+    if wet is None:
+        wet = sync_bool("spawn.drains", _drains_flag(drain_water), syncs)
+    if not wet:
         return fresh, drain_water, k2
+    flat = drain_water.reshape(-1)
     # exact top-k with ties to the lower index: a stable ascending sort of
     # -flat keeps equal values in index order
     neg, idxs = torch.sort(-flat, stable=True)
@@ -98,10 +119,70 @@ def _spawn_with_drains(key, n: int, res: int, drain_water, *,
     return parts, leftover.reshape(drain_water.shape), k2
 
 
+# --- the cycle's phases, shared by the eager cycle and its CUDA graphs
+# (``erosion.graphs``) -------------------------------------------------------
+
+def cycle_parameters(settings: ErosionSettings, tuned: Optional[dict] = None):
+    """The cycle's ``ErosionParameters``: the settings', with ``tuned``'s
+    values rounded to float32 as the reference's traced scalars are."""
+    params = settings.as_parameters()
+    if tuned is not None:
+        params = replace(params, **{k: float(np.float32(v)) for k, v in tuned.items()})
+    return params
+
+
+def spawns(settings: ErosionSettings) -> bool:
+    """The cycle spawns particles (and syncs twice): every mode but
+    ONLY_FLOW_WATER."""
+    return settings.BEHAVIOR != ErosionMode.ONLY_FLOW_WATER
+
+
+def _thermal_on(settings: ErosionSettings) -> bool:
+    return settings.ENABLE_THERMAL and spawns(settings)
+
+
+def _thermal(world: WorldState, settings: ErosionSettings, meta: TileSetMeta):
+    hw_ratio = float(meta.tile_size) / float(meta.height)
+    return replace(world, height=thermal_erosion_fused(
+        world.height, settings.TALUS, settings.THERMAL_STEP, hw_ratio,
+        iterations=settings.THERMAL_CYCLES))
+
+
+def _release_drains(world: WorldState, drain_water):
+    """Unconverted drain water re-enters the pool map."""
+    return replace(world, pool=world.pool + drain_water), torch.zeros_like(drain_water)
+
+
+def _descend(parts, world: WorldState, params, meta: TileSetMeta, syncs=None):
+    """(track_acc, pool_acc, sed_acc) of the particles' descent."""
+    _, track_acc, pool_acc, sed_acc = descend_all(
+        parts, world, params, float(meta.height), meta.patch_res, meta.generator_res,
+        syncs=syncs)
+    return track_acc, pool_acc, sed_acc
+
+
+def _deposit(world: WorldState, track_acc, pool_acc, params):
+    return replace(
+        world,
+        pool=world.pool + pool_acc * params.POOL_PLACEMENT_MULTIPLIER,
+        track=world.track + track_acc * params.TRACK_PLACEMENT_MULTIPLIER,
+    )
+
+
+def _pool(world: WorldState, drain_water, settings: ErosionSettings, out=None):
+    """The pool automata, and the drains added to ``drain_water``; ``out``:
+    (pool, drain water) maps on the card to write them into."""
+    pool_out, drain_out = (None, None) if out is None else out
+    pool, drains = pool_automata_cuda(world.height, world.pool, settings.WATER_STEPS,
+                                      spawns(settings), out=pool_out)
+    return replace(world, pool=pool), torch.add(drain_water, drains, out=drain_out)
+
+
 def erosion_cycle(state: SimState, settings: ErosionSettings, meta: TileSetMeta,
                   tuned: Optional[dict] = None, *, fresh: Optional[Particles] = None,
                   syncs: list = None) -> SimState:
-    """One full cycle of TriggerQueuedBeyerMT's inner loop.
+    """One full cycle of TriggerQueuedBeyerMT's inner loop, every operation
+    enqueued from Python (the eager cycle; ``erosion_cycles`` runs many).
 
     ``tuned``: optional dict of ``params.TUNABLE_FIELDS`` values that
     override the settings' (the live-retuning hook; each value is rounded
@@ -115,44 +196,28 @@ def erosion_cycle(state: SimState, settings: ErosionSettings, meta: TileSetMeta,
 
 
 def _cycle(state: SimState, settings: ErosionSettings, meta: TileSetMeta, tuned, fresh,
-           syncs) -> SimState:
-    params = settings.as_parameters()
-    if tuned is not None:
-        params = replace(params, **{k: float(np.float32(v)) for k, v in tuned.items()})
-    res = meta.generator_res
+           syncs, wet: Optional[bool] = None) -> SimState:
+    params = cycle_parameters(settings, tuned)
     height_scale = float(meta.height)
-    patch_res = meta.patch_res
     world = state.world
-    behavior = settings.BEHAVIOR
-
-    if settings.ENABLE_THERMAL and behavior != ErosionMode.ONLY_FLOW_WATER:
-        hw_ratio = float(meta.tile_size) / float(meta.height)
+    if _thermal_on(settings):
         with span("erosion.thermal"):
-            world = replace(world, height=thermal_erosion_fused(
-                world.height, settings.TALUS, settings.THERMAL_STEP, hw_ratio,
-                iterations=settings.THERMAL_CYCLES))
+            world = _thermal(world, settings, meta)
 
     drain_water = state.drain_water
     key = state.key
-    if behavior != ErosionMode.ONLY_FLOW_WATER:
+    if spawns(settings):
         with span("erosion.spawn"):
             parts, drain_water, key = _spawn_with_drains(
-                key, settings.PARTICLES_PER_CYCLE, res, drain_water,
-                fresh=fresh, syncs=syncs)
-            # unconverted drain water re-enters the pool map
-            world = replace(world, pool=world.pool + drain_water)
-            drain_water = torch.zeros_like(drain_water)
+                key, settings.PARTICLES_PER_CYCLE, meta.generator_res, drain_water,
+                fresh=fresh, syncs=syncs, wet=wet)
+            world, drain_water = _release_drains(world, drain_water)
 
         with span("erosion.descent"):
-            _, track_acc, pool_acc, sed_acc = descend_all(
-                parts, world, params, height_scale, patch_res, res, syncs=syncs)
+            track_acc, pool_acc, sed_acc = _descend(parts, world, params, meta, syncs)
 
         with span("erosion.deposit"):
-            world = replace(
-                world,
-                pool=world.pool + pool_acc * params.POOL_PLACEMENT_MULTIPLIER,
-                track=world.track + track_acc * params.TRACK_PLACEMENT_MULTIPLIER,
-            )
+            world = _deposit(world, track_acc, pool_acc, params)
             world = replace(world, height=write_sediment_map(
                 world.height, sed_acc, params, height_scale, syncs=syncs))
 
@@ -160,12 +225,45 @@ def _cycle(state: SimState, settings: ErosionSettings, meta: TileSetMeta, tuned,
         world = update_flow_from_track(world, params, height_scale)
 
     with span("erosion.pool"):
-        pool, drains = pool_automata_cuda(
-            world.height, world.pool, settings.WATER_STEPS,
-            behavior != ErosionMode.ONLY_FLOW_WATER)
-        world = replace(world, pool=pool)
-        drain_water = drain_water + drains
+        world, drain_water = _pool(world, drain_water, settings)
     return SimState(world=world, drain_water=drain_water, key=key)
+
+
+def erosion_cycles(state: SimState, settings: ErosionSettings, meta: TileSetMeta, n: int, *,
+                   tuned: Optional[dict] = None,
+                   fresh: Optional[Sequence[Particles]] = None, syncs: list = None,
+                   graphs=None) -> SimState:
+    """``n`` erosion cycles from ``state``: the one loop of
+    ``ErosionSim.step``/``trigger``, the flagship step and ``tile_batch``.
+
+    ``tuned`` and ``syncs`` as ``erosion_cycle``'s; ``fresh``: None, or one
+    ``Particles`` a cycle (the test hook).  Where ``graphs.graph_eligible``
+    holds (a CUDA state, no ``fresh``, no ``EXACT_PILES``) the cycles go to
+    ``graphs`` (an ``erosion.graphs.CycleGraphs``; None: the process's
+    shared one), which replays each dry cycle's device work as CUDA graphs
+    between its two host syncs, bit-equal to ``erosion_cycle``; every other
+    cycle runs ``erosion_cycle``.  The state returned shares no tensor with
+    the graphs' buffers, so no later call writes it.
+
+    Counters: ``erosion_cycles.captures`` (graphs captured),
+    ``.replays`` (cycles replayed as graphs), ``.eager_cycles`` (cycles on
+    CUDA run by ``erosion_cycle``)."""
+    from . import graphs as _graphs
+
+    if _graphs.graph_eligible(state, settings, fresh):
+        runner = _graphs.SHARED if graphs is None else graphs
+        return runner.run(state, settings, meta, n, tuned, syncs)
+    for c in range(n):
+        state = erosion_cycle(state, settings, meta, tuned,
+                              fresh=None if fresh is None else fresh[c], syncs=syncs)
+    if state.world.height.device.type == "cuda":
+        erosion_cycles.eager_cycles += n
+    return state
+
+
+erosion_cycles.captures = 0
+erosion_cycles.replays = 0
+erosion_cycles.eager_cycles = 0
 
 
 class ErosionSim:
@@ -199,6 +297,10 @@ class ErosionSim:
         #: host syncs of the last ``step`` or ``trigger``
         self.syncs: list = []
         self._job: Optional[StandAloneJobHandler] = None
+        from .graphs import CycleGraphs
+
+        #: this sim's captured cycles (``erosion.graphs``)
+        self._graphs = CycleGraphs()
 
     # --- map views (LiveErosion MapType, :118-154) --------------------------
 
@@ -224,14 +326,15 @@ class ErosionSim:
 
     # --- stepping -----------------------------------------------------------
 
-    def _run_cycle(self, fresh: Optional[Particles] = None):
-        """One erosion cycle with the current settings (retuned live
+    def _run_cycles(self, n: int, fresh: Optional[Sequence[Particles]] = None):
+        """``n`` erosion cycles with the current settings (retuned live
         between steps), their tunables rounded to float32 as the
         reference's traced scalars are."""
-        self.state = erosion_cycle(
-            self.state, self.settings, self.meta,
-            tuned=self.settings.tunable_values(), fresh=fresh, syncs=self.syncs)
-        self.cycle_count += 1
+        self.syncs = []
+        self.state = erosion_cycles(
+            self.state, self.settings, self.meta, n, tuned=self.settings.tunable_values(),
+            fresh=fresh, syncs=self.syncs, graphs=self._graphs)
+        self.cycle_count += n
 
     def step(self, cycles: Optional[int] = None, *,
              fresh: Optional[Sequence[Particles]] = None):
@@ -239,10 +342,8 @@ class ErosionSim:
         ``Particles`` per cycle replacing that cycle's random spawn (the
         test hook ``make_tile_step`` has too)."""
         n = self.settings.CYCLES if cycles is None else cycles
-        self.syncs = []
         with span("sim.step"):
-            for c in range(n):
-                self._run_cycle(None if fresh is None else fresh[c])
+            self._run_cycles(n, fresh)
         return self.state
 
     # --- continuous mode (LiveErosion.updateContinuous, :363-370) -----------
@@ -261,9 +362,7 @@ class ErosionSim:
             self._job = StandAloneJobHandler()
         if self._job.is_running:
             return False
-        self.syncs = []
-        for _ in range(self.settings.CYCLES):
-            self._run_cycle()
+        self._run_cycles(self.settings.CYCLES)
         self._job.track_job(self.state)
         return True
 

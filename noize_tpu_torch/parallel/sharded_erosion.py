@@ -517,7 +517,7 @@ class ShardedErosionSim(_ErosionSimBase):
     """``ErosionSim``'s surface (step, trigger and update, map views,
     curvature, resets) for a world sharded over ``mesh``: the maps are
     ``DTensor``s placed ``Shard(0)``, ``Shard(1)``, the key replicated.
-    Only the cycle (``_run_cycle``) and the persistence differ.
+    Only the cycles (``_run_cycles``) and the persistence differ.
 
     Every rank of the mesh builds the sim with the same arguments and
     drives it in step.  Each rank addresses only its own blocks, so with
@@ -552,21 +552,21 @@ class ShardedErosionSim(_ErosionSimBase):
         block, shape = _local_block(data.to(_F32), self.mesh)
         return _as_field(block, self.mesh, shape)
 
-    def _run_cycle(self):
-        """One sharded cycle with the current settings, retuned live as the
-        single-device sim's are."""
-        self.state = sharded_erosion_cycle(self.mesh, self.state, self.settings.canonical(),
-                                           self.meta, chunk=self.chunk,
-                                           tuned=self.settings.tunable_values())
-        self.cycle_count += 1
+    def _run_cycles(self, n: int):
+        """``n`` sharded cycles with the current settings, retuned live as
+        the single-device sim's are."""
+        self.syncs = []
+        for _ in range(n):
+            self.state = sharded_erosion_cycle(self.mesh, self.state,
+                                               self.settings.canonical(), self.meta,
+                                               chunk=self.chunk,
+                                               tuned=self.settings.tunable_values())
+            self.cycle_count += 1
 
     def step(self, cycles: Optional[int] = None):
         """Run CYCLES sharded cycles (the single-device sim's ``fresh``
         spawn hook has no sharded counterpart)."""
-        n = self.settings.CYCLES if cycles is None else cycles
-        self.syncs = []
-        for _ in range(n):
-            self._run_cycle()
+        self._run_cycles(self.settings.CYCLES if cycles is None else cycles)
         return self.state
 
     def curvature(self):

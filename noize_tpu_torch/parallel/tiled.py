@@ -37,7 +37,7 @@ from torch.distributed.tensor import DTensor
 
 from ..core.tiles import TileSetMeta
 from ..erosion.params import ErosionSettings
-from ..erosion.sim import erosion_cycle, init_state
+from ..erosion.sim import erosion_cycles, init_state
 from ..ops import mesh as _mesh
 from ..ops.cuda.flow import flow_map_fused
 from ..ops.cuda.stencil import gauss_chain
@@ -86,10 +86,8 @@ def _tile_height(cfg: TilePipelineConfig, xpos, zpos, *, device="cuda"):
 def _tile_erode(cfg: TilePipelineConfig, h, key):
     """Erosion stage of one tile: cfg.erosion_cycles particle cycles."""
     with span("tile.erode"):
-        state = init_state(h, key)
-        for _ in range(cfg.erosion_cycles):
-            state = erosion_cycle(state, cfg.erosion, cfg.meta)
-        return state.world.height
+        return erosion_cycles(init_state(h, key), cfg.erosion, cfg.meta,
+                              cfg.erosion_cycles).world.height
 
 
 def _tile_mesh_planes(cfg: TilePipelineConfig, h):

@@ -100,6 +100,32 @@ def test_the_erosion_readers(program):
         assert got == pytest.approx(want[ph], abs=1e-12), ph
 
 
+def test_the_graph_share_reader(program, monkeypatch):
+    """The share of cycles that hold an ``erosion.graph`` span; a graph span
+    outside a cycle counts for none; a program without the cycle's graphs
+    gives None."""
+    program([
+        _span("sim.step", 0, 1000, 1),
+        _span("erosion.cycle", 0, 300, 2, 1),
+        _span("sync.spawn.drains", 0, 10, 3, 2),
+        _span("erosion.graph", 10, 300, 4, 2),
+        _span("erosion.cycle", 300, 600, 5, 1),
+        _span("erosion.spawn", 310, 400, 6, 5),
+        _span("erosion.cycle", 600, 900, 7, 1),
+        _span("erosion.graph", 610, 890, 8, 7),
+        _span("erosion.cycle", 900, 990, 9, 1),
+        _span("erosion.graph", 995, 999, 10, 1),
+    ])
+    tr = _trace(DEVICE)
+    assert _read("erosion.graph_share.step", tr) == 50.0
+    import importlib.util
+
+    find = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec", lambda name, *a: None if
+                        name == "noize_tpu_torch.erosion.graphs" else find(name, *a))
+    assert _read("erosion.graph_share.step", tr) is None
+
+
 def test_the_field_and_mesh_readers(program):
     program([
         _span("step", 0, 520, 1),
@@ -142,7 +168,8 @@ def test_busy_share_clips_at_the_spans_edges():
 NEW = ["erosion.host_ms_per_cycle.step", "erosion.sync_ms_per_cycle.step",
        "erosion.syncs_per_cycle.step", "field.idle_ms_per_step.tile",
        "mesh.idle_ms_per_step.tile", "serve.queue_wait_p95_ms", "serve.batch_ms",
-       "serve.batch_idle_share"] + [f"erosion.{p}.idle_ms_per_cycle.step" for p in PHASES]
+       "serve.batch_idle_share", "erosion.graph_share.step"] + \
+    [f"erosion.{p}.idle_ms_per_cycle.step" for p in PHASES]
 
 
 @pytest.mark.parametrize("name", NEW)
