@@ -1,42 +1,46 @@
-"""The erosion cycle's device work replayed as CUDA graphs between its two
-host syncs.
+"""The erosion cycle's halves replayed as CUDA graphs between its two host
+syncs.
 
 Eagerly (``sim.erosion_cycle``) a dry cycle on the card enqueues some 64
 device operations one at a time from Python, each costing the host far
 more than the card, so the card waits on the host most of the cycle.  A
-cycle's only host decisions are its two syncs, so the work between them
-is captured once as CUDA graphs and replayed:
+cycle's only host decisions are its two syncs, and ``sim.drive_cycle``
+takes them between the cycle's two halves, so each half is captured once
+on static buffers and replayed:
 
     sync.spawn.drains   (the drain water the previous cycle left)
-    graph A             thermal (K3), the spawn (K8 and its fills), the
-                        descent (K7's records, K7, K9), the deposit's pool
-                        and track adds, the piles flag
+    graph A             ``sim.cycle_front``, dry: thermal (K3), the spawn
+                        (K8 and its fills), the descent (K7's records, K7,
+                        K9), the deposit's pool and track adds, the piles
+                        flag
     sync.sediment.piles
-    graph B             K11 with the pile tent or without (one graph each,
-                        captured when first needed), the flow update, the
-                        pool automata (K4, K5 on odd grids), the carried
-                        maps copied into the static state, the next
-                        cycle's drains flag
+    graph B             ``sim.cycle_back`` with the piles answer (one graph
+                        each, captured when first needed): K11 with the
+                        pile tent or without, the flow update, the pool
+                        automata (K4, K5 on odd grids), written into the
+                        static state; the rest of the state copied there,
+                        and the next cycle's drains flag
 
-Both syncs and both branches stay as the eager cycle has them, and so do
-the kernels, their order and their launch parameters: a replay is
-bit-equal to ``erosion_cycle``.  A cycle with drain water queued (the
-stable sort and scatter of the drain particles) runs eagerly.
+The halves are the eager cycle's own code, so a replay launches its
+kernels in its order with its launch parameters and is bit-equal to
+``erosion_cycle``.  One rule covers every cycle that is not replayed: a
+wet cycle (the drain particles' stable sort), a configuration not
+admitted yet and one whose capture raised run the same halves uncaptured.
 
 ``CycleGraphs`` holds one set of graphs, static state buffers and one
 memory pool for each configuration it meets (``graph_key``: the kernels
 bake their parameters in at capture), at most ``CAPACITY`` of them, the
 least recently used evicted first.  It captures a configuration only when
 the call before used it too (``KeyCache``), so a slider dragged every step
-never pays a capture; a configuration whose capture raises runs eagerly
-from then on.  The state it hands back is copied out of its buffers once
-a call, so a later replay never writes a tensor a caller holds.
+never pays a capture.  The state it hands back is copied out of its
+buffers once a call, so a later replay never writes a tensor a caller
+holds.
 
-Spans: ``erosion.graph`` around a graph cycle's replays, inside its
-``erosion.cycle``; the six phase spans are recorded only on eager cycles.
-Counters: ``sim.erosion_cycles.captures``, ``.replays``, ``.eager_cycles``;
-a replay adds its kernels' launches to their wrappers' counters and its
-pool gate flag to ``wet_calls``, as the eager cycle does.
+Spans: ``erosion.graph`` around each replay, inside its ``erosion.cycle``;
+a half records its phase spans while it is captured, and none when
+replayed.  Counters: ``sim.erosion_cycles.captures``, ``.replays``,
+``.eager_cycles``; a replay adds its kernels' launches to their wrappers'
+counters and its pool gate flag to ``wet_calls``, as the eager cycle does.
 """
 
 from __future__ import annotations
@@ -46,19 +50,19 @@ import logging
 import threading
 from collections import OrderedDict
 from dataclasses import replace
-from typing import Callable, Optional
+from typing import Callable
 
 import torch
 
 from ..ops.cuda.thermal import thermal_erosion_fused
 from ..prng import _randint_cuda, threefry2x32
-from ..utils.tracking import span, sync_bool
+from ..utils.tracking import span
 from . import sim as _sim
 from .descent_cuda import descend_steps, step_records
 from .pool_cuda import add_wet, pool_automata_cuda, pool_automata_full_cuda
 from .scatter_cuda import scatter_in_order
-from .sediment_cuda import piles_flag, write_sediment_cuda, write_sediment_piles
-from .world import WorldState, update_flow_from_track
+from .sediment_cuda import write_sediment_cuda
+from .world import WorldState
 
 log = logging.getLogger("noize_tpu_torch")
 
@@ -169,7 +173,6 @@ class _Cycles:
 
     def __init__(self, state, settings, meta, params):
         self.settings, self.meta, self.params = settings, meta, params
-        self.height_scale = float(meta.height)
         self.spawns = _sim.spawns(settings)
         w = state.world
         self.buf = _sim.SimState(
@@ -177,11 +180,11 @@ class _Cycles:
                                ("height", "pool", "flow", "track", "plants"))),
             drain_water=torch.empty_like(state.drain_water),
             key=torch.empty_like(state.key))
-        self.pool = torch.cuda.graph_pool_handle()
-        self.a: Optional[_Graph] = None
-        self.b: dict = {}
-        self.flag = None   # the drains flag of the static state, after a replay
-        self.broken = False
+        self.capture = state.world.height.device.type == "cuda"  # off once a capture fails
+        self.pool = torch.cuda.graph_pool_handle() if self.capture else None
+        self.graphs: dict = {}  # "front", ("back", piles): their captured _Graph
+        self.flag = None      # the drains flag of the static state, after a back half
+        self.replayed = False  # whether the current cycle replayed a graph
 
     # --- the static state ---------------------------------------------------
 
@@ -208,74 +211,70 @@ class _Cycles:
                                ("height", "pool", "flow", "track", "plants"))),
             drain_water=out(state.drain_water), key=out(state.key))
 
-    # --- the two segments ---------------------------------------------------
+    # --- one cycle ----------------------------------------------------------
 
-    def _body_a(self):
-        """Thermal, spawn, descent, deposit and the piles flag on the static
-        state, as ``sim._cycle`` runs them on a dry cycle."""
-        s, buf = self.settings, self.buf
-        world = buf.world
-        if _sim._thermal_on(s):
-            world = _sim._thermal(world, s, self.meta)
-        parts, key = _sim._draw(buf.key, s.PARTICLES_PER_CYCLE, self.meta.generator_res)
-        world, drain_water = _sim._release_drains(world, buf.drain_water)
-        track_acc, pool_acc, sed_acc = _sim._descend(parts, world, self.params, self.meta)
-        world = _sim._deposit(world, track_acc, pool_acc, self.params)
-        return (world, drain_water, key, sed_acc,
-                piles_flag(sed_acc, self.params, self.height_scale))
+    def _run(self, half, body: Callable):
+        """``body`` (a half on the static state) as its graph: captured when
+        first needed, then replayed; uncaptured where capture is off."""
+        if half not in self.graphs and self.capture:
+            try:
+                self.graphs[half] = _Graph(self.pool, body)
+            except RuntimeError as err:
+                log.warning("erosion cycle: capture failed (%s); this configuration runs "
+                            "uncaptured", err)
+                self.capture = False
+        graph = self.graphs.get(half)
+        if graph is None:
+            return body()
+        self.replayed = True
+        with span("erosion.graph"):
+            return graph.replay()
 
-    def _body_b(self, piles: Optional[bool]):
-        """K11 (after graph A), the flow update and the pool automata; the
-        carried maps stored in the static state (the height, the pool and
-        the drain water written there by the ops that make them, the rest
-        copied).  Returns the next cycle's drains flag."""
-        s, buf = self.settings, self.buf
-        if self.spawns:
-            world, drain_water, key, sed_acc, _ = self.a.out
-            # K11 cannot write the map it reads: without thermal that is buf's
-            out = None if world.height is buf.world.height else buf.world.height
-            world = replace(world, height=write_sediment_piles(
-                world.height, sed_acc, self.params, self.height_scale, piles, out=out))
+    def _back(self, half, piles):
+        """The back half into the static state; the next cycle's drains
+        flag."""
+        self.load(_sim.cycle_back(half, self.settings, self.meta, self.params, piles,
+                                  out=self.buf))
+        return _sim.drains_flag(self.buf.drain_water)
+
+    def cycle(self, state, syncs):
+        """One cycle from ``state`` (``buf``: the one the last back half
+        left there) through ``sim.drive_cycle``: a dry one runs the halves
+        on the static state as graphs and returns ``buf``, a wet one runs
+        them uncaptured on ``state``."""
+        s, meta, params, buf = self.settings, self.meta, self.params, self.buf
+        self.replayed = False
+        static = False  # whether this cycle runs on the static state
+
+        def drains():
+            return self.flag if state is buf else _sim.drains_flag(state.drain_water)
+
+        def front(wet):
+            nonlocal static
+            if wet:
+                return _sim.cycle_front(state, s, meta, params, True, syncs=syncs)
+            static = True
+            self.load(state)
+
+            def body():
+                return _sim.cycle_front(buf, s, meta, params, False, syncs=syncs)
+
+            # without a spawn the front half hands the static state on: no graph
+            return self._run("front", body) if self.spawns else body()
+
+        def back(half, piles):
+            if not static:
+                return _sim.cycle_back(half, s, meta, params, piles)
+            self.flag = self._run(("back", piles), lambda: self._back(half, piles))
+            return buf
+
+        state = _sim.drive_cycle(self.spawns, drains, front, back, syncs)
+        counts = _sim.erosion_cycles
+        if self.replayed:
+            counts.replays += 1
         else:
-            world, drain_water, key = buf.world, buf.drain_water, buf.key
-        world = update_flow_from_track(world, self.params, self.height_scale)
-        world, drain_water = _sim._pool(world, drain_water, s,
-                                        out=(buf.world.pool, buf.drain_water))
-        self.load(_sim.SimState(world=world, drain_water=drain_water, key=key))
-        return _sim._drains_flag(buf.drain_water)
-
-    def _capture(self, body: Callable) -> Optional[_Graph]:
-        try:
-            return _Graph(self.pool, body)
-        except RuntimeError as err:
-            log.warning("erosion cycle: capture failed (%s); this configuration runs "
-                        "eagerly", err)
-            self.broken = True
-            return None
-
-    def replay(self, syncs):
-        """One dry cycle on the static state: graph A, the piles sync, graph
-        B; each graph captured when first needed.  Leaves the drains flag of
-        the new state in ``flag``."""
-        piles = None
-        if self.spawns:
-            if self.a is None:
-                self.a = self._capture(self._body_a)
-                if self.a is None:
-                    raise _Uncaptured
-            _, _, _, _, flag = self.a.replay()
-            piles = sync_bool("sediment.piles", flag, syncs)
-        b = self.b.get(piles)
-        if b is None:
-            b = self.b[piles] = self._capture(lambda: self._body_b(piles))
-            if b is None:  # A ran: finish the cycle eagerly
-                self.flag = self._body_b(piles)
-                return
-        self.flag = b.replay()
-
-
-class _Uncaptured(Exception):
-    """Graph A could not be captured: the cycle runs eagerly."""
+            counts.eager_cycles += 1
+        return state
 
 
 class CycleGraphs:
@@ -299,44 +298,12 @@ class CycleGraphs:
                     state = _sim.erosion_cycle(state, settings, meta, tuned, syncs=syncs)
                 _sim.erosion_cycles.eager_cycles += n
                 return state
-            cur = state        # the eager state, or None where it lies in entry.buf
-            flag = None        # the drains flag graph B left for entry.buf
+            out = state
             for _ in range(n):
-                cur = self._cycle(entry, cur, flag, settings, meta, tuned, syncs)
-                if cur is None:
-                    flag = entry.flag
-            out = entry.buf if cur is None else cur
+                out = entry.cycle(out, syncs)
             # a cycle never writes the plants: hand back the caller's
             out = replace(out, world=replace(out.world, plants=state.world.plants))
             return entry.detach(out)
-
-    @staticmethod
-    def _cycle(entry, cur, flag, settings, meta, tuned, syncs):
-        """One cycle from ``cur`` (None: ``entry.buf``); returns the eager
-        state it leaves, or None where it left ``entry.buf``."""
-        counts = _sim.erosion_cycles
-        if entry.broken:
-            counts.eager_cycles += 1
-            return _sim.erosion_cycle(entry.buf if cur is None else cur, settings, meta,
-                                      tuned, syncs=syncs)
-        with span("erosion.cycle"):
-            wet = False
-            if entry.spawns:
-                wet = sync_bool("spawn.drains", flag if cur is None
-                                else _sim._drains_flag(cur.drain_water), syncs)
-            if not wet:
-                if cur is not None:
-                    entry.load(cur)
-                try:
-                    with span("erosion.graph"):
-                        entry.replay(syncs)
-                    counts.replays += 1
-                    return None
-                except _Uncaptured:
-                    cur = None
-            counts.eager_cycles += 1
-            return _sim._cycle(entry.buf if cur is None else cur, settings, meta, tuned, None,
-                               syncs, wet=wet)
 
 
 #: the runner of ``erosion_cycles`` calls that bring none (``tile_batch``,

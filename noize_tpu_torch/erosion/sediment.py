@@ -8,9 +8,18 @@ destination cell on the summed delta.  Piles (cells banking more than
 PILE_THRESHOLD metres) are deposited as a separable tent of radius
 PILING_RADIUS, or, with ``EXACT_PILES``, by the reference's serial
 PileSolver transcription (``exact_pile_deposit``: kernel K6 on the card,
-``erosion.pile_cuda``).  On the card the write-back (split, dispersal, tent
-and breaker) is kernel K11 (``erosion.sediment_cuda``); its plain version
-is ``write_sediment_map_plain``.
+``erosion.pile_cuda``).
+
+The piles decision is made once: ``pile_threshold`` is the threshold,
+``piles_flag`` the device bool of "a cell piles", which the
+``sediment.piles`` host sync reads, and ``write_sediment_piles`` the
+write-back given that answer (the split, the dispersal, the tent when a
+cell piles and ``EXACT_PILES`` is off, the breaker; then K6 when a cell
+piles and ``EXACT_PILES`` is on).  ``write_sediment_map`` is the flag,
+the sync and the write-back; the erosion cycle (``erosion.sim``) takes the
+sync between its two halves instead.  On the card the split, dispersal,
+tent and breaker are kernel K11 (``erosion.sediment_cuda``); its plain
+version is ``write_sediment_map_plain``.
 """
 
 from __future__ import annotations
@@ -280,36 +289,73 @@ def exact_pile_deposit(height, pile_map, params, height_scale,
                        params.PILING_RADIUS, max_piles)
 
 
-def write_sediment_map(height, sed_acc, params, height_scale, *, syncs: list = None):
-    """ErodeHeightMaps + WriteSedimentMap: deltas up to
-    PILE_THRESHOLD/HEIGHT disperse through KERNEL5, larger ones pile; then
-    the [0,1] breaker.  With ``EXACT_PILES`` the breaker applies to the
-    dispersal only and the exact solver commits heights directly, as
-    PileSolver.CommitChanges does.  The pile pass runs only when a pile
-    exists (one host sync, counted in ``syncs`` when given).  A CPU tensor
-    runs the plain version (``write_sediment_map_plain``); a CUDA tensor
-    kernel K11 (``sediment_cuda.write_sediment_cuda``) or raises."""
-    from .sediment_cuda import write_sediment_cuda
+def pile_threshold(params, height_scale) -> float:
+    """PILE_THRESHOLD / HEIGHT rounded to float32, as a float32 map's
+    comparisons with it round it: sediment above it piles."""
+    return float(np.float32(params.PILE_THRESHOLD / float(height_scale)))
 
-    return write_sediment_cuda(height, sed_acc, params, height_scale, syncs=syncs)
+
+def piles_flag(sed_acc, params, height_scale):
+    """Whether a cell of ``sed_acc`` piles (banks more than
+    ``pile_threshold``, and more than 0): a device bool, the value the
+    ``sediment.piles`` host sync reads."""
+    return (sed_acc > max(pile_threshold(params, height_scale), 0.0)).any()
+
+
+def _write_back(height, sed_acc, params, height_scale, piles: bool, out, k11: bool):
+    """The write-back given the ``sediment.piles`` answer ``piles``, on K11
+    where ``k11`` (CUDA tensors) or as PyTorch operations."""
+    thresh = pile_threshold(params, height_scale)
+    radius = int(params.PILING_RADIUS) if piles and not params.EXACT_PILES else 0
+    if k11:
+        from .sediment_cuda import _launch
+
+        new_height = _launch(height, sed_acc, thresh, radius, out)
+    else:
+        delta = kernel_disperse(torch.where(sed_acc <= thresh, sed_acc, 0.0), KERNEL5)
+        if radius:
+            delta = delta + pile_deposit(torch.where(sed_acc > thresh, sed_acc, 0.0), radius)
+        new_height = height + delta
+        ok = (new_height >= 0.0) & (new_height <= 1.0)
+        new_height = torch.where(ok, new_height, height, out=out)
+    if piles and params.EXACT_PILES:
+        # the exact solver commits heights after the dispersal's breaker, as
+        # PileSolver.CommitChanges does
+        new_height = exact_pile_deposit(new_height, torch.where(sed_acc > thresh, sed_acc, 0.0),
+                                        params, height_scale)
+    return new_height
+
+
+def _synced(height, sed_acc, params, height_scale, syncs, k11: bool):
+    piles = sync_bool("sediment.piles", piles_flag(sed_acc, params, height_scale), syncs)
+    return _write_back(height, sed_acc, params, height_scale, piles, None, k11)
+
+
+def write_sediment_piles(height, sed_acc, params, height_scale, piles: bool, *, out=None):
+    """The write-back of ``write_sediment_map`` given the ``sediment.piles``
+    sync's answer ``piles``: deltas up to ``pile_threshold`` disperse
+    through KERNEL5, larger ones pile as the tent when ``piles``; then the
+    [0,1] breaker.  With ``EXACT_PILES`` the breaker applies to the
+    dispersal only and, when ``piles``, the exact solver commits heights
+    after it.  A CUDA tensor runs kernel K11 (``sediment_cuda``), a CPU
+    tensor the plain version.  ``out``: the map to write into, apart from
+    ``height`` and ``sed_acc`` (None: a new one); with ``EXACT_PILES`` and
+    a pile the solver commits on a copy of it, which is returned."""
+    return _write_back(height, sed_acc, params, height_scale, piles, out,
+                       height.device.type == "cuda")
+
+
+def write_sediment_map(height, sed_acc, params, height_scale, *, syncs: list = None):
+    """ErodeHeightMaps + WriteSedimentMap: ``piles_flag``, the
+    ``sediment.piles`` host sync (counted in ``syncs`` when given) and
+    ``write_sediment_piles``.  A CPU tensor runs the plain version
+    (``write_sediment_map_plain``); a CUDA tensor kernel K11
+    (``sediment_cuda``) or raises."""
+    return _synced(height, sed_acc, params, height_scale, syncs,
+                   height.device.type == "cuda")
 
 
 def write_sediment_map_plain(height, sed_acc, params, height_scale, *, syncs: list = None):
     """The plain version of kernel K11: ``write_sediment_map`` as PyTorch
     operations on any device."""
-    thresh = params.PILE_THRESHOLD / height_scale
-    disperse_part = torch.where(sed_acc <= thresh, sed_acc, 0.0)
-    pile_part = torch.where(sed_acc > thresh, sed_acc, 0.0)
-    delta = kernel_disperse(disperse_part, KERNEL5)
-    if params.EXACT_PILES:
-        new_height = height + delta
-        ok = (new_height >= 0.0) & (new_height <= 1.0)
-        new_height = torch.where(ok, new_height, height)
-        if sync_bool("sediment.piles", (pile_part > 0.0).any(), syncs):
-            new_height = exact_pile_deposit(new_height, pile_part, params, height_scale)
-        return new_height
-    if sync_bool("sediment.piles", (pile_part > 0.0).any(), syncs):
-        delta = delta + pile_deposit(pile_part, params.PILING_RADIUS)
-    new_height = height + delta
-    ok = (new_height >= 0.0) & (new_height <= 1.0)
-    return torch.where(ok, new_height, height)
+    return _synced(height, sed_acc, params, height_scale, syncs, False)

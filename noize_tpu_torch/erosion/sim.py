@@ -2,39 +2,46 @@
 (``erosion_cycle``), the loop of cycles all its callers share
 (``erosion_cycles``) and the per-tile live simulation (``ErosionSim``).
 
-  thermal erosion (kernel K3 on the card)
-  → spawn particles (queued drain particles first, then fresh ones)
-  → simultaneous descent (scatter-add events)
-  → per-cell event reduce: pool/track placement multipliers
-  → sediment write-back (disperse / pile deposit + [0,1] breaker; kernel
-    K11 on the card)
-  → track→flow decay + pool surface evaporation
-  → pool automata (kernel K4 on the card, K5 on odd grids), emitting
-    drain water
+A cycle is written once, as two halves around its two host syncs (the
+reference's gates are device-side ``lax.cond``; the port reads them on the
+host):
 
-Drain water accumulates in a map; the next cycle's spawn converts the
-top-K wettest drain cells into particles (K = particle slots, ties to the
-lower flat index as ``lax.top_k`` gives them) and returns the rest to the
-pool map.
+  ``spawn.drains`` sync: is drain water queued (``drains_flag``)?
+  front half (``cycle_front``)
+    thermal erosion (kernel K3 on the card)
+    → spawn particles (with drain water: the top-K wettest drain cells
+      first, K = particle slots, ties to the lower flat index as
+      ``lax.top_k`` gives them; fresh ones in the other slots), the rest
+      of the drain water back into the pool map
+    → simultaneous descent (scatter-add events)
+    → the deposit's pool and track adds, the piles flag
+      (``sediment.piles_flag``)
+  ``sediment.piles`` sync: does a cell pile?
+  back half (``cycle_back``)
+    sediment write-back (disperse, the pile tent when a cell piles, the
+      [0,1] breaker: kernel K11 on the card; ``sediment.write_sediment_piles``)
+    → track→flow decay + pool surface evaporation
+    → pool automata (kernel K4 on the card, K5 on odd grids), emitting
+      drain water for the next cycle
 
-Host syncs: unlike the reference, whose gates are device-side
-``lax.cond``/``while_loop``, the eager port reads a few flags on the host
-each cycle (drains present, descent chunks alive, piles present).  Pass a
-list as ``syncs`` to have each one recorded.  On the card
-``erosion_cycles`` replays a dry cycle's device work between those syncs as
-CUDA graphs (``erosion.graphs``); ``erosion_cycle`` is the eager cycle.
+``drive_cycle`` takes the two syncs between the halves.  ``erosion_cycle``
+hands it the halves; on the card ``erosion_cycles`` hands it replays of
+them captured as CUDA graphs (``erosion.graphs``).  ONLY_FLOW_WATER
+neither spawns nor syncs: its cycle is the back half's flow update and
+pool automata.  Pass a list as ``syncs`` to have each host sync recorded.
 
-Spans (``utils.tracking``): ``erosion.cycle`` around a cycle, and in an
-eager one one span a phase: ``erosion.thermal``, ``erosion.spawn``,
-``erosion.descent``, ``erosion.deposit``, ``erosion.flow``,
-``erosion.pool``; each host sync is the span ``sync.<site>`` inside its
-phase (a graph cycle's: inside ``erosion.cycle`` and ``erosion.graph``).
+Spans (``utils.tracking``): ``erosion.cycle`` around a cycle, with the
+syncs (``sync.<site>``) in it; inside the halves one span a phase,
+``erosion.thermal``, ``erosion.spawn``, ``erosion.descent``,
+``erosion.deposit`` (the front half's adds and the back half's
+write-back), ``erosion.flow``, ``erosion.pool``.  A replayed half records
+none.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -46,7 +53,7 @@ from ..prng import PRNGKey, split
 from ..utils.tracking import StandAloneJobHandler, span, sync_bool
 from .particles import Particles, descend_all, spawn
 from .pool_cuda import pool_automata_cuda
-from .sediment import write_sediment_map
+from .sediment import piles_flag, write_sediment_piles
 from .world import WorldState, curvature_map, update_flow_from_track
 
 
@@ -71,32 +78,23 @@ def init_state(height, key=None) -> SimState:
     )
 
 
-def _draw(key, n: int, res: int, fresh: Optional[Particles] = None):
-    """The spawn's particles from the first half of ``key`` (or ``fresh``),
-    and the second half of ``key``."""
-    k1, k2 = split(key)
-    if fresh is None:
-        fresh = spawn(k1, n, res)
-    return fresh, k2
-
-
-def _drains_flag(drain_water):
+def drains_flag(drain_water):
     """Whether any drain water is queued: the device bool the
     ``spawn.drains`` host sync reads."""
     return (drain_water.reshape(-1) > 0.0).any()
 
 
 def _spawn_with_drains(key, n: int, res: int, drain_water, *,
-                       fresh: Optional[Particles] = None, syncs: list = None,
-                       wet: Optional[bool] = None):
+                       fresh: Optional[Particles] = None, wet: bool = True):
     """Fill the particle buffer: drain particles first (top-K wettest
     drain cells), particles spawned from the first half of ``key`` (or
     ``fresh``) in the remaining slots.  Returns (particles, leftover drain
     water, the second half of ``key``), as the reference does.  ``wet``:
-    the ``spawn.drains`` sync's answer when the caller has read it already."""
-    fresh, k2 = _draw(key, n, res, fresh)
-    if wet is None:
-        wet = sync_bool("spawn.drains", _drains_flag(drain_water), syncs)
+    the ``spawn.drains`` sync's answer; False skips the drain particles,
+    which without drain water change nothing."""
+    k1, k2 = split(key)
+    if fresh is None:
+        fresh = spawn(k1, n, res)
     if not wet:
         return fresh, drain_water, k2
     flat = drain_water.reshape(-1)
@@ -119,9 +117,6 @@ def _spawn_with_drains(key, n: int, res: int, drain_water, *,
     return parts, leftover.reshape(drain_water.shape), k2
 
 
-# --- the cycle's phases, shared by the eager cycle and its CUDA graphs
-# (``erosion.graphs``) -------------------------------------------------------
-
 def cycle_parameters(settings: ErosionSettings, tuned: Optional[dict] = None):
     """The cycle's ``ErosionParameters``: the settings', with ``tuned``'s
     values rounded to float32 as the reference's traced scalars are."""
@@ -137,45 +132,96 @@ def spawns(settings: ErosionSettings) -> bool:
     return settings.BEHAVIOR != ErosionMode.ONLY_FLOW_WATER
 
 
-def _thermal_on(settings: ErosionSettings) -> bool:
-    return settings.ENABLE_THERMAL and spawns(settings)
+# --- the cycle: two halves and the driver of the syncs between them ---------
+
+class Front(NamedTuple):
+    """What the front half hands the back half.  ``sed_acc`` and ``flag``
+    (the piles flag) are None where the cycle does not spawn."""
+
+    world: WorldState
+    drain_water: torch.Tensor
+    key: torch.Tensor
+    sed_acc: Optional[torch.Tensor]
+    flag: Optional[torch.Tensor]
 
 
-def _thermal(world: WorldState, settings: ErosionSettings, meta: TileSetMeta):
-    hw_ratio = float(meta.tile_size) / float(meta.height)
-    return replace(world, height=thermal_erosion_fused(
-        world.height, settings.TALUS, settings.THERMAL_STEP, hw_ratio,
-        iterations=settings.THERMAL_CYCLES))
+def cycle_front(state: SimState, settings: ErosionSettings, meta: TileSetMeta, params,
+                wet: bool, *, fresh: Optional[Particles] = None, syncs: list = None) -> Front:
+    """The cycle's front half from ``state``, ``wet`` the ``spawn.drains``
+    sync's answer: thermal, the spawn, the drain release, the descent and
+    the deposit's pool and track adds, and the piles flag.  A cycle that
+    does not spawn hands ``state`` on."""
+    if not spawns(settings):
+        return Front(state.world, state.drain_water, state.key, None, None)
+    height_scale = float(meta.height)
+    world = state.world
+    if settings.ENABLE_THERMAL:
+        with span("erosion.thermal"):
+            world = replace(world, height=thermal_erosion_fused(
+                world.height, settings.TALUS, settings.THERMAL_STEP,
+                float(meta.tile_size) / height_scale, iterations=settings.THERMAL_CYCLES))
+    with span("erosion.spawn"):
+        parts, drain_water, key = _spawn_with_drains(
+            state.key, settings.PARTICLES_PER_CYCLE, meta.generator_res, state.drain_water,
+            fresh=fresh, wet=wet)
+        # unconverted drain water re-enters the pool map
+        world = replace(world, pool=world.pool + drain_water)
+        drain_water = torch.zeros_like(drain_water)
+    with span("erosion.descent"):
+        _, track_acc, pool_acc, sed_acc = descend_all(
+            parts, world, params, height_scale, meta.patch_res, meta.generator_res,
+            syncs=syncs)
+    with span("erosion.deposit"):
+        world = replace(
+            world,
+            pool=world.pool + pool_acc * params.POOL_PLACEMENT_MULTIPLIER,
+            track=world.track + track_acc * params.TRACK_PLACEMENT_MULTIPLIER,
+        )
+        flag = piles_flag(sed_acc, params, height_scale)
+    return Front(world, drain_water, key, sed_acc, flag)
 
 
-def _release_drains(world: WorldState, drain_water):
-    """Unconverted drain water re-enters the pool map."""
-    return replace(world, pool=world.pool + drain_water), torch.zeros_like(drain_water)
+def cycle_back(front: Front, settings: ErosionSettings, meta: TileSetMeta, params,
+               piles: bool, *, out: Optional[SimState] = None) -> SimState:
+    """The cycle's back half from the front half's ``front``, ``piles`` the
+    ``sediment.piles`` sync's answer: the sediment write-back, the flow
+    update and the pool automata.  ``out``: the static state of
+    ``erosion.graphs`` to write the height, the pool and the drain water
+    into (None: new maps)."""
+    height_scale = float(meta.height)
+    world = front.world
+    if front.sed_acc is not None:
+        with span("erosion.deposit"):
+            # the write-back cannot write the map it reads: without thermal
+            # that is out's
+            into = None if out is None or world.height is out.world.height \
+                else out.world.height
+            world = replace(world, height=write_sediment_piles(
+                world.height, front.sed_acc, params, height_scale, piles, out=into))
+    with span("erosion.flow"):
+        world = update_flow_from_track(world, params, height_scale)
+    with span("erosion.pool"):
+        pool, drains = pool_automata_cuda(world.height, world.pool, settings.WATER_STEPS,
+                                          spawns(settings),
+                                          out=None if out is None else out.world.pool)
+        drain_water = torch.add(front.drain_water, drains,
+                                out=None if out is None else out.drain_water)
+    return SimState(world=replace(world, pool=pool), drain_water=drain_water, key=front.key)
 
 
-def _descend(parts, world: WorldState, params, meta: TileSetMeta, syncs=None):
-    """(track_acc, pool_acc, sed_acc) of the particles' descent."""
-    _, track_acc, pool_acc, sed_acc = descend_all(
-        parts, world, params, float(meta.height), meta.patch_res, meta.generator_res,
-        syncs=syncs)
-    return track_acc, pool_acc, sed_acc
-
-
-def _deposit(world: WorldState, track_acc, pool_acc, params):
-    return replace(
-        world,
-        pool=world.pool + pool_acc * params.POOL_PLACEMENT_MULTIPLIER,
-        track=world.track + track_acc * params.TRACK_PLACEMENT_MULTIPLIER,
-    )
-
-
-def _pool(world: WorldState, drain_water, settings: ErosionSettings, out=None):
-    """The pool automata, and the drains added to ``drain_water``; ``out``:
-    (pool, drain water) maps on the card to write them into."""
-    pool_out, drain_out = (None, None) if out is None else out
-    pool, drains = pool_automata_cuda(world.height, world.pool, settings.WATER_STEPS,
-                                      spawns(settings), out=pool_out)
-    return replace(world, pool=pool), torch.add(drain_water, drains, out=drain_out)
+def drive_cycle(spawning: bool, drains: Callable, front: Callable, back: Callable,
+                syncs: list = None):
+    """One cycle in the span ``erosion.cycle``: the ``spawn.drains`` sync
+    reads ``drains()``, ``front(wet)`` runs the front half, the
+    ``sediment.piles`` sync reads its flag and ``back(front, piles)`` runs
+    the back half.  ``erosion_cycle`` hands in the halves,
+    ``erosion.graphs`` their replays.  A cycle that does not spawn syncs
+    neither."""
+    with span("erosion.cycle"):
+        wet = spawning and sync_bool("spawn.drains", drains(), syncs)
+        half = front(wet)
+        piles = spawning and sync_bool("sediment.piles", half.flag, syncs)
+        return back(half, piles)
 
 
 def erosion_cycle(state: SimState, settings: ErosionSettings, meta: TileSetMeta,
@@ -191,42 +237,11 @@ def erosion_cycle(state: SimState, settings: ErosionSettings, meta: TileSetMeta,
     particles still take the first slots; the key advances as without
     them) — a test hook.
     ``syncs``: a list that records the cycle's host syncs."""
-    with span("erosion.cycle"):
-        return _cycle(state, settings, meta, tuned, fresh, syncs)
-
-
-def _cycle(state: SimState, settings: ErosionSettings, meta: TileSetMeta, tuned, fresh,
-           syncs, wet: Optional[bool] = None) -> SimState:
     params = cycle_parameters(settings, tuned)
-    height_scale = float(meta.height)
-    world = state.world
-    if _thermal_on(settings):
-        with span("erosion.thermal"):
-            world = _thermal(world, settings, meta)
-
-    drain_water = state.drain_water
-    key = state.key
-    if spawns(settings):
-        with span("erosion.spawn"):
-            parts, drain_water, key = _spawn_with_drains(
-                key, settings.PARTICLES_PER_CYCLE, meta.generator_res, drain_water,
-                fresh=fresh, syncs=syncs, wet=wet)
-            world, drain_water = _release_drains(world, drain_water)
-
-        with span("erosion.descent"):
-            track_acc, pool_acc, sed_acc = _descend(parts, world, params, meta, syncs)
-
-        with span("erosion.deposit"):
-            world = _deposit(world, track_acc, pool_acc, params)
-            world = replace(world, height=write_sediment_map(
-                world.height, sed_acc, params, height_scale, syncs=syncs))
-
-    with span("erosion.flow"):
-        world = update_flow_from_track(world, params, height_scale)
-
-    with span("erosion.pool"):
-        world, drain_water = _pool(world, drain_water, settings)
-    return SimState(world=world, drain_water=drain_water, key=key)
+    return drive_cycle(
+        spawns(settings), lambda: drains_flag(state.drain_water),
+        lambda wet: cycle_front(state, settings, meta, params, wet, fresh=fresh, syncs=syncs),
+        lambda half, piles: cycle_back(half, settings, meta, params, piles), syncs)
 
 
 def erosion_cycles(state: SimState, settings: ErosionSettings, meta: TileSetMeta, n: int, *,
@@ -240,10 +255,10 @@ def erosion_cycles(state: SimState, settings: ErosionSettings, meta: TileSetMeta
     ``Particles`` a cycle (the test hook).  Where ``graphs.graph_eligible``
     holds (a CUDA state, no ``fresh``, no ``EXACT_PILES``) the cycles go to
     ``graphs`` (an ``erosion.graphs.CycleGraphs``; None: the process's
-    shared one), which replays each dry cycle's device work as CUDA graphs
-    between its two host syncs, bit-equal to ``erosion_cycle``; every other
-    cycle runs ``erosion_cycle``.  The state returned shares no tensor with
-    the graphs' buffers, so no later call writes it.
+    shared one), which replays each dry cycle's halves as CUDA graphs,
+    bit-equal to ``erosion_cycle``; every other cycle runs
+    ``erosion_cycle``.  The state returned shares no tensor with the
+    graphs' buffers, so no later call writes it.
 
     Counters: ``erosion_cycles.captures`` (graphs captured),
     ``.replays`` (cycles replayed as graphs), ``.eager_cycles`` (cycles on

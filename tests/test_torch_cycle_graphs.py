@@ -1,8 +1,10 @@
 """The erosion cycle's graph path (``erosion.graphs``) on the CPU: its cache
-key, when it engages, when it captures, and the one loop of cycles
+key, when it engages, when it captures, the one loop of cycles
 (``sim.erosion_cycles``) its callers share, against the loops of
-``erosion_cycle`` each of them ran before.  The replays themselves run on the card
-(``tests/test_torch_graphs_cuda.py``)."""
+``erosion_cycle`` each of them ran before, and the graph runner's cycle
+itself (``sim.drive_cycle`` on the halves, dry cycles on the static state)
+uncaptured, against ``erosion_cycle``.  The replays themselves run on the
+card (``tests/test_torch_graphs_cuda.py``)."""
 
 from dataclasses import replace
 from types import SimpleNamespace
@@ -177,3 +179,53 @@ def test_tile_step_and_tile_erode_are_the_old_loop():
     for _ in range(2):
         want = SIM.erosion_cycle(want, SETTINGS, meta)
     assert torch.equal(T._tile_erode(cfg, h, key), want.world.height)
+
+
+#: the configurations whose halves the graph runner's cycle runs on the CPU
+HALVES = {
+    "thermal": {}, "no_thermal": dict(ENABLE_THERMAL=False),
+    "only_flow_water": dict(BEHAVIOR=ErosionMode.ONLY_FLOW_WATER),
+    "piles": dict(PILE_THRESHOLD=1e-6), "no_piles": dict(PILE_THRESHOLD=1e6),
+    "exact_piles": dict(EXACT_PILES=True, PILE_THRESHOLD=1e-6),
+    "vegetation": dict(VEGETATION_FRICTION=0.5), "wet": {},
+}
+
+
+@pytest.mark.parametrize("case", list(HALVES))
+def test_the_graph_runners_cycle_is_erosion_cycle(case):
+    """The cycle a configuration's graphs run (``graphs._Cycles.cycle``),
+    uncaptured on CPU tensors: the same halves through the same sync
+    driver, a dry cycle's on the static state with the back half writing
+    into it and the drains flag it leaves there, a wet one's on the state.
+    Three cycles bit-equal to three of ``erosion_cycle``, the syncs alike."""
+    settings = replace(SETTINGS, **HALVES[case])
+    state = _state(6)
+    world = state.world
+    if case == "only_flow_water":
+        state = replace(state, world=replace(world, pool=world.pool + 2e-3))
+    if case == "vegetation":
+        plants = torch.rand((RES, RES), generator=torch.Generator().manual_seed(6)) * 3
+        state = replace(state, world=replace(world, plants=plants))
+    if case == "wet":
+        drains = state.drain_water.clone()
+        drains.view(-1)[torch.tensor([5, 700, 1203])] = torch.tensor([1e-3, 2.5e-3, 4e-4])
+        state = replace(state, drain_water=drains)
+    params = SIM.cycle_parameters(settings)
+    front = SIM.cycle_front(state, settings, META, params, case == "wet")
+    if case in ("piles", "no_piles", "exact_piles"):
+        assert bool(front.flag) == (case != "no_piles")
+    assert (front.flag is None) == (case == "only_flow_water")
+    want, want_syncs, wet = state, [], []
+    for _ in range(3):
+        wet.append(bool(SIM.drains_flag(want.drain_water)))
+        want = SIM.erosion_cycle(want, settings, META, syncs=want_syncs)
+    assert wet[0] == (case == "wet") and not all(wet)
+    entry = G._Cycles(state, settings, META, params)
+    got, syncs = state, []
+    for c in range(3):
+        got = entry.cycle(got, syncs)
+        # ONLY_FLOW_WATER never syncs on the drains: every cycle is static
+        assert (got is entry.buf) == (case == "only_flow_water" or not wet[c])
+    _equal(got, want)
+    assert syncs == want_syncs
+    assert not entry.graphs

@@ -324,7 +324,7 @@ def test_wrappers_write_into_out(cuda):
     """K11's and K4/K5's ``out=``: the map they would have made, written
     into the one given; a map they read is refused."""
     from noize_tpu_torch.erosion.pool_cuda import pool_automata_full_cuda
-    from noize_tpu_torch.erosion.sediment_cuda import write_sediment_piles
+    from noize_tpu_torch.erosion.sediment import write_sediment_piles
 
     params = ErosionSettings().as_parameters()
     for res, pool_fn in ((1024, pool_automata_cuda), (1025, pool_automata_full_cuda)):

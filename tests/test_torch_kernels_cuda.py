@@ -1907,7 +1907,9 @@ def test_k11_one_launch_a_cycle(cuda, monkeypatch, piles):
     assert (SK.write_sediment_cuda.launches, SK.write_sediment_cuda.tent_launches) == \
         (before[0] + 1, before[1] + piles)
     assert syncs == ["spawn.drains", "sediment.piles"]
-    monkeypatch.setattr(SIM, "write_sediment_map", SE.write_sediment_map_plain)
+    monkeypatch.setattr(SIM, "write_sediment_piles",  # the plain write-back for K11
+                        lambda h, sed, p, hs, piles, out=None:
+                        SE.write_sediment_map_plain(h, sed, p, hs))
     want = SIM.erosion_cycle(replace(sim.state), settings, sim.meta)
     torch.cuda.synchronize()
     assert SK.write_sediment_cuda.launches == before[0] + 1

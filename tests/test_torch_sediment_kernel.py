@@ -69,23 +69,32 @@ def _params(radius, exact=False):
 
 # --- the CPU path ---------------------------------------------------------------
 
-@pytest.mark.parametrize("exact", [False, True])
-def test_cpu_tensor_takes_the_plain_path(exact):
+@pytest.mark.parametrize("exact, piles", [(False, True), (True, True), (False, False),
+                                          (True, False)],
+                         ids=["False", "True", "False-no_pile", "True-no_pile"])
+def test_cpu_tensor_takes_the_plain_path(exact, piles):
     """``write_sediment_map`` and ``write_sediment_cuda`` on CPU tensors
     give the plain version's result, record the one host sync, and launch
-    nothing."""
-    h, sed = _case((48, 48), 1, radius=6)
+    nothing; so does ``write_sediment_piles`` given the answer of
+    ``piles_flag``, into a map of its own or into ``out``."""
+    h, sed = _case((48, 48), 1, piles=piles, radius=6)
+    h, sed = torch.from_numpy(h), torch.from_numpy(sed)
     params = _params(6, exact)
-    want = SE.write_sediment_map_plain(torch.from_numpy(h), torch.from_numpy(sed), params,
-                                       HEIGHT)
+    want = SE.write_sediment_map_plain(h, sed, params, HEIGHT)
     for fn in (SE.write_sediment_map, SK.write_sediment_cuda):
         syncs = []
-        got = fn(torch.from_numpy(h), torch.from_numpy(sed), params, HEIGHT, syncs=syncs)
+        got = fn(h, sed, params, HEIGHT, syncs=syncs)
         np.testing.assert_array_equal(got.numpy().view(np.int32), want.numpy().view(np.int32))
         assert syncs == ["sediment.piles"]
+    assert bool(SE.piles_flag(sed, params, HEIGHT)) == piles
+    for out in (None, torch.full_like(h, float("nan"))):
+        got = SE.write_sediment_piles(h, sed, params, HEIGHT, piles, out=out)
+        np.testing.assert_array_equal(got.numpy().view(np.int32), want.numpy().view(np.int32))
+        if out is not None and not (exact and piles):  # the exact solver commits on a copy
+            assert got is out
     assert SK.write_sediment_cuda.launches == 0
     assert SK.write_sediment_cuda.tent_launches == 0
-    assert not torch.equal(want, torch.from_numpy(h))
+    assert not torch.equal(want, h)
 
 
 def test_axis_weights_are_the_plain_versions():

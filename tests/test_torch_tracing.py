@@ -198,14 +198,17 @@ def test_a_sim_step_records_each_phase_once_a_cycle_and_a_span_a_sync():
     cycles = [s for s in got if s.name == "erosion.cycle"]
     assert len(cycles) == SETTINGS.CYCLES
     assert all(c.parent == step.id for c in cycles)
+    # the cycle's two syncs lie between its halves; the deposit phase is
+    # the front half's adds before the piles sync and the write-back after it
+    halves = ["sync.spawn.drains", *PHASES[:4], "sync.sediment.piles", *PHASES[3:]]
     for c in cycles:
         phases = [s.name for s in got if s.parent == c.id]
-        assert phases == list(PHASES)
+        assert phases == halves
     syncs = [s for s in got if s.name.startswith("sync.")]
     assert [s.name for s in sorted(syncs, key=lambda s: s.start_ns)] == \
         ["sync." + x for x in sim.syncs]
-    owner = {"sync.spawn.drains": "erosion.spawn", "sync.descent.alive": "erosion.descent",
-             "sync.sediment.piles": "erosion.deposit"}
+    owner = {"sync.spawn.drains": "erosion.cycle", "sync.descent.alive": "erosion.descent",
+             "sync.sediment.piles": "erosion.cycle"}
     for s in syncs:
         assert by_id[s.parent].name == owner[s.name]
     assert {"spawn.drains", "descent.alive", "sediment.piles"} <= set(sim.syncs)
