@@ -7,11 +7,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. device: requires CUDA; prints the card's name and
    ``nvidia-smi --query-gpu=name,power.limit``;
-2. build: compiles the CUDA kernels K1-K11 (K1 with K1@short and K1@rss)
+2. build: compiles the CUDA kernels K1-K12 (K1 with K1@short and K1@rss)
    from ``noize_tpu_torch/csrc``
    (K7 particle descent ``descent.cu``, K8 threefry ``threefry.cu``, K9 the
    in-order event scatter ``scatter.cu``, K10 the fBm ``fractal.cu``, K11
-   the sediment write-back ``sediment.cu``);
+   the sediment write-back ``sediment.cu``, K12 the deposit's adds and the
+   track/flow decay ``decay.cu``);
 3. kernels: each kernel against its plain PyTorch version on the card at
    the flagship's shapes (2048², and 2049² for K5), with CUDA-event times
    of both, the card's least time for the same work (``bound_ms``) and,
@@ -115,6 +116,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    version (the kernels line's K11@2048, K11@1024 and K11@1025 rows), the
    device operations of one ``write_sediment_map`` call (one K11 kernel),
    and one ``ErosionSim`` step at each size (K11 once a cycle);
+18c. decay: K12 against ``deposit_and_decay_plain`` at 2048², 1024² and
+   1025², with the accumulators and without, with flow and track written
+   in place, bit for bit; the kernel timed beside its bound (bytes) and
+   the plain version (the kernels line's K12@2048 and K12@1024 rows), the
+   device operations of one ``deposit_and_decay`` call (one K12 kernel),
+   and one ``ErosionSim`` step at each size (K12 once a cycle);
 19. native IO: the Quickstart state checkpointed synchronously and queued
    (``async_``, ``flush``), restored equal, a corrupted payload refused;
 20. sharded: a one-rank NCCL group, ``spatial_mesh`` and ``batch_mesh`` of
@@ -173,7 +180,7 @@ Each path phase resets every launch count just before it runs and fails
 if a kernel of its path was not launched (the Quickstart and the flagship
 launch K10 once a step, config 5 once a batch): every erosion path runs K7 (the
 sharded one K7@window), its record table, K8, K8's draw entry and K9 (the
-Quickstart also K11 once a cycle), and
+Quickstart also K11 and K12 once a cycle), and
 prints its step time and host syncs; a Quickstart cycle draws with at most
 two K8 launches.  Prints the per-kernel JSON
 line, then as its last line
@@ -274,6 +281,7 @@ def _bound(nbytes, ops, ops_per_s=PEAK_F32_OPS_PER_S):
 def _counters():
     """Every kernel wrapper and entry with a launch count, by row key."""
     from noize_tpu_torch import prng
+    from noize_tpu_torch.erosion import decay_cuda as DK
     from noize_tpu_torch.erosion import descent_cuda as DC
     from noize_tpu_torch.erosion import pile_cuda as PL
     from noize_tpu_torch.erosion import pool_cuda as PC
@@ -294,6 +302,7 @@ def _counters():
         "K7@records": DC.step_records, "K8": prng.threefry2x32,
         "K8@randint": prng._randint_cuda, "K9": SCU.scatter_in_order,
         "K10": FK.fractal_fused, "K11": SK.write_sediment_cuda,
+        "K12": DK.deposit_and_decay_cuda,
         "#1": SC.fused_separable_chain, "#2": SC.fused_separable_chain_rows,
         "#3": FC.flow_map_pallas, "#6": PC.pool_automata_pallas,
         "#7": PC.pool_automata_pallas_pair, "#8": PC.pool_automata_pallas_quad,
@@ -348,11 +357,11 @@ def build_phase():
         _cuda.library()
         _check(host.result(), "the native IO runtime did not load")
     srcs = sorted(p.name for p in _cuda.CSRC.glob("*.cu"))
-    _check({"descent.cu", "threefry.cu", "scatter.cu", "fractal.cu", "sediment.cu"}
-           <= set(srcs), f"K7, K8, K9, K10 or K11 source missing: {srcs}")
+    _check({"descent.cu", "threefry.cu", "scatter.cu", "fractal.cu", "sediment.cu",
+            "decay.cu"} <= set(srcs), f"K7, K8, K9, K10, K11 or K12 source missing: {srcs}")
     print(f"build: {path.relative_to(HERE)} ({len(srcs)} sources in parallel: "
           f"{', '.join(srcs)}; K7 descent.cu, K8 threefry.cu, K9 scatter.cu, K10 "
-          "fractal.cu, K11 sediment.cu) and "
+          "fractal.cu, K11 sediment.cu, K12 decay.cu) and "
           f"{native.library_path().relative_to(HERE)} in {time.perf_counter() - t0:.1f} s")
 
 
@@ -391,9 +400,10 @@ class Rows:
     config-5 stack, K6 (the exact pile solver, no TPU kernel's port), K5 on
     a window and K6 on a pile table (the sharded cycle's), and K7 (particle
     descent), K7 on a window, K7's record table, K8 (threefry), K8's draw
-    entry and K9 (the in-order event scatter), and K10 (the fBm: the
-    flagship's, config 5's stack, configs 1 and 6), none a TPU kernel's
-    port, filled as the phases run."""
+    entry and K9 (the in-order event scatter), K10 (the fBm: the
+    flagship's, config 5's stack, configs 1 and 6), K11 (the sediment
+    write-back) and K12 (the deposit's adds and the track/flow decay), none
+    a TPU kernel's port, filled as the phases run."""
 
     def __init__(self):
         self.rows = {}
@@ -437,7 +447,8 @@ class Rows:
                  + [f"K1:{g}x{n}" for g, n in PRESET_CHAINS]
                  + ["K1@rss", "K1@stack", "K2@stack", "K6", "K5@window", "K6@table", "K7",
                     "K7@window", "K7@records", "K8", "K8@randint", "K9", "K10", "K10@stack",
-                    "K10@config1", "K10@config6", "K11@2048", "K11@1024", "K11@1025"])
+                    "K10@config1", "K10@config6", "K11@2048", "K11@1024", "K11@1025", "K12@2048",
+                    "K12@1024"])
         _check(set(self.rows) == set(order), f"rows {sorted(self.rows)}")
         for k in order:
             _check(self.launches.get(k, 0) > 0, f"{k} was launched on no path")
@@ -475,7 +486,7 @@ SRC = {
     "K5": "noize_tpu_torch/csrc/pool.cu", "K6": "noize_tpu_torch/csrc/piles.cu",
     "K7": "noize_tpu_torch/csrc/descent.cu", "K8": "noize_tpu_torch/csrc/threefry.cu",
     "K9": "noize_tpu_torch/csrc/scatter.cu", "K10": "noize_tpu_torch/csrc/fractal.cu",
-    "K11": "noize_tpu_torch/csrc/sediment.cu",
+    "K11": "noize_tpu_torch/csrc/sediment.cu", "K12": "noize_tpu_torch/csrc/decay.cu",
 }
 #: what K10 stands in for: no TPU kernel, the reference's XLA-fused fBm
 FBM_REF = ("none: the fBm, noize_tpu/ops/fractal.py:106-155 with ops/noise.py's bases, "
@@ -860,11 +871,11 @@ def quickstart_phase(rows):
                    f"restored {n} on {back.device} as {back.dtype}")
             _check(torch.equal(back, sm.get_buffer(n)), f"restored {n} differs")
     for key in ("K1", "K2", "K3", "K4", "K7", "K8", "K7@records", "K8@randint", "K9", "K10",
-                "K11"):
+                "K11", "K12"):
         _check(counts[key] > 0, f"{key} was not launched on the Quickstart path")
     _check(counts["K10"] == 1, f"the Quickstart's NoiseStage launched K10 {counts['K10']} times")
     cycles = sim.settings.CYCLES
-    for key in ("K7", "K7@records", "K9", "K11"):
+    for key in ("K7", "K7@records", "K9", "K11", "K12"):
         _check(counts[key] == cycles, f"{key} launched {counts[key]} times in {cycles} cycles")
     _check(counts["K8"] + counts["K8@randint"] <= 2 * cycles,
            f"the spawn's draws took {counts['K8']} + {counts['K8@randint']} K8 launches in "
@@ -1010,6 +1021,7 @@ def descent_phase(rows, sim):
     import torch
 
     from noize_tpu_torch import prng
+    from noize_tpu_torch.erosion import decay_cuda as DK
     from noize_tpu_torch.erosion import descent_cuda as DC
     from noize_tpu_torch.erosion import particles as PA
     from noize_tpu_torch.erosion import sim as SIM
@@ -1992,6 +2004,85 @@ def sediment_phase(rows):
         rows.set_launches({key: counts["K11"]})
         print(f"K11 {res}² step: {counts['K11']} launches, "
               f"{SK.write_sediment_cuda.tent_launches} with the tent")
+
+
+#: what K12 stands in for: no TPU kernel, the reference's XLA-fused deposit and decay
+DECAY_REF = ("none: the deposit's adds and the track/flow decay, noize_tpu/erosion/sim.py's "
+             "adds and world.py update_flow_from_track, XLA-fused on the TPU")
+
+
+def decay_phase(rows):
+    """K12 (the deposit's adds and the track/flow decay) against
+    ``deposit_and_decay_plain`` on the card at 2048², 1024² and 1025²: with
+    the accumulators, without them, and with flow and track written in
+    place, bit for bit; timed at 2048² and 1024² (the kernels line's K12
+    rows: the launch alone, bound by bytes, against the plain version's 19
+    operations); the device operations of one call; then one ErosionSim
+    step at each size (K12 once a cycle)."""
+    from dataclasses import replace
+
+    import torch
+
+    from noize_tpu_torch.erosion import decay_cuda as DK
+    from noize_tpu_torch.erosion import world as W
+    from noize_tpu_torch.erosion.params import ErosionSettings
+    from noize_tpu_torch.erosion.sim import ErosionSim
+
+    params = ErosionSettings().as_parameters()
+    for res in (2048, 1024, 1025):
+        g = torch.Generator(device="cuda").manual_seed(res)
+
+        def rand(scale):
+            return torch.rand((res, res), generator=g, device="cuda") * scale
+
+        world = W.WorldState(height=rand(1.0), pool=rand(1e-4), flow=rand(0.3),
+                             track=torch.where(rand(1.0) < 0.5, rand(1e-4), 0.0),
+                             plants=torch.zeros((res, res), device="cuda"))
+        track_acc, pool_acc = rand(1e-4), rand(1e-4)
+        for what, accs in (("accumulators", (track_acc, pool_acc)), ("no spawn", (None, None))):
+            want = W.deposit_and_decay_plain(world, *accs, params, 1000.0)
+            got = W.deposit_and_decay(world, *accs, params, 1000.0)
+            _same_bits(f"K12 {res}² ({what})", (got.pool, got.flow, got.track),
+                       (want.pool, want.flow, want.track))
+        into = replace(world, flow=world.flow.clone(), track=world.track.clone())
+        got = W.deposit_and_decay(into, track_acc, pool_acc, params, 1000.0, out=into)
+        want = W.deposit_and_decay_plain(world, track_acc, pool_acc, params, 1000.0)
+        _check(got.flow is into.flow and got.track is into.track, "K12 out= not written")
+        _same_bits(f"K12 {res}² (in place)", (got.pool, got.flow, got.track),
+                   (want.pool, want.flow, want.track))
+        key = f"K12@{res}"
+
+        def kernel():
+            return W.deposit_and_decay(world, track_acc, pool_acc, params, 1000.0)
+
+        def plain():
+            w = W.deposit_and_decay_plain(world, track_acc, pool_acc, params, 1000.0)
+            return w.pool, w.flow, w.track
+
+        if res != 1025:
+            ops, nbytes = DK.cost(res, res)
+            k = kernel()
+            rows.compare(key, f"K12 deposit_and_decay_cuda, {res}² with the accumulators",
+                         SRC["K12"], DECAY_REF, (k.pool, k.flow, k.track), kernel, plain, key,
+                         50, nbytes, ops)
+            host_us = _host_us(kernel)
+            dev = _device_ops_of_last_call(kernel)
+            k12 = [us for name, us in dev if "decay_cells" in name]
+            _check(len(k12) == 1, f"deposit_and_decay ran {len(k12)} K12 kernels: {dev}")
+            print(f"K12 {res}²: bit-equal to the plain version with the accumulators, without "
+                  f"and in place; the kernel {rows.rows[key]['ms']:.4f} ms (device "
+                  f"{k12[0]:.1f} µs, host enqueue {host_us:.1f} µs) in {len(dev)} device "
+                  f"operations {[n[:40] for n, _ in dev]}")
+        _reset_counts()
+        sim = ErosionSim(world.height)
+        sim.step()
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        _check(counts["K12"] == sim.settings.CYCLES,
+               f"a {res}² step launched K12 {counts['K12']} times")
+        if res != 1025:
+            rows.set_launches({key: counts["K12"]})
+        print(f"K12 {res}² step: {counts['K12']} launches")
 
 
 def exact_piles_phase(rows):
@@ -3006,6 +3097,7 @@ def main():
     vegetation_phase()
     exact_piles_phase(rows)
     sediment_phase(rows)
+    decay_phase(rows)
     native_io_phase(sim)
     window_kernels_phase(rows)
     examples_phase()

@@ -86,6 +86,16 @@ class Sediment(ctypes.Structure):
                 ("wt", Taps), ("ft", Folds)]
 
 
+class Decay(ctypes.Structure):
+    """K12's scalars, passed by value (decay.cu's ``NoizeDecay``): the two
+    placement multipliers, MINFLOWPOOL, the pool's and the plain flow's keep
+    factors, the track's gain and the evaporation a cycle, each the plain
+    expression's Python scalar as float32."""
+
+    _fields_ = [("pm", _F), ("tm", _F), ("minpool", _F), ("keep_pool", _F), ("keep", _F),
+                ("gain", _F), ("evap", _F)]
+
+
 #: argtypes of every C entry point (csrc/*.cu); all return int.
 SIGNATURES = {
     # x, out, tmp, rows, cols, maps in the stack, X taps and Z taps (host
@@ -153,6 +163,10 @@ SIGNATURES = {
     # height, sediment, out, rows, cols, the call's constants (by value),
     # stream (K11)
     "noize_sediment": (_P, _P, _P, _I, _I, Sediment, _P),
+    # pool, pool_acc, track, track_acc (the accumulators both null: no
+    # spawn), flow, pool_out, flow_out, track_out, cells, the call's scalars
+    # (by value), stream (K12)
+    "noize_decay": (_P, _P, _P, _P, _P, _P, _P, _P, _L, Decay, _P),
 }
 
 _LIB = None

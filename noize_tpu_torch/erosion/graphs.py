@@ -11,15 +11,15 @@ on static buffers and replayed:
     sync.spawn.drains   (the drain water the previous cycle left)
     graph A             ``sim.cycle_front``, dry: thermal (K3), the spawn
                         (K8 and its fills), the descent (K7's records, K7,
-                        K9), the deposit's pool and track adds, the piles
-                        flag
+                        K9), the piles flag
     sync.sediment.piles
     graph B             ``sim.cycle_back`` with the piles answer (one graph
                         each, captured when first needed): K11 with the
-                        pile tent or without, the flow update, the pool
-                        automata (K4, K5 on odd grids), written into the
-                        static state; the rest of the state copied there,
-                        and the next cycle's drains flag
+                        pile tent or without, K12 (the deposit's adds and
+                        the flow update), the pool automata (K4, K5 on odd
+                        grids), written into the static state; the rest of
+                        the state (the key; the height without thermal)
+                        copied there, and the next cycle's drains flag
 
 The halves are the eager cycle's own code, so a replay launches its
 kernels in its order with its launch parameters and is bit-equal to
@@ -58,6 +58,7 @@ from ..ops.cuda.thermal import thermal_erosion_fused
 from ..prng import _randint_cuda, threefry2x32
 from ..utils.tracking import span
 from . import sim as _sim
+from .decay_cuda import deposit_and_decay_cuda
 from .descent_cuda import descend_steps, step_records
 from .pool_cuda import add_wet, pool_automata_cuda, pool_automata_full_cuda
 from .scatter_cuda import scatter_in_order
@@ -72,8 +73,8 @@ COUNTERS = (
     (thermal_erosion_fused, "launches"), (threefry2x32, "launches"),
     (_randint_cuda, "launches"), (step_records, "launches"), (descend_steps, "launches"),
     (scatter_in_order, "launches"), (write_sediment_cuda, "launches"),
-    (write_sediment_cuda, "tent_launches"), (pool_automata_cuda, "launches"),
-    (pool_automata_full_cuda, "launches"),
+    (write_sediment_cuda, "tent_launches"), (deposit_and_decay_cuda, "launches"),
+    (pool_automata_cuda, "launches"), (pool_automata_full_cuda, "launches"),
 )
 #: the pool wrappers whose ``wet_calls`` a replay adds its gate flag to
 WET = (pool_automata_cuda, pool_automata_full_cuda)

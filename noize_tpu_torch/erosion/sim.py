@@ -14,13 +14,14 @@ host):
       ``lax.top_k`` gives them; fresh ones in the other slots), the rest
       of the drain water back into the pool map
     → simultaneous descent (scatter-add events)
-    → the deposit's pool and track adds, the piles flag
-      (``sediment.piles_flag``)
+    → the piles flag (``sediment.piles_flag``)
   ``sediment.piles`` sync: does a cell pile?
   back half (``cycle_back``)
     sediment write-back (disperse, the pile tent when a cell piles, the
       [0,1] breaker: kernel K11 on the card; ``sediment.write_sediment_piles``)
-    → track→flow decay + pool surface evaporation
+    → the deposit's pool and track adds, the track→flow decay and the pool
+      surface evaporation (kernel K12 on the card;
+      ``world.deposit_and_decay``)
     → pool automata (kernel K4 on the card, K5 on odd grids), emitting
       drain water for the next cycle
 
@@ -33,8 +34,9 @@ pool automata.  Pass a list as ``syncs`` to have each host sync recorded.
 Spans (``utils.tracking``): ``erosion.cycle`` around a cycle, with the
 syncs (``sync.<site>``) in it; inside the halves one span a phase,
 ``erosion.thermal``, ``erosion.spawn``, ``erosion.descent``,
-``erosion.deposit`` (the front half's adds and the back half's
-write-back), ``erosion.flow``, ``erosion.pool``.  A replayed half records
+``erosion.deposit`` (the front half's piles flag and the back half's
+write-back), ``erosion.flow`` (the deposit's adds and the decay),
+``erosion.pool``.  A replayed half records
 none.
 """
 
@@ -54,7 +56,7 @@ from ..utils.tracking import StandAloneJobHandler, span, sync_bool
 from .particles import Particles, descend_all, spawn
 from .pool_cuda import pool_automata_cuda
 from .sediment import piles_flag, write_sediment_piles
-from .world import WorldState, curvature_map, update_flow_from_track
+from .world import WorldState, curvature_map, deposit_and_decay
 
 
 @dataclass
@@ -135,12 +137,15 @@ def spawns(settings: ErosionSettings) -> bool:
 # --- the cycle: two halves and the driver of the syncs between them ---------
 
 class Front(NamedTuple):
-    """What the front half hands the back half.  ``sed_acc`` and ``flag``
-    (the piles flag) are None where the cycle does not spawn."""
+    """What the front half hands the back half.  The descent's accumulators
+    (``track_acc``, ``pool_acc``, ``sed_acc``) and ``flag`` (the piles flag)
+    are None where the cycle does not spawn."""
 
     world: WorldState
     drain_water: torch.Tensor
     key: torch.Tensor
+    track_acc: Optional[torch.Tensor]
+    pool_acc: Optional[torch.Tensor]
     sed_acc: Optional[torch.Tensor]
     flag: Optional[torch.Tensor]
 
@@ -149,10 +154,9 @@ def cycle_front(state: SimState, settings: ErosionSettings, meta: TileSetMeta, p
                 wet: bool, *, fresh: Optional[Particles] = None, syncs: list = None) -> Front:
     """The cycle's front half from ``state``, ``wet`` the ``spawn.drains``
     sync's answer: thermal, the spawn, the drain release, the descent and
-    the deposit's pool and track adds, and the piles flag.  A cycle that
-    does not spawn hands ``state`` on."""
+    the piles flag.  A cycle that does not spawn hands ``state`` on."""
     if not spawns(settings):
-        return Front(state.world, state.drain_water, state.key, None, None)
+        return Front(state.world, state.drain_water, state.key, None, None, None, None)
     height_scale = float(meta.height)
     world = state.world
     if settings.ENABLE_THERMAL:
@@ -172,22 +176,17 @@ def cycle_front(state: SimState, settings: ErosionSettings, meta: TileSetMeta, p
             parts, world, params, height_scale, meta.patch_res, meta.generator_res,
             syncs=syncs)
     with span("erosion.deposit"):
-        world = replace(
-            world,
-            pool=world.pool + pool_acc * params.POOL_PLACEMENT_MULTIPLIER,
-            track=world.track + track_acc * params.TRACK_PLACEMENT_MULTIPLIER,
-        )
         flag = piles_flag(sed_acc, params, height_scale)
-    return Front(world, drain_water, key, sed_acc, flag)
+    return Front(world, drain_water, key, track_acc, pool_acc, sed_acc, flag)
 
 
 def cycle_back(front: Front, settings: ErosionSettings, meta: TileSetMeta, params,
                piles: bool, *, out: Optional[SimState] = None) -> SimState:
     """The cycle's back half from the front half's ``front``, ``piles`` the
-    ``sediment.piles`` sync's answer: the sediment write-back, the flow
-    update and the pool automata.  ``out``: the static state of
-    ``erosion.graphs`` to write the height, the pool and the drain water
-    into (None: new maps)."""
+    ``sediment.piles`` sync's answer: the sediment write-back, the
+    deposit's adds and the flow update, and the pool automata.  ``out``: the
+    static state of ``erosion.graphs`` to write the height, the flow, the
+    track, the pool and the drain water into (None: new maps)."""
     height_scale = float(meta.height)
     world = front.world
     if front.sed_acc is not None:
@@ -199,7 +198,8 @@ def cycle_back(front: Front, settings: ErosionSettings, meta: TileSetMeta, param
             world = replace(world, height=write_sediment_piles(
                 world.height, front.sed_acc, params, height_scale, piles, out=into))
     with span("erosion.flow"):
-        world = update_flow_from_track(world, params, height_scale)
+        world = deposit_and_decay(world, front.track_acc, front.pool_acc, params, height_scale,
+                                  out=None if out is None else out.world)
     with span("erosion.pool"):
         pool, drains = pool_automata_cuda(world.height, world.pool, settings.WATER_STEPS,
                                           spawns(settings),

@@ -8,7 +8,7 @@ one ``[row, col]`` layout; particle positions are (row, col).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -80,6 +80,38 @@ def update_flow_from_track(state: WorldState, params, height_scale) -> WorldStat
         track=torch.zeros_like(tv),
         plants=state.plants,
     )
+
+
+def deposit_and_decay_plain(world: WorldState, track_acc, pool_acc, params,
+                            height_scale) -> WorldState:
+    """The plain version of kernel K12: the deposit's pool and track adds
+    (``pool_acc``, ``track_acc``: the descent's accumulators; both None
+    where the cycle does not spawn, and then no add), then
+    ``update_flow_from_track``, as PyTorch operations on any device."""
+    if track_acc is not None:
+        world = replace(
+            world,
+            pool=world.pool + pool_acc * params.POOL_PLACEMENT_MULTIPLIER,
+            track=world.track + track_acc * params.TRACK_PLACEMENT_MULTIPLIER,
+        )
+    return update_flow_from_track(world, params, height_scale)
+
+
+def deposit_and_decay(world: WorldState, track_acc, pool_acc, params, height_scale, *,
+                      out: WorldState = None) -> WorldState:
+    """The deposit's adds and the track/flow decay of one cycle
+    (``deposit_and_decay_plain``): CUDA tensors run kernel K12
+    (``decay_cuda``) or raise, CPU tensors the plain version.  ``out``: a
+    world whose flow and track maps take the new flow and track (they may
+    be ``world``'s own); the pool always goes to a new map."""
+    if world.pool.device.type == "cuda":
+        from .decay_cuda import _launch
+
+        return _launch(world, track_acc, pool_acc, params, height_scale, out)
+    new = deposit_and_decay_plain(world, track_acc, pool_acc, params, height_scale)
+    if out is None:
+        return new
+    return replace(new, flow=out.flow.copy_(new.flow), track=out.track.copy_(new.track))
 
 
 def normal_map(state: WorldState, height_scale, patch_res):

@@ -29,6 +29,8 @@ Each rank holds its block of every map (a ``DTensor`` placed ``Shard(0)``,
   blocks only; ``EXACT_PILES`` gathers the ≤ K piles' slot values into a
   table every rank holds and solves it there (K6's table entry), each rank
   then committing to its own block.
+* flow — the deposit's adds and the track/flow decay are per cell:
+  ``erosion.world.deposit_and_decay`` on the blocks (K12 on the card).
 * pool automata — one exchange a group of ``POOL_GROUP`` water steps (all
   of a cycle's at the default ``WATER_STEPS``): the pool extended 8 cells
   a step of the group toward the neighbours (through as many neighbour
@@ -71,7 +73,7 @@ from ..erosion.pile_cuda import solve_pile_table
 from ..erosion.pool_cuda import pool_automata_window
 from ..erosion.sediment import KERNEL5, _pile_tables, _triangle_taps, pile_increment
 from ..erosion.sim import ErosionSim as _ErosionSimBase, SimState, init_state
-from ..erosion.world import WorldState, update_flow_from_track
+from ..erosion.world import WorldState, deposit_and_decay
 from ..prng import PRNGKey, split
 from .halo import (_as_field, _axis, _extend_2d, _local_block, _mesh_device, exchange_2d,
                    exchange_axis, fold_2d)
@@ -441,6 +443,7 @@ def sharded_erosion_cycle(mesh, state: SimState, settings: ErosionSettings,
                                          iterations=settings.THERMAL_CYCLES)
         world = replace(world, height=height.to_local())
 
+    track_acc = pool_acc = None
     if behavior != ErosionMode.ONLY_FLOW_WATER:
         k1, key = split(key)
         parts, drain = _spawn_block(mesh, drain, k1, settings.PARTICLES_PER_CYCLE, res)
@@ -448,15 +451,12 @@ def sharded_erosion_cycle(mesh, state: SimState, settings: ErosionSettings,
         drain = torch.zeros_like(drain)
         _, track_acc, pool_acc, sed_acc = _descent_block(
             mesh, world, parts, params, height_scale, meta.patch_res, res, chunk)
-        world = replace(
-            world,
-            pool=world.pool + pool_acc * params.POOL_PLACEMENT_MULTIPLIER,
-            track=world.track + track_acc * params.TRACK_PLACEMENT_MULTIPLIER,
-        )
+        track_acc, pool_acc = track_acc.contiguous(), pool_acc.contiguous()
         world = replace(world, height=_write_sediment_block(mesh, world.height, sed_acc,
                                                             params, height_scale))
 
-    world = update_flow_from_track(world, params, height_scale)
+    # the deposit's adds and the decay: K12 on the card
+    world = deposit_and_decay(world, track_acc, pool_acc, params, height_scale)
     pool, drains = _pool_block(mesh, world.height, world.pool, res, settings.WATER_STEPS,
                                behavior != ErosionMode.ONLY_FLOW_WATER)
     world = replace(world, pool=pool)

@@ -191,6 +191,71 @@ def test_update_flow_from_track_bit_exact():
         np.testing.assert_array_equal(getattr(got, k).numpy(), np.asarray(getattr(want, k)))
 
 
+def _decay_maps(seed, res=32):
+    """World maps and descent accumulators for the deposit and decay: pools
+    straddling MINFLOWPOOL (on it, an ulp either side, ±0), tracks and
+    accumulators with rows of +0 and -0, and accumulators that carry a
+    pool across MINFLOWPOOL."""
+    rng = np.random.default_rng(seed)
+    mfp = np.float32(TW.MINFLOWPOOL)
+    m = {k: rng.uniform(0, 1e-3, (res, res)).astype(np.float32)
+         for k in ("height", "flow", "plants")}
+    m["pool"] = rng.uniform(0, 2 * mfp, (res, res)).astype(np.float32)
+    m["pool"].flat[:6] = [mfp, np.nextafter(mfp, np.float32(0)), np.nextafter(mfp, np.float32(1)),
+                          0.0, -0.0, 1e-3]
+    m["track"] = rng.uniform(0, 1e-4, (res, res)).astype(np.float32)
+    m["track"][::3] = 0.0
+    m["track"][1::5] = -0.0
+    acc = {k: rng.uniform(0, 1e-4, (res, res)).astype(np.float32) for k in ("track", "pool")}
+    for a in acc.values():
+        a[::4] = 0.0
+        a[2::7] = -0.0
+    return m, acc["track"], acc["pool"]
+
+
+def _same_bits(got, want):
+    np.testing.assert_array_equal(np.asarray(got).view(np.int32), np.asarray(want).view(np.int32))
+
+
+@pytest.mark.parametrize("case", ["defaults", "tuned", "no_spawn"])
+def test_deposit_and_decay_bit_exact(case):
+    """``world.deposit_and_decay``'s plain path (CPU tensors) against the
+    reference's deposit adds followed by its ``update_flow_from_track``,
+    one primitive at a time, bit for bit (signs of zero too); without
+    accumulators it is ``update_flow_from_track`` alone.  ``out`` takes the
+    new flow and track, here the world's own maps."""
+    maps, track_acc, pool_acc = _decay_maps(7)
+    params = ErosionSettings().as_parameters()
+    if case == "tuned":
+        params = dataclasses.replace(params, FLOW_LOSS_RATE=float(np.float32(0.37)),
+                                     SURFACE_EVAPORATION_RATE=float(np.float32(0.023)))
+    spawn = case != "no_spawn"
+    with jax.disable_jit():
+        jw = JW.WorldState(**{k: jnp.asarray(v) for k, v in maps.items()})
+        if spawn:
+            jw = dataclasses.replace(
+                jw, pool=jw.pool + jnp.asarray(pool_acc) * params.POOL_PLACEMENT_MULTIPLIER,
+                track=jw.track + jnp.asarray(track_acc) * params.TRACK_PLACEMENT_MULTIPLIER)
+        want = JW.update_flow_from_track(jw, params, 1000.0)
+
+    def world():
+        return TW.WorldState(**{k: torch.from_numpy(v.copy()) for k, v in maps.items()})
+
+    accs = (torch.from_numpy(track_acc), torch.from_numpy(pool_acc)) if spawn else (None, None)
+    got = TW.deposit_and_decay(world(), *accs, params, 1000.0)
+    for k in ("height", "pool", "flow", "track", "plants"):
+        _same_bits(getattr(got, k).numpy(), getattr(want, k))
+    if not spawn:
+        alone = TW.update_flow_from_track(world(), params, 1000.0)
+        for k in ("pool", "flow", "track"):
+            _same_bits(getattr(got, k).numpy(), getattr(alone, k).numpy())
+    w = world()
+    into = TW.deposit_and_decay(w, *accs, params, 1000.0, out=w)
+    assert into.flow is w.flow and into.track is w.track and into.pool is not w.pool
+    for k in ("pool", "flow", "track"):
+        _same_bits(getattr(into, k).numpy(), getattr(got, k).numpy())
+
+
 def test_spawn_with_drains_top_k_ties_to_lower_index():
     res, n = 16, 6
     drain = np.zeros((res, res), np.float32)

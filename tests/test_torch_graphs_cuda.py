@@ -20,6 +20,7 @@ import torch
 from noize_tpu_torch.core.tiles import TileSetMeta
 from noize_tpu_torch.erosion import graphs as G
 from noize_tpu_torch.erosion import sim as SIM
+from noize_tpu_torch.erosion.decay_cuda import deposit_and_decay_cuda
 from noize_tpu_torch.erosion.params import ErosionMode, ErosionSettings
 from noize_tpu_torch.erosion.pool_cuda import pool_automata_cuda
 from noize_tpu_torch.erosion.sediment_cuda import write_sediment_cuda
@@ -120,12 +121,15 @@ def test_graph_cycles_bit_equal_eager(cuda, res, piles):
     runner = G.CycleGraphs()
     before = _counts()
     tents = write_sediment_cuda.tent_launches
+    k12 = deposit_and_decay_cuda.launches
     got, syncs, handed = start, [], []
     for _ in range(3):
         got = SIM.erosion_cycles(got, settings, meta, 2, syncs=syncs, graphs=runner)
         handed.append((got, _snapshot(got)))
     assert _delta(before) == (2, dry, 6 - dry)
     assert write_sediment_cuda.tent_launches - tents == (6 if piles else 0)
+    # K12 once a cycle, replayed or not
+    assert deposit_and_decay_cuda.launches - k12 == 6
     assert syncs == want_syncs == ["spawn.drains", "sediment.piles"] * 6
     _same_state(got, want)
     for state, snap in handed:
@@ -222,9 +226,11 @@ def test_other_behaviours_bit_equal(cuda, change):
     want, want_syncs, _ = _eager(start, settings, meta, 6)
     runner = G.CycleGraphs()
     got, syncs = start, []
+    before, k12 = _counts(), deposit_and_decay_cuda.launches
     for _ in range(3):
         got = SIM.erosion_cycles(got, settings, meta, 2, syncs=syncs, graphs=runner)
     assert syncs == want_syncs
+    assert _delta(before)[1] >= 1 and deposit_and_decay_cuda.launches - k12 == 6
     _same_state(got, want)
 
 

@@ -1,4 +1,4 @@
-"""noize_tpu_torch CUDA kernels K1-K10 and the JAX-signature entries on
+"""noize_tpu_torch CUDA kernels K1-K12 and the JAX-signature entries on
 them against their plain PyTorch versions on the card.
 
 Every test here needs an NVIDIA GPU (and nvcc to build the kernels); on a
@@ -1913,6 +1913,134 @@ def test_k11_one_launch_a_cycle(cuda, monkeypatch, piles):
     want = SIM.erosion_cycle(replace(sim.state), settings, sim.meta)
     torch.cuda.synchronize()
     assert SK.write_sediment_cuda.launches == before[0] + 1
+    for name in ("height", "pool", "track", "flow"):
+        _raw_equal(getattr(got.world, name), getattr(want.world, name))
+    _raw_equal(got.drain_water, want.drain_water)
+
+
+# --- K12: the deposit's adds and the track/flow decay (csrc/decay.cu) --------
+
+def _decay_case(shape, seed, special=False):
+    """A world and descent accumulators on the card: pools straddling
+    MINFLOWPOOL, tracks and accumulators with +0 and -0, and (``special``)
+    NaN, ±inf and -0.0 among every input."""
+    from noize_tpu_torch.erosion import world as W
+
+    rng = np.random.default_rng(seed)
+    mfp = np.float32(W.MINFLOWPOOL)
+    maps = {"height": rng.uniform(0, 1, shape), "plants": np.zeros(shape),
+            "pool": rng.uniform(0, 2 * mfp, shape), "flow": rng.uniform(0, 0.3, shape),
+            "track": rng.uniform(0, 1e-4, shape)}
+    maps = {k: v.astype(np.float32) for k, v in maps.items()}
+    maps["pool"].flat[:5] = [mfp, np.nextafter(mfp, np.float32(0)),
+                             np.nextafter(mfp, np.float32(1)), 0.0, -0.0]
+    maps["track"][::3] = 0.0
+    maps["track"][1::5] = -0.0
+    accs = [rng.uniform(0, 1e-4, shape).astype(np.float32) for _ in range(2)]
+    for a in accs:
+        a[::4] = 0.0
+        a[2::7] = -0.0
+    if special:
+        edge = np.float32([np.nan, np.inf, -np.inf, -0.0, 0.0, 1e30, -1e-30])
+        for a in [maps["pool"], maps["flow"], maps["track"], *accs]:
+            a.flat[rng.choice(a.size, 64 * len(edge), replace=False)] = np.repeat(edge, 64)
+    world = W.WorldState(**{k: torch.from_numpy(v).to("cuda") for k, v in maps.items()})
+    return world, torch.from_numpy(accs[0]).to("cuda"), torch.from_numpy(accs[1]).to("cuda")
+
+
+def _offset(t):
+    """``t``'s values in a map 4 bytes past a 16-byte boundary (K12's
+    cell-a-thread path)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("case", ["spawn", "out", "special", "no_spawn", "unaligned"])
+@pytest.mark.parametrize("shape", [(2048, 2048), (1024, 1024), (1025, 1025), (37, 50)])
+def test_k12_deposit_and_decay_matches_plain(cuda, shape, case):
+    """K12 against ``deposit_and_decay_plain`` on the card, bit for bit
+    (signs of zero, NaN): one launch a call; ``out`` aliasing the world's
+    flow and track (graph B's in-place write); NaN, ±inf and -0.0 inputs
+    with no evaporation (a -0.0 pool reaches the clamp); no accumulators
+    (no spawn); maps off a 16-byte boundary."""
+    from dataclasses import replace
+
+    from noize_tpu_torch.erosion import decay_cuda as DK
+    from noize_tpu_torch.erosion import world as W
+    from noize_tpu_torch.erosion.params import ErosionSettings
+
+    params = ErosionSettings().as_parameters()
+    world, track_acc, pool_acc = _decay_case(shape, shape[0], case == "special")
+    if case == "special":
+        params = replace(params, SURFACE_EVAPORATION_RATE=0.0, FLOW_LOSS_RATE=0.25)
+    if case == "no_spawn":
+        track_acc = pool_acc = None
+    if case == "unaligned":
+        world = replace(world, pool=_offset(world.pool), flow=_offset(world.flow))
+        track_acc = _offset(track_acc)
+    want = W.deposit_and_decay_plain(world, track_acc, pool_acc, params, 1000.0)
+    before = DK.deposit_and_decay_cuda.launches
+    if case == "out":
+        flow, track = world.flow, world.track
+        got = W.deposit_and_decay(world, track_acc, pool_acc, params, 1000.0, out=world)
+        assert got.flow is flow and got.track is track and got.pool is not world.pool
+    else:
+        got = W.deposit_and_decay(world, track_acc, pool_acc, params, 1000.0)
+    assert DK.deposit_and_decay_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    for name in ("pool", "flow", "track"):
+        _raw_equal(getattr(got, name), getattr(want, name))
+    assert got.height is world.height and got.plants is world.plants
+
+
+def test_k12_refuses_bad_input(cuda):
+    from dataclasses import replace
+
+    from noize_tpu_torch.erosion import decay_cuda as DK
+    from noize_tpu_torch.erosion.params import ErosionSettings
+
+    params = ErosionSettings().as_parameters()
+    world, track_acc, pool_acc = _decay_case((64, 64), 3)
+    with pytest.raises(ValueError, match="both"):
+        DK.deposit_and_decay_cuda(world, track_acc, None, params, 1000.0)
+    with pytest.raises(ValueError, match="float32"):
+        DK.deposit_and_decay_cuda(world, track_acc.double(), pool_acc, params, 1000.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        DK.deposit_and_decay_cuda(replace(world, flow=world.flow.t()), track_acc, pool_acc,
+                                  params, 1000.0)
+    with pytest.raises(ValueError, match="match"):
+        DK.deposit_and_decay_cuda(world, track_acc[:32], pool_acc, params, 1000.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        DK.deposit_and_decay_cuda(world, track_acc.cpu(), pool_acc, params, 1000.0)
+    with pytest.raises(ValueError, match="apart"):
+        DK.deposit_and_decay_cuda(world, track_acc, pool_acc, params, 1000.0,
+                                  out=replace(world, flow=world.pool))
+
+
+def test_k12_one_launch_a_cycle(cuda, monkeypatch):
+    """One ``erosion_cycle`` launches K12 once and leaves the state the
+    plain deposit and decay leave."""
+    from dataclasses import replace
+
+    from noize_tpu_torch.erosion import decay_cuda as DK
+    from noize_tpu_torch.erosion import sim as SIM
+    from noize_tpu_torch.erosion import world as W
+    from noize_tpu_torch.erosion.params import ErosionSettings
+
+    settings = ErosionSettings()
+    sim = SIM.ErosionSim(_descent_world(256, 8).height, settings=settings)
+    before = DK.deposit_and_decay_cuda.launches
+    got = SIM.erosion_cycle(sim.state, settings, sim.meta)
+    torch.cuda.synchronize()
+    assert DK.deposit_and_decay_cuda.launches == before + 1
+    monkeypatch.setattr(SIM, "deposit_and_decay",  # the plain deposit and decay for K12
+                        lambda w, t, p, prm, hs, out=None:
+                        W.deposit_and_decay_plain(w, t, p, prm, hs))
+    want = SIM.erosion_cycle(replace(sim.state), settings, sim.meta)
+    torch.cuda.synchronize()
+    assert DK.deposit_and_decay_cuda.launches == before + 1
     for name in ("height", "pool", "track", "flow"):
         _raw_equal(getattr(got.world, name), getattr(want.world, name))
     _raw_equal(got.drain_water, want.drain_water)
